@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Builds the port's three CUDA kernels from the checkout (in parallel),
-holds each against its plain-PyTorch version on the card, renders the
+Builds the port's three CUDA kernels from the checkout (in parallel,
+beside the sweep folds' instruction-count probes), holds each against its
+plain-PyTorch version on the card (the sweeps bit for bit), renders the
 committed goldens through them, and drives the two main paths through
 the CLI a user calls: the default workload (`random`, 1280x720, 100 spp,
 depth 10; sphere sweep K1) and the bench workload (`final`, 400x225,
@@ -33,6 +34,7 @@ ROOT = Path(__file__).resolve().parent
 BIG = float(np.float32(3.0e38))
 T_MIN = 1.0e-3
 KERNELS = ("sphere_sweep", "typed_sweep", "turbulence")
+PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
 # the tensor cores at 67 TFLOP/s.
@@ -46,17 +48,19 @@ INT32_OPS_S = 16.7e12
 # an IEEE division or square root counted as one operation).  The branch a
 # pair takes only on a hit (a sphere's roots, a medium's free flight and
 # its RNG draw) is left out, so the bound is a floor.  Per ray-primitive
-# pair: a sphere or a medium sphere 19 (oc 3, half_b 5, c 7, disc 3, test
-# 1), a rect 12 (t 2, the hit point 4, 6 tests), a box or a medium box 25
-# (6 sub, 6 mul, 10 min/max, 3 tests); +8 for the center lerp of a sphere
-# that moves (p1 != p0); +33 in a transformed tile (R^T (o - t), R^T d).
-# Per ray, once for every untransformed tile of the types that need it:
-# |d|^2 (5) of spheres, the 3 slab reciprocals with their floor tests (6)
-# of boxes, the 3 dk == 0 tests (3) of rects.  In a transformed tile the
+# pair: a sphere or a medium sphere 18 (oc 3, half_b 5, c 6, disc 3, test
+# 1; r * r is the sphere's own, once per scene), a rect 12 (t 2, the hit
+# point 4, 6 tests), a box or a medium box 25 (6 sub, 6 mul, 10 min/max, 3
+# tests); +6 for the center lerp of a sphere that moves (3 mul, 3 add),
+# whose factor (time - time0) / (time1 - time0) costs 2 once per ray and
+# shutter interval; +33 in a transformed tile (R^T (o - t), R^T d).  Per
+# ray, once for every untransformed tile of the types that need it: |d|^2
+# (5) of spheres, the 3 slab reciprocals with their floor tests (6) of
+# boxes, the 3 dk == 0 tests (3) of rects.  In a transformed tile the
 # direction is the pair's own, so these count per pair there.
-SWEEP_PAIR_OPS = {"sphere": 19, "rect": 12, "box": 25}
+SWEEP_PAIR_OPS = {"sphere": 18, "rect": 12, "box": 25}
 SWEEP_RAY_OPS = {"sphere": 5, "rect": 3, "box": 6}
-SWEEP_MOTION_OPS, SWEEP_XFORM_OPS = 8, 33
+SWEEP_MOTION_OPS, SWEEP_SHUTTER_OPS, SWEEP_XFORM_OPS = 6, 2, 33
 # The SASS opcodes counted as operations (cuobjdump -sass of the built
 # library; an FFMA counts as two FP32 operations, IMAD.MOV is a move and
 # is not counted).
@@ -65,6 +69,13 @@ SASS_FP32 = {"FADD": 1, "FMUL": 1, "FFMA": 2, "FMNMX": 1, "FSETP": 1,
 SASS_INT = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "LEA", "PRMT",
             "ISETP", "IMNMX", "VIMNMX", "SEL", "IABS", "BMSK", "SGXT",
             "POPC", "FLO", "BREV", "I2F", "I2FP", "F2I", "F2IP"}
+# K1b's tile kinds as probe instantiations (csrc/sweep_probe.cu): label,
+# PT_* tag, transformed, motion.  An untransformed tile's pair loop folds
+# one record into the whole packet per trip, a transformed tile's into one
+# ray (typed_sweep.cu fold_segment).
+PROBE_KINDS = (("sphere", 0, 0, 0), ("motion tile (two copies)", 0, 0, 1),
+               ("rect", 1, 0, 0), ("box", 4, 0, 0), ("medium sphere", 2, 0, 0),
+               ("medium box", 3, 0, 0), ("transformed box", 4, 1, 0))
 K2_OCTAVES = 7  # csrc/turbulence.cu kDepth, the octave loop's trip count
 
 
@@ -80,23 +91,21 @@ def nvidia_smi():
     ).stdout.strip()
 
 
-def sweep_rules(t_k, b_k, t_p, b_p, active):
-    """tests/test_pallas_sweep.py's rules (winner agreement > 0.999, a flip
-    only on a near-tie, matched t to rtol 5e-4 / atol 1e-3), and inactive
-    rays at (BIG, -1).  Returns (agreement, exact share, max |dt|)."""
+def sweep_rules(label, t_k, b_k, t_p, b_p, active):
+    """The sweeps' contract: the kernel's winners and t's equal the plain
+    version's bit for bit, and inactive rays are at (BIG, -1).  Returns
+    (winner agreement, bit-equal share, max |dt| on matched hits), printed
+    beside tests/test_pallas_sweep.py's looser rule (agreement > 0.999)."""
     match = b_k == b_p
     agree = match.float().mean().item()
-    assert agree > 0.999, f"winner agreement {agree:.6f}"
-    flip = ~match & (b_k >= 0) & (b_p >= 0)
-    if flip.any():
-        torch.testing.assert_close(t_k[flip], t_p[flip], rtol=1e-3, atol=0)
+    exact = (match & (t_k == t_p)).float().mean().item()
     hit = match & (b_p >= 0)
-    torch.testing.assert_close(t_k[hit], t_p[hit], rtol=5e-4, atol=1e-3)
+    err = (t_k[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p), \
+        f"{label}: not bit-equal (agreement {agree:.6f}, exact {exact:.6f})"
     off = ~active
     assert (b_k[off] == -1).all() and (t_k[off] == BIG).all(), \
-        "an inactive ray did not return (BIG, -1)"
-    exact = (match & (t_k == t_p)).float().mean().item()
-    err = (t_k[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
+        f"{label}: an inactive ray did not return (BIG, -1)"
     return agree, exact, err
 
 
@@ -134,9 +143,11 @@ def bound(n_bytes, fp_ops, int_ops=0):
 def sweep_fp_ops(sw, kinds):
     """FP32 operations per ray of a sweep over the plan of ``sw`` (a
     SweepScene), by the SWEEP_* counts; ``kinds`` maps each PT_* tag to
-    "sphere", "rect" or "box"."""
-    moving = (sw.prims.p1 != sw.prims.p0).any(1)  # in a motion tile
-    ops, per_ray = 0, {}
+    "sphere", "rect" or "box".  The spheres that move are those of a
+    motion tile whose record names a shutter slot (ops/sphere_sweep.py
+    sphere_records)."""
+    slot = sw.aux[:, 3].contiguous().view(torch.int32).cpu()
+    ops, per_ray, slots = 0, {}, set()
     for tile in sw.plan:
         kind = kinds[tile.ptype]
         ops += tile.width * SWEEP_PAIR_OPS[kind]
@@ -145,9 +156,10 @@ def sweep_fp_ops(sw, kinds):
         else:
             per_ray[kind] = SWEEP_RAY_OPS[kind]
         if tile.motion:
-            ops += SWEEP_MOTION_OPS * int(
-                moving[tile.start:tile.start + tile.width].sum())
-    return ops + sum(per_ray.values())
+            s = slot[tile.start:tile.start + tile.width]
+            ops += SWEEP_MOTION_OPS * int((s >= 0).sum())
+            slots |= set(s[s >= 0].tolist())
+    return ops + sum(per_ray.values()) + SWEEP_SHUTTER_OPS * len(slots)
 
 
 def sass_loop_ops(sass, kernel, trips):
@@ -181,6 +193,75 @@ def sass_loop_ops(sass, kernel, trips):
         fp += SASS_FP32.get(base, 0)
         n_int += base in SASS_INT and not op.startswith("IMAD.MOV")
     return fp * trips, n_int * trips
+
+
+def sass_pair_ops(sass, kernel, rays):
+    """Instructions per ray-primitive pair of the pair loop of the function
+    whose name contains ``kernel`` in the SASS text ``sass``: its innermost
+    loop with the most instructions, which folds one record into ``rays``
+    rays per trip.  Returns per-pair counts of the code every trip issues:
+    ``fp32`` (operations, an FFMA counted as two), ``int`` (integer
+    instructions, moves left out), ``all`` (every instruction, loads and
+    branches included); and ``branch``: all instructions of the blocks a
+    branch inside the loop may skip (the roots of a sphere the ray's line
+    meets, a moving sphere's lerp, the slow paths of a division)."""
+    func = next(f for f in sass.split("Function : ")[1:]
+                if kernel in f.splitlines()[0])
+    ins = [(int(a, 16), op) for a, _, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
+    branches = [(int(a, 16), int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16))
+                for a, op, args in re.findall(
+                    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?(BRA\S*)"
+                    r"\s*([^;]*);", func)]
+    ends = {}
+    for a, t in branches:
+        if t < a:
+            ends[t] = max(ends.get(t, a), a)
+    loops = list(ends.items())
+    inner = [(t, e) for t, e in loops if not any(
+        (t2, e2) != (t, e) and t <= t2 and e2 <= e for t2, e2 in loops)]
+
+    def size(loop):
+        return sum(loop[0] <= a <= loop[1] for a, _ in ins)
+
+    start, end = max(inner, key=size)
+    guards = [(a, t) for a, t in branches if start <= a < t <= end]
+    out = dict.fromkeys(("fp32", "int", "all", "branch"), 0)
+    for a, op in ins:
+        if not start <= a <= end or op == "NOP":
+            continue
+        if any(g < a < t for g, t in guards):
+            out["branch"] += 1
+            continue
+        base = op.split(".")[0]
+        out["fp32"] += SASS_FP32.get(base, 0)
+        out["int"] += base in SASS_INT and not op.startswith("IMAD.MOV")
+        out["all"] += 1
+    return {k: v / rays for k, v in out.items()}
+
+
+def ptxas_report(log):
+    """{kernel<template args>: (registers, shared bytes, spill bytes)} from
+    an nvcc -Xptxas -v log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
+        if m:
+            rest, base = m.group(1), ""
+            while rest[:1].isdigit():  # <length><identifier>, nested
+                k = len(rest) - len(rest.lstrip("0123456789"))
+                n = int(rest[:k])
+                base, rest = rest[k:k + n], rest[k + n:]
+            targs = re.findall(r"L[ib](\d+)E", rest)
+            name = f"{base}<{','.join(targs)}>" if targs else base
+            out[name] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            out[name][2] += int(m.group(1))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m and name:
+            out[name][0], out[name][1] = int(m.group(1)), int(m.group(2) or 0)
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def golden_errors(img, golden):
@@ -265,19 +346,34 @@ def main() -> int:
 
     # Phase 1: device and kernel builds, one nvcc per source, all at once.
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        libs = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
+    sources = KERNELS + (PROBES,)
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(cuda_build.build, sources)))
     build_s = time.monotonic() - t0
+    ptxas = {name: ptxas_report(Path(str(lib) + ".log").read_text())
+             for name, lib in libs.items()}
+
+    def resources(report):
+        return "; ".join(f"{k} {r} registers, {sm} B static smem, {sp} B "
+                         f"spilled" for k, (r, sm, sp) in report.items())
+
     notes = []
     for name in KERNELS:
         cuda_build.load(name)
-        ptxas = [ln.strip() for ln in
-                 Path(str(libs[name]) + ".log").read_text().splitlines()
-                 if "registers" in ln or "spill" in ln]
-        notes.append(f"{name}: {'; '.join(ptxas)}")
+        notes.append(f"{name}: {resources(ptxas[name])}")
+    # The sweeps' ray-packet size R (rays per thread), the header's kRays.
+    packet = int(re.search(r"constexpr int kRays = (\d+);", (
+        cuda_build.CSRC_DIR / "sweep_sphere.cuh").read_text()).group(1))
+    cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+
+    def sass_of(name):
+        return subprocess.run([str(cuobjdump), "-sass", str(libs[name])],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+
     phase(1, f"device {kind!r} count {torch.cuda.device_count()} | "
-          f"nvidia-smi: {smi} | {len(KERNELS)} kernels built in "
-          f"{build_s:.2f} s | " + " | ".join(notes))
+          f"nvidia-smi: {smi} | {len(sources)} sources ({', '.join(sources)})"
+          f" built in {build_s:.2f} s | " + " | ".join(notes))
 
     def camera(scene, W, H, pixel_ids, sample_ids):
         return init_state(make_basis(scene.camera, W, H), W, H, pixel_ids,
@@ -318,8 +414,8 @@ def main() -> int:
         t_k, b_k = sphere_sweep(*args)
         torch.cuda.synchronize()
         t_p, b_p = sphere_sweep_plain(*args)
-        torch.cuda.synchronize()
-        agree, exact, err = sweep_rules(t_k, b_k, t_p, b_p, active)
+        agree, exact, err = sweep_rules(f"K1 {label}", t_k, b_k, t_p, b_p,
+                                        active)
         agreements.append(f"{label}: {agree:.6f} (bit-equal {exact:.6f})")
         k1_err = max(k1_err, err)
     k1_args = (*random_t.spheres, cases[0][2], cases[0][3], cases[0][4],
@@ -329,12 +425,32 @@ def main() -> int:
     n_k1, p_k1 = W * H, random_t.spheres.p0.shape[0]
     moving = int((random_t.spheres.p1 != random_t.spheres.p0).any(1).sum())
     # Rays: o, d, time, active read (29 B), t and index written (8 B).
-    k1_bound = bound(n_k1 * 37, n_k1 * sweep_fp_ops(random_t.sweep, kinds))
-    phase(2, f"sphere_sweep vs plain: winner agreement "
+    k1_ops = sweep_fp_ops(random_t.sweep, kinds)
+    k1_bound = bound(n_k1 * 37, n_k1 * k1_ops)
+    # A static sphere's pair in the loop of the kernel for scenes with no
+    # motion; the motion kernel's loop is unswitched on the record's
+    # shutter slot, so its SASS holds a lerping and a static copy.
+    k1_sass_lib = sass_of("sphere_sweep")
+    k1_sass = sass_pair_ops(k1_sass_lib,
+                            f"sphere_sweep_kernelILi{packet}ELb0E", packet)
+    k1_sass_mo = sass_pair_ops(k1_sass_lib,
+                               f"sphere_sweep_kernelILi{packet}ELb1E", packet)
+    k1_mo_all = k1_sass_mo["all"] + k1_sass_mo["branch"]
+    phase(2, f"sphere_sweep (R={packet}) vs plain, bit-equal on every case: "
+          f"winner agreement "
           f"[{'; '.join(agreements)}], max |dt| on matched hits "
           f"{k1_err:.3e}; at N={n_k1} P={p_k1} ({moving} moving) kernel "
           f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, bound "
-          f"{k1_bound[0]:.4f} ms ({k1_bound[1]})")
+          f"{k1_bound[0]:.4f} ms ({k1_bound[1]}, {k1_ops} FP32 operations "
+          f"per ray), {k1_bound[0] / k1_ms:.3f} of it; SASS per pair "
+          f"(R={packet}): a static sphere "
+          f"{k1_sass['fp32']:.2f} FP32 operations, {k1_sass['int']:.2f} "
+          f"integer, {k1_sass['all']:.2f} instructions issued every pair, "
+          f"{k1_sass['branch']:.2f} more on branches (the roots); the "
+          f"motion kernel's loop {k1_mo_all:.2f} in all (both copies of "
+          f"its body); contract "
+          f"{SWEEP_PAIR_OPS['sphere']} (+{SWEEP_MOTION_OPS} moving); ptxas: "
+          f"{resources(ptxas['sphere_sweep'])}")
 
     # Phase 3: the `random` golden rendered on the card through K1.
     reset_counts()
@@ -418,13 +534,19 @@ def main() -> int:
         t_k, b_k = typed_sweep(*args)
         torch.cuda.synchronize()
         t_p, b_p = typed_sweep_plain(*args)
-        torch.cuda.synchronize()
-        agree, exact, err = sweep_rules(t_k, b_k, t_p, b_p, active)
+        agree, exact, err = sweep_rules(f"K1b {label}", t_k, b_k, t_p, b_p,
+                                        active)
         lines.append(f"{label}: {agree:.6f} (bit-equal {exact:.6f})")
         k1b_err = max(k1b_err, err)
     k1b_args = typed_args(final_t, final_cam, 0, final_cam.alive)
     k1b_ms, k1b_plain_ms = in_turns(typed_sweep_plain, typed_sweep,
                                     k1b_args, 3, 20)
+    probe_sass = sass_of(PROBES)
+    k1b_sass = {
+        label: sass_pair_ops(
+            probe_sass, f"fold_probeILi{packet}ELi{pt}ELb{xf}ELb{mo}E",
+            1 if xf else packet)
+        for label, pt, xf, mo in PROBE_KINDS}
 
     # Rays: o, d, time, active, bits read (37 B), t and index written.
     k1b_ops = sweep_fp_ops(final_t.sweep, kinds)
@@ -434,19 +556,35 @@ def main() -> int:
     t_k, b_k = typed_sweep(*rnd_args)
     t_p, b_p = sphere_sweep(*k1_args)
     same = (torch.equal(t_k, t_p) and torch.equal(b_k, b_p))
+    assert same, "K1b and K1 differ on random's camera rays"
     k1_turn = time_ms(sphere_sweep, k1_args, 20)
     k1b_turn = time_ms(typed_sweep, rnd_args, 20)
     k1b_turn2 = time_ms(typed_sweep, rnd_args, 20)
     k1_turn2 = time_ms(sphere_sweep, k1_args, 20)
-    phase(5, f"typed_sweep vs plain: winner agreement [{'; '.join(lines)}],"
+    phase(5, f"typed_sweep (R={packet}) vs plain, bit-equal on every case: "
+          f"winner agreement [{'; '.join(lines)}],"
           f" max |dt| on matched hits {k1b_err:.3e}; at N={n_final} "
           f"P={final.static.n_prims} ({len(final_t.sweep.plan)} plan tiles) "
           f"kernel {k1b_ms:.4f} ms, plain {k1b_plain_ms:.4f} ms, bound "
           f"{k1b_bound_main[0]:.4f} ms ({k1b_bound_main[1]}, {k1b_ops} FP32 "
-          f"operations per ray); on random's "
-          f"camera rays (N={n_k1}) K1b {(k1b_turn + k1b_turn2) / 2:.4f} ms "
-          f"vs K1 {(k1_turn + k1_turn2) / 2:.4f} ms, same hits as K1: "
-          f"{same}")
+          f"operations per ray), {k1b_bound_main[0] / k1b_ms:.3f} of it; "
+          f"on random's camera rays (N={n_k1}) K1b "
+          f"{(k1b_turn + k1b_turn2) / 2:.4f} ms vs K1 "
+          f"{(k1_turn + k1_turn2) / 2:.4f} ms, the same hits as K1 "
+          f"(asserted); SASS per pair by tile kind (R={packet}; FP32 "
+          "operations / integer / issued every pair / more on branches): "
+          + "; ".join(f"{k} {v['fp32']:.2f} / {v['int']:.2f} / "
+                      f"{v['all']:.2f} / {v['branch']:.2f}"
+                      for k, v in k1b_sass.items())
+          + f"; contract per pair {SWEEP_PAIR_OPS} (+{SWEEP_MOTION_OPS} "
+          f"moving, +{SWEEP_XFORM_OPS} transformed); ptxas: "
+          f"{resources(ptxas['typed_sweep'])} (+ a dynamic ring of 16 KB, "
+          f"40 KB with transformed tiles); the tile kinds' folds alone: "
+          + "; ".join(
+              f"{label} {ptxas[PROBES][probe][0]} registers"
+              for label, probe in (
+                  (label, f"fold_probe<{packet},{pt},{xf},{mo}>")
+                  for label, pt, xf, mo in PROBE_KINDS)))
 
     # Phase 6: K2 against its plain version at the bench shape, with the
     # noise mask of `final`'s first bounce and with every lane masked.
@@ -461,11 +599,8 @@ def main() -> int:
     xyz = tuple(sp[:, c].contiguous() for c in range(3))
     keys = final_t.tables.perlin_keys
     # K2's work per noise lane, from the SASS of the library just built.
-    cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["turbulence"])],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    k2_fp, k2_int = sass_loop_ops(sass, "marble_kernel", K2_OCTAVES)
+    k2_fp, k2_int = sass_loop_ops(sass_of("turbulence"), "marble_kernel",
+                                  K2_OCTAVES)
     k2 = {}
     for label, mask in (("real mask", sf.ttype == TT_NOISE),
                         ("all-true", torch.ones_like(prim, dtype=torch.bool))):

@@ -1,4 +1,4 @@
-// Closest-hit sweep of rays against spheres and moving spheres, for
+// Closest-hit sweep of rays against spheres and moving spheres (K1), for
 // NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel hyper_ray_tracer_tpu/ops/pallas_sweep.py::_kernel
@@ -11,168 +11,125 @@
 // winner.  An inactive ray returns (BIG, -1).
 //
 // The TPU kernel folds a 128-sphere tile with a stale t_max and a min
-// over lanes.  Here each thread walks the spheres in order with its
-// running t_best as the inclusive upper bound.  That picks the same
-// winner: a candidate's root values do not depend on the bound, a root
-// rejected against the running bound could not have replaced the running
-// minimum, and an exact tie keeps the earlier index in both forms.
+// over lanes.  Here each ray walks the spheres in order with its running
+// t_best as the inclusive upper bound.  That picks the same winner: a
+// candidate's root values do not depend on the bound, a root rejected
+// against the running bound could not have replaced the running minimum,
+// and an exact tie keeps the earlier index in both forms.  Rounding and
+// the packed sphere record: sweep_sphere.cuh.  The kernel is bit-equal to
+// ops/sphere_sweep.py:sphere_sweep_plain.
 //
-// Rounding: every floating-point step is one IEEE round-to-nearest
-// operation (__fmul_rn, __fadd_rn, __fdiv_rn, __fsqrt_rn), in the order of
-// the plain version (ops/sphere_sweep.py via ops/intersect.py:sphere_t),
-// so nvcc cannot contract a*b+c into an FMA and no reciprocal replaces a
-// division.  Near-tangent discriminants (the r = 1000 ground sphere loses
-// ~0.06 to cancellation in |oc|^2 - r^2) and self-hits at the t_min
-// boundary then round the same way in both, and the two agree bit for
-// bit.  The division of the center lerp runs only for moving spheres: a
-// static sphere (p1 == p0, time1 != time0) has center p0 exactly in both.
+// What bounds it on this card: FP32 issue.  A ray-sphere pair costs ~18
+// FP32 operations before its hit test (6 more when the sphere moves),
+// against 29 bytes read and 8 written per ray, so at P = 486 (`random`)
+// the sweep is far above the card's operations-per-byte balance.  The
+// contract forbids FMA contraction, so the FP32 pipes peak at half the
+// 67 TFLOP/s that the bound counts.
 //
-// What bounds it on this card: FP32 ALU work, about 30 operations per
-// ray-sphere pair (one division for a moving sphere, a sqrt and two
-// divisions for a sphere the ray's line meets), against one 28-byte ray
-// read and 8 bytes written per ray.  At P = 486 (the `random` scene) a ray
-// does ~15k operations per ~40 bytes of device memory traffic, far above
-// the card's operations-per-byte balance, so the sweep is compute-bound
-// once the sphere fields come from on-chip memory.  The design keeps them
-// there: one thread per ray, 128 rays per block; the block stages 128
-// spheres at a time as structure-of-arrays floats (5 KB) in shared memory,
-// where every thread of a warp reads the same word (a broadcast, no bank
-// conflict).  Ray packets, wider tiles and cluster multicast are left for
-// later work.
+// The first version (one thread per ray, 128 spheres staged as
+// structure-of-arrays floats, two barriers per stage with nothing
+// overlapping the copy) ran at about 20% of that bound: each pair issued
+// 5-10 LDS.32 for one ray, a moving sphere's lerp divided once per pair,
+// and every pair paid for the branch structure of its roots.  This one:
+// - carries R rays per thread (a ray packet, sweep_sphere.cuh), so the two
+//   LDS.128 broadcasts of a sphere record feed R pairs;
+// - folds a sphere in two phases: every ray's discriminant as
+//   straight-line code, the roots and the update only when some ray's line
+//   meets the sphere;
+// - divides for the lerp once per ray and shutter slot, not per pair, and
+//   reads r * r from the record;
+// - stages kStage-sphere records in a double-buffered ring filled by
+//   cp.async, stage k + 1 in flight while stage k is folded; a scene with
+//   no moving sphere copies and reads only the geo half of each record.
+// Registers, shared memory and spills per instantiation: the ptxas report
+// (chip_smoke.py phases 1 and 2).
 
-#include <cuda_runtime.h>
+#include "sweep_sphere.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // rays per block, one thread per ray
-constexpr int kTile = 128;     // spheres staged in shared memory per step
-constexpr float kBig = 3.0e38f;
+using hrt::kThreads;
+constexpr int kMinBlocks = 7;  // resident blocks per SM: <= 72 registers
+constexpr int kStage = 256;    // sphere records per ring slot
 
-struct SphereTile {
-  float cx[kTile], cy[kTile], cz[kTile];  // p0: center at time0
-  float dx[kTile], dy[kTile], dz[kTile];  // p1 - p0
-  float t0[kTile], dt[kTile], r[kTile];   // time0, time1 - time0, radius
-  int moving[kTile];                      // p1 != p0
-};
-
-// a.b summed left to right with one rounding per step (ops/intersect.py
-// _dot3).
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
-}
-
-__global__ void __launch_bounds__(kThreads)
+template <int R, bool kMotion>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 sphere_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float* __restrict__ time,
                     const unsigned char* __restrict__ active, int n,
-                    const float* __restrict__ p0, const float* __restrict__ dp,
-                    const float* __restrict__ t0,
-                    const float* __restrict__ dt,
-                    const float* __restrict__ radius, int p, float t_min,
+                    const float4* __restrict__ geo,
+                    const float4* __restrict__ aux, int p,
+                    const float2* __restrict__ shutter, float t_min,
                     float* __restrict__ t_out, int* __restrict__ best_out) {
-  __shared__ SphereTile tile;
+  __shared__ float4 s_geo[2][kStage];
+  __shared__ float4 s_aux[kMotion ? 2 : 1][kMotion ? kStage : 1];
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = ray < n;
-  const bool live = in_range && active[ray] != 0;
+  hrt::Packet<R> pk;
+  hrt::load_packet<R>(pk, o, d, active, n);
 
-  float ox = 0.f, oy = 0.f, oz = 0.f;
-  float dx = 0.f, dy = 0.f, dz = 1.f, tm = 0.f;
-  if (live) {
-    ox = o[3 * ray];
-    oy = o[3 * ray + 1];
-    oz = o[3 * ray + 2];
-    dx = d[3 * ray];
-    dy = d[3 * ray + 1];
-    dz = d[3 * ray + 2];
-    tm = time[ray];
-  }
-  const float a = dot3(dx, dy, dz, dx, dy, dz);
-
-  float t_best = kBig;
-  int best = -1;
-  // Every thread, live or not, runs the tile loop: each iteration has two
-  // __syncthreads(), which the whole block must reach.
-  for (int base = 0; base < p; base += kTile) {
-    const int count = min(kTile, p - base);
-    __syncthreads();  // the previous tile has been read by every thread
+  const int n_stages = (p + kStage - 1) / kStage;
+  auto stage = [&](int q) {  // issue the copies of stage q into slot q & 1
+    const int lo = q * kStage, count = min(kStage, p - lo), buf = q & 1;
     for (int j = threadIdx.x; j < count; j += kThreads) {
-      const int s = base + j;
-      tile.cx[j] = p0[3 * s];
-      tile.cy[j] = p0[3 * s + 1];
-      tile.cz[j] = p0[3 * s + 2];
-      tile.dx[j] = dp[3 * s];
-      tile.dy[j] = dp[3 * s + 1];
-      tile.dz[j] = dp[3 * s + 2];
-      tile.t0[j] = t0[s];
-      tile.dt[j] = dt[s];
-      tile.r[j] = radius[s];
-      tile.moving[j] =
-          dp[3 * s] != 0.f || dp[3 * s + 1] != 0.f || dp[3 * s + 2] != 0.f;
+      hrt::cp_async16(&s_geo[buf][j], geo + lo + j);
+      if constexpr (kMotion) hrt::cp_async16(&s_aux[buf][j], aux + lo + j);
     }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < count; ++j) {
-      float cx = tile.cx[j], cy = tile.cy[j], cz = tile.cz[j];
-      if (tile.moving[j]) {  // the same j for the whole warp: no divergence
-        const float f = __fdiv_rn(__fsub_rn(tm, tile.t0[j]), tile.dt[j]);
-        cx = __fadd_rn(cx, __fmul_rn(f, tile.dx[j]));
-        cy = __fadd_rn(cy, __fmul_rn(f, tile.dy[j]));
-        cz = __fadd_rn(cz, __fmul_rn(f, tile.dz[j]));
-      }
-      const float ocx = __fsub_rn(ox, cx);
-      const float ocy = __fsub_rn(oy, cy);
-      const float ocz = __fsub_rn(oz, cz);
-      const float r = tile.r[j];
-      const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
-      const float c =
-          __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), __fmul_rn(r, r));
-      const float disc = __fsub_rn(__fmul_rn(half_b, half_b), __fmul_rn(a, c));
-      if (disc >= 0.0f) {
-        const float sq = __fsqrt_rn(fmaxf(disc, 1e-30f));
-        const float t_near = __fdiv_rn(__fsub_rn(-half_b, sq), a);
-        const float t_far = __fdiv_rn(__fadd_rn(-half_b, sq), a);
-        float t = kBig;
-        if (t_near >= t_min && t_near <= t_best) {
-          t = t_near;
-        } else if (t_far >= t_min && t_far <= t_best) {
-          t = t_far;
-        }
-        if (t < t_best) {
-          t_best = t;
-          best = base + j;
-        }
+  };
+  stage(0);
+  hrt::cp_async_commit();
+  // Every thread, live or not, runs every stage: each has two barriers.
+  for (int q = 0; q < n_stages; ++q) {
+    if (q + 1 < n_stages) stage(q + 1);
+    hrt::cp_async_commit();  // possibly empty: keeps one group per stage
+    hrt::cp_async_wait<1>();  // stage q has landed (this thread's copies)
+    __syncthreads();          // ... and every other thread's
+    if (pk.live) {
+      const int lo = q * kStage, count = min(kStage, p - lo), buf = q & 1;
+#pragma unroll 1
+      for (int j = 0; j < count; ++j) {
+        const float4 g = s_geo[buf][j];
+        float4 m = g;
+        if constexpr (kMotion) m = s_aux[buf][j];
+        hrt::fold_sphere<R, kMotion>(pk, g, m, lo + j, t_min, shutter, time);
       }
     }
+    __syncthreads();  // slot q & 1 is read; stage q + 2 may overwrite it
   }
-  if (in_range) {
-    t_out[ray] = t_best;  // kBig for inactive rays and misses
-    best_out[ray] = best;
-  }
+  hrt::store_packet<R>(pk, n, t_out, best_out);
+}
+
+template <int R, bool kMotion>
+int launch(const float* o, const float* d, const float* time,
+           const unsigned char* active, int n, const float4* geo,
+           const float4* aux, int p, const float2* shutter, float t_min,
+           float* t_out, int* best_out, cudaStream_t stream) {
+  const int blocks = (n + kThreads * R - 1) / (kThreads * R);
+  sphere_sweep_kernel<R, kMotion><<<blocks, kThreads, 0, stream>>>(
+      o, d, time, active, n, geo, aux, p, shutter, t_min, t_out, best_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  Pointers are device pointers of
-// contiguous tensors: o, d [n,3], time [n], active [n] (bool as bytes),
-// p0, dp = p1 - p0 [p,3], t0 = time0, dt = time1 - time0, radius [p];
-// outputs t_out [n] float32 and
-// best_out [n] int32.  Launches on `stream` and returns cudaGetLastError()
-// (0 on success); it never synchronises.
+// contiguous tensors: rays o, d [n,3], time [n] float32, active [n] (bool
+// as bytes); sphere records geo, aux [p] float4 and the shutter table
+// [slots] float2 (sweep_sphere.cuh; aux and shutter are read only when
+// has_motion); outputs t_out [n] float32 and best_out [n] int32.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success); it never
+// synchronises.
 extern "C" int hrt_sphere_sweep(const float* o, const float* d,
                                 const float* time,
                                 const unsigned char* active, int n,
-                                const float* p0, const float* dp,
-                                const float* t0, const float* dt,
-                                const float* radius, int p, float t_min,
-                                float* t_out, int* best_out, void* stream) {
+                                const float4* geo, const float4* aux, int p,
+                                const float2* shutter, int has_motion,
+                                float t_min, float* t_out, int* best_out,
+                                void* stream) {
   if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  sphere_sweep_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      o, d, time, active, n, p0, dp, t0, dt, radius, p, t_min, t_out,
-      best_out);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  return has_motion != 0
+             ? launch<hrt::kRays, true>(o, d, time, active, n, geo, aux, p,
+                                        shutter, t_min, t_out, best_out, s)
+             : launch<hrt::kRays, false>(o, d, time, active, n, geo, aux, p,
+                                         shutter, t_min, t_out, best_out, s);
 }

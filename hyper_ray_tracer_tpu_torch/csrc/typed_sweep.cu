@@ -1,63 +1,88 @@
 // Closest-hit sweep of rays against every primitive type (spheres and
 // moving spheres, rects, solid boxes, medium spheres, medium boxes, with
-// baked rigid transforms), for NVIDIA Hopper (sm_90a).
+// baked rigid transforms) (K1b), for NVIDIA Hopper (sm_90a).
 //
 // What it replaces: the JAX package traces these scenes with an XLA
 // sweep, not a Pallas kernel: the planned scan_all of
 // hyper_ray_tracer_tpu/ops/bvh.py:273-400 over the primitive intersector
 // make_prim_intersector (ops/intersect.py:439-510).  This kernel computes
 // that contract.  The primitives, in canonical order, come in plan tiles
-// (a host-side table, one row per tile: start, width, type, motion,
-// transform, rect axis); every tile holds one primitive type.  For each
-// tile in order, every ray computes the candidate t's with the best t it
-// held at the tile's START as the inclusive t_max, and a candidate
-// replaces the best only when strictly smaller, so ties go to the lowest
-// index.  An inactive ray returns (BIG, -1).
+// (a host-side table, one row per tile); every tile holds one primitive
+// type.  For each tile in order, every ray computes the candidate t's with
+// the best t it held at the tile's START as the inclusive t_max, and a
+// candidate replaces the best only when strictly smaller, so ties go to
+// the lowest index.  An inactive ray returns (BIG, -1).
 //
-// Why the tile-start bound: K1's running-bound argument (sphere_sweep.cu)
-// does not carry over to media.  A medium's free flight compares the
-// sampled distance against min(t_exit, t_max) (intersect.py:403-412), so
-// whether a medium is hit depends on t_max; only scan_all's stale
-// per-tile bound reproduces its decisions.  Inside a tile, folding with a
-// running best and the stale bound picks the same winner as the tile's
-// first-minimum argmin followed by a strict < against the tile-start
-// best.  A medium's uniform is the ray's bounce word through the port's
-// stream_bits (ops/rng.py, purpose P_MEDIUM, salt stable_id), computed
-// here in native uint32; the wrapper passes the words as int64 and the
-// kernel narrows them.
+// The bound.  For a sphere, rect or box, folding with the ray's running
+// best as t_max picks scan_all's winner (sweep_sphere.cuh, "The bound"),
+// so those tiles do.  The argument does not carry over to media: a
+// medium's free flight compares the sampled distance against
+// min(t_exit, t_max) (intersect.py:403-412), so whether a medium is hit
+// depends on t_max, and only scan_all's stale per-tile bound reproduces
+// its decisions.  A medium tile folds with the best t each ray held at
+// the tile's start (kept in shared memory while the tile spans stages)
+// and a running best: that picks the tile's first-minimum argmin
+// followed by a strict < against the tile-start best.  A medium's
+// uniform is the ray's bounce word through the port's stream_bits
+// (ops/rng.py, purpose P_MEDIUM, salt stable_id), computed here in native
+// uint32; the wrapper passes the words as int64 and the kernel narrows
+// them.
 //
-// Rounding: every floating-point step is one IEEE round-to-nearest
-// operation (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn) in
-// the order of the plain version (ops/typed_sweep.py:typed_sweep_plain
-// via ops/intersect.py), so nvcc cannot contract a*b+c into an FMA and no
-// reciprocal replaces a division.  The slab's 1e-20 floor and the rect's
-// dk == 0 guard are kept.  The medium's log is the CUDA math library's
-// logf (no fast math), the function torch's CUDA log calls.  The hit
-// detailer finds a box's face by comparing the winning t with six slab
-// t's it recomputes in torch, so the two must agree bit for bit, and do.
+// Rounding: as K1 (sweep_sphere.cuh), in the order of the plain version
+// (ops/typed_sweep.py:typed_sweep_plain via ops/intersect.py).  The
+// slab's 1e-20 floor and the rect's dk == 0 guard are kept.  The medium's
+// log is the CUDA math library's logf (no fast math), the function
+// torch's CUDA log calls.  The hit detailer finds a box's face by
+// comparing the winning t with six slab t's it recomputes in torch, so the
+// two must agree bit for bit, and do.
 //
-// What bounds it on this card: FP32 ALU work per ray-primitive pair, 12-25
-// operations that every pair executes before its hit test (a sphere 19, a
-// rect 12, a box 25; a moving sphere's lerp adds 8, a transform 33),
-// against 37 bytes read and 8 written per ray.  At the bench workload
-// (1,409 primitives) a ray needs ~29k operations per ~45 bytes, far above
-// the card's operations-per-byte balance: the sweep is compute-bound once
-// the primitive fields come from on-chip memory.  The loop still computes
-// per pair what depends on the ray alone (|d|^2, the slab reciprocals).  The design keeps them there: one thread per
-// ray, 128 rays per block; the block stages 128 primitives of a tile at a
-// time as structure-of-arrays floats in shared memory (12 KB), where every
-// thread of a warp reads the same word (a broadcast).  A tile's type is
-// the same for the whole block, so the branch on it never diverges.  Ray
-// packets, wider stages and cluster multicast are left for later work.
+// What bounds it on this card: FP32 issue, as K1: 18-25 operations per
+// ray-primitive pair before its hit test (a sphere 18, a rect 12, a box
+// 25; a moving sphere's lerp 6 more, a transform 33 more) against 37 bytes
+// read and 8 written per ray.
+//
+// The first version (one thread per ray; 22 float slots per primitive
+// staged 128 at a time; two barriers per stage with nothing overlapping
+// the copy) ran at about 14% of its bound.  It computed per pair what
+// depends on the ray alone: |d|^2 for every sphere, three correctly
+// rounded slab reciprocals for every box, the medium's ray length, and a
+// motion tile's lerp division for every sphere of the tile.  This one:
+// - hoists those per-ray terms: |d|^2 once per ray, the slab reciprocals
+//   and the ray length once per ray and tile segment, the lerp factor once
+//   per ray and shutter slot; only the spheres that move are lerped
+//   (their record's slot, sweep_sphere.cuh).  In a transformed tile the
+//   direction is the pair's own, so there they stay per pair.
+// - packs each type into two 16-byte records (geo, aux), plus three for
+//   the transform (xf) in transformed tiles only:
+//     sphere         geo (cx, cy, cz, r*r)  aux (p1 - p0, shutter slot)
+//     medium sphere  geo (cx, cy, cz, r*r)  aux (nid, stable_id, 0, 0)
+//     rect           geo (a0, b0, k, a1)    aux (b1, 0, 0, 0)
+//     box            geo (p0, 0)            aux (p1, 0)
+//     medium box     geo (p0, nid)          aux (p1, stable_id)
+//     xf             R row-major, then t: 12 floats
+//   A static-sphere tile stages geo alone.
+// - carries R rays per thread (sweep_sphere.cuh), folds sphere tiles with
+//   K1's routine (hrt::fold_sphere) and box tiles in the same two phases
+//   (the slab interval, then the range test only where some ray's line
+//   meets the box).
+// - streams the records through a double-buffered ring of kStage-record
+//   stages filled by cp.async, stage k + 1 in flight while stage k is
+//   folded.  Stages are cut from the canonical order regardless of plan
+//   tiles: a stage folds the segments of every tile it overlaps, and a
+//   medium tile that spans stages keeps its start bound across them.
+// Registers, shared memory and spills per instantiation: the ptxas report
+// (chip_smoke.py phases 1 and 5).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sweep_sphere.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;  // rays per block, one thread per ray
-constexpr int kStage = 128;    // primitives staged in shared memory per step
-constexpr float kBig = 3.0e38f;
+using hrt::dot3;
+using hrt::kBig;
+using hrt::kThreads;
+
+constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 96 registers
+constexpr int kStage = 256;    // primitive records per ring slot
 constexpr float kRehitEps = 1.0e-4f;  // constant_medium.rs:38
 constexpr float kSlabFloor = 1e-20f;
 
@@ -68,50 +93,35 @@ constexpr int kMediumSphere = 2;
 constexpr int kMediumBox = 3;
 constexpr int kBox = 4;
 
-// Float slots of a staged primitive.  Spheres keep p1 - p0 in the p1
-// slots and time1 - time0 in kDt; rects keep (a0, b0, k) in p0 and
-// (a1, b1) in p1.
-constexpr int kP0 = 0;
-constexpr int kP1 = 3;
-constexpr int kRadius = 6;
-constexpr int kTime0 = 7;
-constexpr int kDt = 8;
-constexpr int kNid = 9;
-constexpr int kRot = 10;    // 9 floats, row-major world-from-object R
-constexpr int kTrans = 19;  // 3 floats
-constexpr int kSlots = 22;
-
-struct Stage {
-  float f[kSlots][kStage];
-  int id[kStage];    // stable_id (media RNG salt)
-  int axis[kStage];  // rect plane tag
+// A plan row: 8 int32 (ops/typed_sweep.py PLAN_COLUMNS).
+struct Tile {
+  int start, width, type, motion, xform, axis, xf_off;
 };
 
-struct Prims {  // the scene's primitives, structure of arrays
-  const float* p0;      // [p,3]
-  const float* p1;      // [p,3]
-  const float* radius;  // [p]
-  const float* time0;   // [p]
-  const float* time1;   // [p]
-  const float* nid;     // [p] neg_inv_density
-  const float* rot;     // [p,3,3]
-  const float* trans;   // [p,3]
-  const int* stable_id; // [p]
-  const int* axis;      // [p]
-};
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, time;
-  uint32_t bits;  // bounce word of the media's uniform
-};
-
-// a.b summed left to right with one rounding per step (ops/intersect.py
-// _dot3).
-__device__ __forceinline__ float dot3(float ax, float ay, float az,
-                                      float bx, float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
+__device__ __forceinline__ Tile load_tile(const int4* __restrict__ plan,
+                                          int k) {
+  const int4 a = __ldg(&plan[2 * k]), b = __ldg(&plan[2 * k + 1]);
+  return Tile{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
 }
+
+// The media's bound: each ray's best t at the current medium tile's start,
+// kept in shared memory through the tile (at hrt::word(r)).
+__shared__ float s_bound[hrt::kRays * kThreads];
+
+// The per-ray inputs a fold reads again where it needs them (a slot
+// change, a medium tile), rather than holding them in registers.
+struct RayInputs {
+  const float* time;      // [n] shutter time
+  const long long* bits;  // [n] bounce words of the media's uniform
+};
+
+// The ring: two slots of kStage geo and aux records, and of kStage * 3 xf
+// records when the scene has a transformed tile.
+struct Ring {
+  float4* geo;
+  float4* aux;
+  float4* xf;
+};
 
 // ops/rng.py: fmix32, stream_bits(bits, P_MEDIUM, salt), bits_to_uniform.
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -129,99 +139,63 @@ __device__ __forceinline__ float medium_uniform(uint32_t bits,
   return __fmul_rn(__uint2float_rn(fmix32(mixed) >> 8), 0x1p-24f);
 }
 
-__device__ void stage_chunk(Stage& st, const Prims& pr, int type,
-                            bool xform, int first, int count) {
-  for (int j = threadIdx.x; j < count; j += kThreads) {
-    const int s = first + j;
-    for (int c = 0; c < 3; ++c) {
-      const float a = pr.p0[3 * s + c], b = pr.p1[3 * s + c];
-      st.f[kP0 + c][j] = a;
-      st.f[kP1 + c][j] = type == kSphere ? __fsub_rn(b, a) : b;
-    }
-    st.f[kRadius][j] = pr.radius[s];
-    st.f[kTime0][j] = pr.time0[s];
-    st.f[kDt][j] = __fsub_rn(pr.time1[s], pr.time0[s]);
-    st.f[kNid][j] = pr.nid[s];
-    st.id[j] = pr.stable_id[s];
-    st.axis[j] = pr.axis[s];
-    if (xform) {
-      for (int c = 0; c < 9; ++c) st.f[kRot + c][j] = pr.rot[9 * s + c];
-      for (int c = 0; c < 3; ++c) st.f[kTrans + c][j] = pr.trans[3 * s + c];
-    }
+// Terms of the ray in a tile's frame that every pair of the tile shares.
+struct RayTerms {
+  float a;           // |d|^2
+  float ix, iy, iz;  // slab reciprocals
+  float len;         // sqrt(|d|^2)
+};
+
+__device__ __forceinline__ float slab_inv(float d) {
+  return __fdiv_rn(1.0f, fabsf(d) < kSlabFloor ? kSlabFloor : d);
+}
+
+template <int kType>
+__device__ __forceinline__ RayTerms ray_terms(float dx, float dy, float dz) {
+  RayTerms t{0.f, 0.f, 0.f, 0.f, 0.f};
+  if constexpr (kType == kSphere || kType == kMediumSphere ||
+                kType == kMediumBox) {
+    t.a = hrt::pin(dot3(dx, dy, dz, dx, dy, dz));
   }
+  if constexpr (kType == kMediumSphere || kType == kMediumBox) {
+    t.len = hrt::pin(__fsqrt_rn(t.a));
+  }
+  if constexpr (kType == kBox || kType == kMediumBox) {
+    t.ix = hrt::pin(slab_inv(dx));
+    t.iy = hrt::pin(slab_inv(dy));
+    t.iz = hrt::pin(slab_inv(dz));
+  }
+  return t;
 }
 
 // World ray -> object frame: o' = R^T (o - t), d' = R^T d, component i
 // summed left to right over R's rows (ops/intersect.py _xform_ray).
-__device__ __forceinline__ void to_object(const Stage& st, int j, float& ox,
+// x0..x2 hold R row-major, then t.
+__device__ __forceinline__ void to_object(const float4 x0, const float4 x1,
+                                          const float4 x2, float& ox,
                                           float& oy, float& oz, float& dx,
                                           float& dy, float& dz) {
-  const float mx = __fsub_rn(ox, st.f[kTrans][j]);
-  const float my = __fsub_rn(oy, st.f[kTrans + 1][j]);
-  const float mz = __fsub_rn(oz, st.f[kTrans + 2][j]);
-  float o3[3], d3[3];
-  for (int i = 0; i < 3; ++i) {
-    const float r0 = st.f[kRot + i][j], r1 = st.f[kRot + 3 + i][j],
-                r2 = st.f[kRot + 6 + i][j];
-    o3[i] = dot3(r0, r1, r2, mx, my, mz);
-    d3[i] = dot3(r0, r1, r2, dx, dy, dz);
-  }
-  ox = o3[0]; oy = o3[1]; oz = o3[2];
-  dx = d3[0]; dy = d3[1]; dz = d3[2];
+  const float mx = __fsub_rn(ox, x2.y);
+  const float my = __fsub_rn(oy, x2.z);
+  const float mz = __fsub_rn(oz, x2.w);
+  const float c0[3] = {x0.x, x0.w, x1.z};  // column 0: R00, R10, R20
+  const float c1[3] = {x0.y, x1.x, x1.w};  // column 1
+  const float c2[3] = {x0.z, x1.y, x2.x};  // column 2
+  ox = dot3(c0[0], c0[1], c0[2], mx, my, mz);
+  oy = dot3(c1[0], c1[1], c1[2], mx, my, mz);
+  oz = dot3(c2[0], c2[1], c2[2], mx, my, mz);
+  const float ex = dx, ey = dy, ez = dz;
+  dx = dot3(c0[0], c0[1], c0[2], ex, ey, ez);
+  dy = dot3(c1[0], c1[1], c1[2], ex, ey, ez);
+  dz = dot3(c2[0], c2[1], c2[2], ex, ey, ez);
 }
 
-struct Roots {
-  float t_near, t_far;
-  bool exists;
-};
-
-// ops/intersect.py sphere_roots.
-__device__ __forceinline__ Roots sphere_roots(float cx, float cy, float cz,
-                                              float r, float ox, float oy,
-                                              float oz, float dx, float dy,
-                                              float dz) {
-  const float ocx = __fsub_rn(ox, cx);
-  const float ocy = __fsub_rn(oy, cy);
-  const float ocz = __fsub_rn(oz, cz);
-  const float a = dot3(dx, dy, dz, dx, dy, dz);
-  const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
-  const float c = __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz),
-                            __fmul_rn(r, r));
-  const float disc = __fsub_rn(__fmul_rn(half_b, half_b), __fmul_rn(a, c));
-  Roots out;
-  out.exists = disc >= 0.0f;
-  const float sq = __fsqrt_rn(out.exists ? fmaxf(disc, 1e-30f) : 1.0f);
-  out.t_near = __fdiv_rn(__fsub_rn(-half_b, sq), a);
-  out.t_far = __fdiv_rn(__fadd_rn(-half_b, sq), a);
-  return out;
-}
-
-__device__ __forceinline__ float sphere_t(const Stage& st, int j,
-                                          bool motion, float tm, float ox,
-                                          float oy, float oz, float dx,
-                                          float dy, float dz, float t_min,
-                                          float t_max) {
-  float cx = st.f[kP0][j], cy = st.f[kP0 + 1][j], cz = st.f[kP0 + 2][j];
-  if (motion) {  // a motion tile lerps every sphere, as the plain version
-    const float f = __fdiv_rn(__fsub_rn(tm, st.f[kTime0][j]), st.f[kDt][j]);
-    cx = __fadd_rn(cx, __fmul_rn(f, st.f[kP1][j]));
-    cy = __fadd_rn(cy, __fmul_rn(f, st.f[kP1 + 1][j]));
-    cz = __fadd_rn(cz, __fmul_rn(f, st.f[kP1 + 2][j]));
-  }
-  const Roots rt =
-      sphere_roots(cx, cy, cz, st.f[kRadius][j], ox, oy, oz, dx, dy, dz);
-  if (!rt.exists) return kBig;
-  if (rt.t_near >= t_min && rt.t_near <= t_max) return rt.t_near;
-  if (rt.t_far >= t_min && rt.t_far <= t_max) return rt.t_far;
-  return kBig;
-}
-
-// ops/intersect.py rect_t: (k, a, b) axes by plane tag (rect.rs:54-58).
-__device__ __forceinline__ float rect_t(const Stage& st, int j, float ox,
-                                        float oy, float oz, float dx,
-                                        float dy, float dz, float t_min,
-                                        float t_max) {
-  const int ax = st.axis[j];
+// ops/intersect.py rect_t: (k, a, b) axes by plane tag (rect.rs:54-58);
+// geo = (a0, b0, k, a1), b1.
+__device__ __forceinline__ float rect_t(const float4 g, float b1, int ax,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        float t_min, float t_max) {
   float ok, oa, ob, dk, da, db;
   if (ax == 0) {  // XY: k on z
     ok = oz; oa = ox; ob = oy; dk = dz; da = dx; db = dy;
@@ -231,53 +205,32 @@ __device__ __forceinline__ float rect_t(const Stage& st, int j, float ox,
     ok = oy; oa = oz; ob = ox; dk = dy; da = dz; db = dx;
   }
   if (dk == 0.0f) return kBig;  // parallel to the plane
-  const float t = __fdiv_rn(__fsub_rn(st.f[kP0 + 2][j], ok), dk);
+  const float t = __fdiv_rn(__fsub_rn(g.z, ok), dk);
   const float a = __fadd_rn(oa, __fmul_rn(t, da));
   const float b = __fadd_rn(ob, __fmul_rn(t, db));
-  const bool hit = t >= t_min && t <= t_max && a >= st.f[kP0][j] &&
-                   a <= st.f[kP1][j] && b >= st.f[kP0 + 1][j] &&
-                   b <= st.f[kP1 + 1][j];
+  const bool hit = t >= t_min && t <= t_max && a >= g.x && a <= g.w &&
+                   b >= g.y && b <= b1;
   return hit ? t : kBig;
 }
 
-__device__ __forceinline__ float slab_inv(float d) {
-  return __fdiv_rn(1.0f, fabsf(d) < kSlabFloor ? kSlabFloor : d);
-}
-
-// ops/intersect.py _box_slab.
-__device__ __forceinline__ void box_slab(const Stage& st, int j, float ox,
-                                         float oy, float oz, float dx,
-                                         float dy, float dz, float& entry,
+// ops/intersect.py _box_slab with the reciprocals of the ray's direction.
+__device__ __forceinline__ void box_slab(const float4 p0, const float4 p1,
+                                         float ox, float oy, float oz,
+                                         const RayTerms& rt, float& entry,
                                          float& exit) {
-  const float o3[3] = {ox, oy, oz};
-  const float inv[3] = {slab_inv(dx), slab_inv(dy), slab_inv(dz)};
-  float lo[3], hi[3];
-  for (int c = 0; c < 3; ++c) {
-    const float t_lo = __fmul_rn(__fsub_rn(st.f[kP0 + c][j], o3[c]), inv[c]);
-    const float t_hi = __fmul_rn(__fsub_rn(st.f[kP1 + c][j], o3[c]), inv[c]);
-    lo[c] = fminf(t_lo, t_hi);
-    hi[c] = fmaxf(t_lo, t_hi);
-  }
-  entry = fmaxf(fmaxf(lo[0], lo[1]), lo[2]);
-  exit = fminf(fminf(hi[0], hi[1]), hi[2]);
-}
-
-__device__ __forceinline__ float box_t(const Stage& st, int j, float ox,
-                                       float oy, float oz, float dx,
-                                       float dy, float dz, float t_min,
-                                       float t_max) {
-  float entry, exit;
-  box_slab(st, j, ox, oy, oz, dx, dy, dz, entry, exit);
-  if (!(exit > entry)) return kBig;
-  if (entry >= t_min && entry <= t_max) return entry;
-  if (exit >= t_min && exit <= t_max) return exit;
-  return kBig;
+  const float lx = __fmul_rn(__fsub_rn(p0.x, ox), rt.ix);
+  const float hx = __fmul_rn(__fsub_rn(p1.x, ox), rt.ix);
+  const float ly = __fmul_rn(__fsub_rn(p0.y, oy), rt.iy);
+  const float hy = __fmul_rn(__fsub_rn(p1.y, oy), rt.iy);
+  const float lz = __fmul_rn(__fsub_rn(p0.z, oz), rt.iz);
+  const float hz = __fmul_rn(__fsub_rn(p1.z, oz), rt.iz);
+  entry = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
+  exit = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
 }
 
 // ops/intersect.py _medium_scatter_t: free flight inside [entry, exit].
 __device__ __forceinline__ float medium_scatter_t(float entry, float exit,
-                                                  float nid, float dx,
-                                                  float dy, float dz,
+                                                  float nid, float ray_len,
                                                   float t_min, float t_max,
                                                   float u) {
   bool exists = exit >= __fadd_rn(entry, kRehitEps);
@@ -285,169 +238,340 @@ __device__ __forceinline__ float medium_scatter_t(float entry, float exit,
   const float t2 = fminf(exit, t_max);
   exists = exists && t1 < t2;
   t1 = fmaxf(t1, 0.0f);
-  const float ray_len = __fsqrt_rn(dot3(dx, dy, dz, dx, dy, dz));
   const float dist_inside = __fmul_rn(__fsub_rn(t2, t1), ray_len);
   const float hit_dist = __fmul_rn(nid, logf(u));
   exists = exists && hit_dist <= dist_inside;
   return exists ? __fadd_rn(t1, __fdiv_rn(hit_dist, ray_len)) : kBig;
 }
 
-__device__ __forceinline__ float medium_sphere_t(const Stage& st, int j,
-                                                 float u, float ox, float oy,
-                                                 float oz, float dx, float dy,
-                                                 float dz, float t_min,
-                                                 float t_max) {
-  const Roots rt = sphere_roots(st.f[kP0][j], st.f[kP0 + 1][j],
-                                st.f[kP0 + 2][j], st.f[kRadius][j], ox, oy,
-                                oz, dx, dy, dz);
-  if (!rt.exists) return kBig;
-  return medium_scatter_t(rt.t_near, rt.t_far, st.f[kNid][j], dx, dy, dz,
-                          t_min, t_max, u);
-}
-
-__device__ __forceinline__ float medium_box_t(const Stage& st, int j,
-                                              float u, float ox, float oy,
-                                              float oz, float dx, float dy,
-                                              float dz, float t_min,
-                                              float t_max) {
-  float entry, exit;
-  box_slab(st, j, ox, oy, oz, dx, dy, dz, entry, exit);
-  if (!(exit > entry)) return kBig;
-  return medium_scatter_t(entry, exit, st.f[kNid][j], dx, dy, dz, t_min,
-                          t_max, u);
-}
-
-// Fold `count` staged primitives of one type (first index `first`) into
-// the ray's best, every candidate bounded by the tile-start `bound`.
+// The candidate t of one pair of a rect or medium tile, or of a
+// transformed tile (f: the ray's lerp factor, read when a sphere's slot is
+// >= 0).
 template <int kType>
-__device__ __forceinline__ void fold(const Stage& st, int count, int first,
-                                     const Ray& r, bool motion, bool xform,
-                                     float bound, float t_min, float& t_best,
-                                     int& best) {
-  for (int j = 0; j < count; ++j) {
-    float ox = r.ox, oy = r.oy, oz = r.oz, dx = r.dx, dy = r.dy, dz = r.dz;
-    if (xform) to_object(st, j, ox, oy, oz, dx, dy, dz);
-    float t;
-    if (kType == kSphere) {
-      t = sphere_t(st, j, motion, r.time, ox, oy, oz, dx, dy, dz, t_min,
-                   bound);
-    } else if (kType == kRect) {
-      t = rect_t(st, j, ox, oy, oz, dx, dy, dz, t_min, bound);
-    } else if (kType == kBox) {
-      t = box_t(st, j, ox, oy, oz, dx, dy, dz, t_min, bound);
-    } else {
-      const float u = medium_uniform(r.bits, static_cast<uint32_t>(st.id[j]));
-      t = kType == kMediumSphere
-              ? medium_sphere_t(st, j, u, ox, oy, oz, dx, dy, dz, t_min,
-                                bound)
-              : medium_box_t(st, j, u, ox, oy, oz, dx, dy, dz, t_min, bound);
+__device__ __forceinline__ float prim_t(const float4 g, const float4 m,
+                                        int slot, float f, int axis,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz,
+                                        const RayTerms& rt, uint32_t bits,
+                                        float t_min, float t_max) {
+  if constexpr (kType == kSphere) {
+    float cx = g.x, cy = g.y, cz = g.z;
+    if (slot >= 0) {
+      cx = __fadd_rn(cx, __fmul_rn(f, m.x));
+      cy = __fadd_rn(cy, __fmul_rn(f, m.y));
+      cz = __fadd_rn(cz, __fmul_rn(f, m.z));
     }
-    if (t < t_best) {
-      t_best = t;
-      best = first + j;
+    return hrt::sphere_t(cx, cy, cz, g.w, ox, oy, oz, dx, dy, dz, rt.a,
+                         t_min, t_max);
+  } else if constexpr (kType == kRect) {
+    return rect_t(g, m.x, axis, ox, oy, oz, dx, dy, dz, t_min, t_max);
+  } else if constexpr (kType == kBox) {
+    float entry, exit;
+    box_slab(g, m, ox, oy, oz, rt, entry, exit);
+    if (!(exit > entry)) return kBig;
+    if (entry >= t_min && entry <= t_max) return entry;
+    if (exit >= t_min && exit <= t_max) return exit;
+    return kBig;
+  } else if constexpr (kType == kMediumSphere) {
+    const hrt::Roots r = hrt::sphere_roots(g.x, g.y, g.z, g.w, ox, oy, oz,
+                                           dx, dy, dz, rt.a);
+    if (!r.exists) return kBig;
+    const float u = medium_uniform(bits, __float_as_uint(m.y));
+    return medium_scatter_t(r.t_near, r.t_far, m.x, rt.len, t_min, t_max,
+                            u);
+  } else {  // kMediumBox
+    float entry, exit;
+    box_slab(g, m, ox, oy, oz, rt, entry, exit);
+    if (!(exit > entry)) return kBig;
+    const float u = medium_uniform(bits, __float_as_uint(m.w));
+    return medium_scatter_t(entry, exit, g.w, rt.len, t_min, t_max, u);
+  }
+}
+
+// Fold one box record (index idx) of an untransformed tile into every ray
+// of the packet, in two phases as hrt::fold_sphere: every ray's slab
+// interval first; then, only when some ray's line meets the box
+// (exit > entry), the range tests and the update (ops/intersect.py box_t:
+// the entry if in range, else the exit).  rt: the rays' slab reciprocals.
+template <int R>
+__device__ __forceinline__ void fold_box(hrt::Packet<R>& pk, const float4 g,
+                                         const float4 m, const RayTerms* rt,
+                                         int idx, float t_min) {
+  float entry[R], exit[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    box_slab(g, m, pk.ox[r], pk.oy[r], pk.oz[r], rt[r], entry[r], exit[r]);
+    any = any || exit[r] > entry[r];
+  }
+  if (!any) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (exit[r] > entry[r]) {
+      const float t_max = pk.t_best[r];
+      float t = hrt::kBig;
+      if (entry[r] >= t_min && entry[r] <= t_max) {
+        t = entry[r];
+      } else if (exit[r] >= t_min && exit[r] <= t_max) {
+        t = exit[r];
+      }
+      hrt::update_best(pk, r, t, idx);
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
-                   const float* __restrict__ time,
-                   const unsigned char* __restrict__ active,
-                   const long long* __restrict__ bits, int n, Prims pr,
-                   const int* __restrict__ plan, int n_tiles, float t_min,
-                   float* __restrict__ t_out, int* __restrict__ best_out) {
-  __shared__ Stage st;
-
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const bool in_range = ray < n;
-  const bool live = in_range && active[ray] != 0;
-  Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 1.f, 0.f, 0u};
-  if (live) {
-    r.ox = o[3 * ray];
-    r.oy = o[3 * ray + 1];
-    r.oz = o[3 * ray + 2];
-    r.dx = d[3 * ray];
-    r.dy = d[3 * ray + 1];
-    r.dz = d[3 * ray + 2];
-    r.time = time[ray];
-    r.bits = static_cast<uint32_t>(bits[ray]);  // a word below 2^32
+// Fold `count` staged records of one tile (first index idx0) into the
+// packet.  Untransformed tiles go record by record through the whole
+// packet: spheres and boxes, nearly all of the work, in two phases bounded
+// by the running best; rects and media one pair at a time, media bounded
+// by the tile-start bound.  Transformed tiles (rare) go ray by ray through
+// the records, so that only one ray's object-frame terms are live at a
+// time and the kernel needs no more registers for them.
+template <int R, int kType, bool kXform, bool kMotion>
+__device__ __forceinline__ void fold_segment(
+    hrt::Packet<R>& pk, const RayInputs& in,
+    const float4* sg, const float4* sa, const float4* sx, int count,
+    int idx0, int axis, float t_min, const float2* __restrict__ shutter) {
+  constexpr bool kMedium = kType == kMediumSphere || kType == kMediumBox;
+  uint32_t bits[R]{};
+  float bound[R]{};
+  if constexpr (kMedium) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      // A word below 2^32.
+      bits[r] = pk.on[r] ? static_cast<uint32_t>(
+                               in.bits[hrt::packet_ray<R>(r)])
+                         : 0u;
+      bound[r] = s_bound[hrt::word(r)];
+    }
   }
-
-  float t_best = kBig;
-  int best = -1;
-  // Every thread, live or not, runs every tile and stage: each stage has
-  // two __syncthreads(), which the whole block must reach.
-  for (int k = 0; k < n_tiles; ++k) {
-    const int start = plan[6 * k], width = plan[6 * k + 1];
-    const int type = plan[6 * k + 2];
-    const bool motion = plan[6 * k + 3] != 0, xform = plan[6 * k + 4] != 0;
-    const float bound = t_best;  // scan_all's stale t_max for this tile
-    for (int base = 0; base < width; base += kStage) {
-      const int count = min(kStage, width - base);
-      const int first = start + base;
-      __syncthreads();  // the previous stage has been read by every thread
-      stage_chunk(st, pr, type, xform, first, count);
-      __syncthreads();
-      if (!live) continue;
-      switch (type) {  // the same for the whole block: no divergence
-        case kSphere:
-          fold<kSphere>(st, count, first, r, motion, xform, bound, t_min,
-                        t_best, best);
-          break;
-        case kRect:
-          fold<kRect>(st, count, first, r, motion, xform, bound, t_min,
-                      t_best, best);
-          break;
-        case kBox:
-          fold<kBox>(st, count, first, r, motion, xform, bound, t_min,
-                     t_best, best);
-          break;
-        case kMediumSphere:
-          fold<kMediumSphere>(st, count, first, r, motion, xform, bound,
-                              t_min, t_best, best);
-          break;
-        case kMediumBox:
-          fold<kMediumBox>(st, count, first, r, motion, xform, bound, t_min,
-                           t_best, best);
-          break;
-        default:
-          break;
+  if constexpr (kType == kSphere && !kXform) {  // K1's routine
+#pragma unroll 1
+    for (int j = 0; j < count; ++j) {
+      const float4 g = sg[j];
+      float4 m = g;
+      if constexpr (kMotion) m = sa[j];
+      hrt::fold_sphere<R, kMotion>(pk, g, m, idx0 + j, t_min, shutter,
+                                   in.time);
+    }
+  } else if constexpr (!kXform) {
+    RayTerms base[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      base[r] = ray_terms<kType>(pk.dx[r], pk.dy[r], pk.dz[r]);
+#pragma unroll 1
+    for (int j = 0; j < count; ++j) {
+      const float4 g = sg[j];
+      const float4 m = sa[j];
+      if constexpr (kType == kBox) {
+        fold_box<R>(pk, g, m, base, idx0 + j, t_min);
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float t = prim_t<kType>(
+              g, m, -1, 0.f, axis, pk.ox[r], pk.oy[r], pk.oz[r], pk.dx[r],
+              pk.dy[r], pk.dz[r], base[r], bits[r], t_min,
+              kMedium ? bound[r] : pk.t_best[r]);
+          hrt::update_best(pk, r, t, idx0 + j);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll 1
+      for (int j = 0; j < count; ++j) {
+        const float4 g = sg[j];
+        const float4 m = sa[j];
+        int slot = -1;
+        if constexpr (kType == kSphere && kMotion) {
+          slot = __float_as_int(m.w);
+          if (slot >= 0) hrt::shutter_factor(pk, slot, shutter, in.time);
+        }
+        float ox = pk.ox[r], oy = pk.oy[r], oz = pk.oz[r];
+        float dx = pk.dx[r], dy = pk.dy[r], dz = pk.dz[r];
+        to_object(sx[3 * j], sx[3 * j + 1], sx[3 * j + 2], ox, oy, oz, dx,
+                  dy, dz);
+        const float t = prim_t<kType>(
+            g, m, slot, pk.f[r], axis, ox, oy, oz, dx, dy, dz,
+            ray_terms<kType>(dx, dy, dz), bits[r], t_min,
+            kMedium ? bound[r] : pk.t_best[r]);
+        hrt::update_best(pk, r, t, idx0 + j);
       }
     }
   }
-  if (in_range) {
-    t_out[ray] = t_best;  // kBig for inactive rays and misses
-    best_out[ray] = best;
+}
+
+// Issue the cp.async copies of stage q (records [q * kStage, ...)) into
+// ring slot q & 1, walking the plan from tile `tile` (the first tile that
+// overlaps the stage; left at the first tile that overlaps the next).
+// Only the records a tile's type reads are copied.
+__device__ __forceinline__ void stage_copy(
+    const Ring& ring, int q, int p, int& tile, const int4* __restrict__ plan,
+    int n_tiles, const float4* __restrict__ geo,
+    const float4* __restrict__ aux, const float4* __restrict__ xf) {
+  const int lo = q * kStage, hi = min(lo + kStage, p), buf = q & 1;
+  float4* sg = ring.geo + buf * kStage;
+  float4* sa = ring.aux + buf * kStage;
+  float4* sx = ring.xf + buf * 3 * kStage;
+  while (tile < n_tiles) {
+    const Tile t = load_tile(plan, tile);
+    if (t.start >= hi) break;
+    const int a = max(lo, t.start), b = min(hi, t.start + t.width);
+    const bool need_aux = t.type != kSphere || t.motion;
+    for (int j = threadIdx.x; j < b - a; j += kThreads) {
+      hrt::cp_async16(sg + (a - lo) + j, geo + a + j);
+      if (need_aux) hrt::cp_async16(sa + (a - lo) + j, aux + a + j);
+    }
+    if (t.xform) {
+      const float4* src = xf + 3 * (t.xf_off + a - t.start);
+      for (int j = threadIdx.x; j < 3 * (b - a); j += kThreads)
+        hrt::cp_async16(sx + 3 * (a - lo) + j, src + j);
+    }
+    if (t.start + t.width > hi) break;  // the tile goes on in stage q + 1
+    ++tile;
   }
+}
+
+// Fold ring slot q & 1 (stage q) into the packet, tile segment by tile
+// segment, from tile `tile` on (left as in stage_copy).
+template <int R>
+__device__ __forceinline__ void fold_stage(
+    hrt::Packet<R>& pk, const RayInputs& in, const Ring& ring, int q, int p,
+    int& tile, const int4* __restrict__ plan, int n_tiles, float t_min,
+    const float2* __restrict__ shutter) {
+  const int lo = q * kStage, hi = min(lo + kStage, p), buf = q & 1;
+  while (tile < n_tiles) {
+    const Tile t = load_tile(plan, tile);
+    if (t.start >= hi) break;
+    if (t.start >= lo && (t.type == kMediumSphere || t.type == kMediumBox)) {
+      // A medium tile begins here: scan_all's stale t_max.
+#pragma unroll
+      for (int r = 0; r < R; ++r) s_bound[hrt::word(r)] = pk.t_best[r];
+    }
+    const int a = max(lo, t.start), b = min(hi, t.start + t.width);
+    const float4* sg = ring.geo + buf * kStage + (a - lo);
+    const float4* sa = ring.aux + buf * kStage + (a - lo);
+    const float4* sx = ring.xf + buf * 3 * kStage + 3 * (a - lo);
+    const int n_seg = b - a, ax = t.axis;
+    // The tile's type and flags are the same for the whole block: these
+    // branches never diverge.
+#define HRT_FOLD(TYPE, XF, MO)                                           \
+  fold_segment<R, TYPE, XF, MO>(pk, in, sg, sa, sx, n_seg, a, ax, t_min, \
+                                shutter)
+    switch (t.type) {
+      case kSphere:
+        if (t.xform) {
+          if (t.motion) HRT_FOLD(kSphere, true, true);
+          else HRT_FOLD(kSphere, true, false);
+        } else {
+          if (t.motion) HRT_FOLD(kSphere, false, true);
+          else HRT_FOLD(kSphere, false, false);
+        }
+        break;
+      case kRect:
+        if (t.xform) HRT_FOLD(kRect, true, false);
+        else HRT_FOLD(kRect, false, false);
+        break;
+      case kBox:
+        if (t.xform) HRT_FOLD(kBox, true, false);
+        else HRT_FOLD(kBox, false, false);
+        break;
+      case kMediumSphere:
+        if (t.xform) HRT_FOLD(kMediumSphere, true, false);
+        else HRT_FOLD(kMediumSphere, false, false);
+        break;
+      case kMediumBox:
+        if (t.xform) HRT_FOLD(kMediumBox, true, false);
+        else HRT_FOLD(kMediumBox, false, false);
+        break;
+      default:
+        break;
+    }
+#undef HRT_FOLD
+    if (t.start + t.width > hi) break;  // the tile goes on in stage q + 1
+    ++tile;
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
+                   const float* __restrict__ time,
+                   const unsigned char* __restrict__ active,
+                   const long long* __restrict__ bits, int n,
+                   const float4* __restrict__ geo,
+                   const float4* __restrict__ aux,
+                   const float4* __restrict__ xf,
+                   const int4* __restrict__ plan, int n_tiles, int p,
+                   const float2* __restrict__ shutter, float t_min,
+                   float* __restrict__ t_out, int* __restrict__ best_out) {
+  extern __shared__ float4 smem[];
+  // xf points past the geo and aux slots; with no transformed tile it is
+  // never written or read.
+  const Ring ring{smem, smem + 2 * kStage, smem + 4 * kStage};
+
+  hrt::Packet<R> pk;
+  hrt::load_packet<R>(pk, o, d, active, n);
+  const RayInputs in{time, bits};
+
+  const int n_stages = (p + kStage - 1) / kStage;
+  int copy_tile = 0, fold_tile = 0;
+  stage_copy(ring, 0, p, copy_tile, plan, n_tiles, geo, aux, xf);
+  hrt::cp_async_commit();
+  // Every thread, live or not, runs every stage: each has two barriers.
+  for (int q = 0; q < n_stages; ++q) {
+    if (q + 1 < n_stages)
+      stage_copy(ring, q + 1, p, copy_tile, plan, n_tiles, geo, aux, xf);
+    hrt::cp_async_commit();  // possibly empty: keeps one group per stage
+    hrt::cp_async_wait<1>();  // stage q has landed (this thread's copies)
+    __syncthreads();          // ... and every other thread's
+    if (pk.live)
+      fold_stage(pk, in, ring, q, p, fold_tile, plan, n_tiles, t_min,
+                 shutter);
+    __syncthreads();  // slot q & 1 is read; stage q + 2 may overwrite it
+  }
+  hrt::store_packet<R>(pk, n, t_out, best_out);
+}
+
+template <int R>
+int launch(const float* o, const float* d, const float* time,
+           const unsigned char* active, const long long* bits, int n,
+           const float4* geo, const float4* aux, const float4* xf,
+           const int4* plan, int n_tiles, int p, const float2* shutter,
+           bool has_xf, float t_min, float* t_out, int* best_out,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(float4) * kStage * (has_xf ? 10 : 4);
+  const int blocks = (n + kThreads * R - 1) / (kThreads * R);
+  typed_sweep_kernel<R><<<blocks, kThreads, smem, stream>>>(
+      o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p, shutter,
+      t_min, t_out, best_out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes.  Pointers are device pointers of
 // contiguous tensors: rays o, d [n,3], time [n] float32, active [n] (bool
-// as bytes), bits [n] int64 words; primitives p0, p1 [p,3], radius,
-// time0, time1, nid [p] float32, rot [p,3,3], trans [p,3] float32,
-// stable_id, axis [p] int32; plan [n_tiles,6] int32 (start, width, type,
-// motion, transform, rect axis); outputs t_out [n] float32 and best_out
-// [n] int32.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); it never synchronises.
+// as bytes), bits [n] int64 words; records geo, aux [p] float4, xf
+// [x,3] float4 (the transformed tiles' primitives), plan [n_tiles,8]
+// int32 (start, width, type, motion, transform, rect axis, xf offset, 0),
+// the shutter table [slots] float2; outputs t_out [n] float32 and
+// best_out [n] int32.  has_xf: some tile is transformed.  Launches on
+// `stream` and returns cudaGetLastError() (0 on success); it never
+// synchronises.
 extern "C" int hrt_typed_sweep(const float* o, const float* d,
                                const float* time, const unsigned char* active,
-                               const long long* bits, int n, const float* p0,
-                               const float* p1, const float* radius,
-                               const float* time0, const float* time1,
-                               const float* nid, const float* rot,
-                               const float* trans, const int* stable_id,
-                               const int* axis, const int* plan, int n_tiles,
-                               float t_min, float* t_out, int* best_out,
-                               void* stream) {
-  if (n <= 0 || n_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Prims pr{p0, p1, radius, time0, time1, nid, rot, trans, stable_id,
-                 axis};
-  const int blocks = (n + kThreads - 1) / kThreads;
-  typed_sweep_kernel<<<blocks, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      o, d, time, active, bits, n, pr, plan, n_tiles, t_min, t_out,
-      best_out);
-  return static_cast<int>(cudaGetLastError());
+                               const long long* bits, int n,
+                               const float4* geo, const float4* aux,
+                               const float4* xf, const int* plan,
+                               int n_tiles, int p, const float2* shutter,
+                               int has_xf, float t_min, float* t_out,
+                               int* best_out, void* stream) {
+  if (n <= 0 || n_tiles <= 0 || p <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<hrt::kRays>(o, d, time, active, bits, n, geo, aux, xf,
+                            reinterpret_cast<const int4*>(plan), n_tiles, p,
+                            shutter, has_xf != 0, t_min, t_out, best_out,
+                            static_cast<cudaStream_t>(stream));
 }

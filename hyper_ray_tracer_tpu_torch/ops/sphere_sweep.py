@@ -6,9 +6,11 @@ scene among them).  Two implementations of one contract:
 * ``sphere_sweep``: the wrapper of the hand-written Hopper kernel
   ``csrc/sphere_sweep.cu``, which replaces the TPU kernel
   ``hyper_ray_tracer_tpu/ops/pallas_sweep.py::_kernel``.  The kernel is
-  bound by FP32 ALU work per ray-sphere pair; it keeps one thread per ray
-  and stages 128 spheres at a time in shared memory (the design note is at
-  the top of the CUDA source).
+  bound by FP32 issue per ray-sphere pair; it carries a packet of rays per
+  thread and streams packed sphere records through a double-buffered
+  shared-memory ring (the design note is at the top of the
+  CUDA source).  The records are packed once per scene
+  (``sphere_records``) and cached on the sphere tensors.
 * ``sphere_sweep_plain``: the same function in plain torch, tiled over
   spheres so memory stays bounded.  It follows the JAX package's
   ``sphere_t`` and ``scan_all`` fold.  CPU tensors take it; on the card it
@@ -17,7 +19,7 @@ scene among them).  Two implementations of one contract:
 Contract (``pallas_sweep.py:1-22,38-103``, ``ops/bvh.py:310-318,399``):
 rays ``o`` [N,3], unnormalised ``d`` [N,3], ``time`` [N] float32 and
 ``active`` [N] bool; spheres ``p0``, ``p1`` [P,3], ``time0``, ``time1``,
-``radius`` [P] float32 (a static sphere has p1 == p0, time0=0, time1=1).
+``radius`` [P] float32.
 Returns ``t_best`` [N] float32 and ``best`` [N] int32: the closest hit in
 [t_min, inf) and its sphere index, ties to the lowest index, (BIG, -1) for
 a miss or an inactive ray.
@@ -32,13 +34,89 @@ boundary round to different decisions, and ~1e-4 of the rays of the
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import NamedTuple
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils import cuda_build
 from .intersect import BIG, PrimFields, sphere_t
 
 PLAIN_TILE = 128  # spheres per step of the plain version
+
+
+class SphereRecords(NamedTuple):
+    """The packed sphere records the kernels stage (csrc/sweep_sphere.cuh),
+    NumPy: ``geo`` [P,4] float32 (center p0, r*r), ``aux`` [P,4] float32
+    (p1 - p0, the shutter slot's int32 bits), ``shutter`` [S,2] float32
+    (time0, time1 - time0 per slot; one (0, 1) row when no sphere has a
+    slot), ``has_motion``: some sphere has a slot."""
+
+    geo: np.ndarray
+    aux: np.ndarray
+    shutter: np.ndarray
+    has_motion: bool
+
+
+def sphere_records(p0, p1, time0, time1, radius, lerp=None) -> SphereRecords:
+    """Pack spheres (NumPy float32 arrays) into the kernels' records.
+
+    ``lerp`` [P] bool marks the spheres whose center the plain version
+    lerps (default: all, as ``sphere_sweep_plain`` does).  p1 - p0, r * r
+    and time1 - time0 are the plain version's IEEE operations, so the
+    kernel reads the values the plain version computes.  A lerped sphere
+    gets the slot of its (time0, time1 - time0) in the shutter table,
+    unless its center cannot move (p1 == p0, time0 = 0, time1 = 1: then
+    p0 + f * 0 == p0 for every finite lerp factor f), which keeps slot -1.
+    """
+    p0, p1 = np.asarray(p0, np.float32), np.asarray(p1, np.float32)
+    time0 = np.asarray(time0, np.float32)
+    time1 = np.asarray(time1, np.float32)
+    radius = np.asarray(radius, np.float32)
+    n = p0.shape[0]
+    dp = p1 - p0
+    dt = time1 - time0
+    fixed = (dp == 0).all(1) & (time0 == 0) & (time1 == 1)
+    moves = ~fixed if lerp is None else np.asarray(lerp, bool) & ~fixed
+    slot = np.full(n, -1, np.int32)
+    shutter = np.array([[0.0, 1.0]], np.float32)
+    if moves.any():
+        shutter, inv = np.unique(np.stack([time0, dt], 1)[moves], axis=0,
+                                 return_inverse=True)
+        slot[moves] = inv.reshape(-1)
+    geo = np.concatenate([p0, (radius * radius)[:, None]], 1)
+    aux = np.concatenate([dp, slot.view(np.float32)[:, None]], 1)
+    return SphereRecords(geo=np.ascontiguousarray(geo),
+                         aux=np.ascontiguousarray(aux),
+                         shutter=np.ascontiguousarray(shutter, np.float32),
+                         has_motion=bool(moves.any()))
+
+
+# Device records per sphere set, keyed by its p0 tensor and checked
+# against the other four tensors and every tensor's version counter, so
+# that a scene's spheres are packed once, not on every launch.
+_device_records = WeakIdKeyDictionary()
+
+
+def device_sphere_records(p0, p1, time0, time1, radius):
+    """``sphere_records`` of the five sphere tensors, as tensors on their
+    device, packed on first use and cached on the tensors."""
+    fields = (p0, p1, time0, time1, radius)
+    versions = tuple(x._version for x in fields)
+    hit = _device_records.get(p0)
+    if hit is not None:
+        refs, seen, rec = hit
+        if seen == versions and all(r() is x for r, x in zip(refs, fields)):
+            return rec
+    host = sphere_records(*(x.detach().cpu().numpy() for x in fields))
+    rec = host._replace(geo=torch.from_numpy(host.geo).to(p0.device),
+                        aux=torch.from_numpy(host.aux).to(p0.device),
+                        shutter=torch.from_numpy(host.shutter).to(p0.device))
+    _device_records[p0] = (tuple(weakref.ref(x) for x in fields), versions,
+                           rec)
+    return rec
 
 
 def sphere_sweep_plain(p0, p1, time0, time1, radius, o, d, time, active,
@@ -68,9 +146,8 @@ def sphere_sweep_plain(p0, p1, time0, time1, radius, o, d, time, active,
 def _bind(lib):
     fn = lib.hrt_sphere_sweep
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, ptr, c_int,
-                   ptr, ptr, ptr, ptr, ptr, c_int, ctypes.c_float,
-                   ptr, ptr, ptr]
+    fn.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, ptr, c_int,
+                   ctypes.c_float, ptr, ptr, ptr]
     fn.restype = c_int
     return fn
 
@@ -105,14 +182,12 @@ def sphere_sweep(p0, p1, time0, time1, radius, o, d, time, active,
     if n == 0:
         return t_best, best
     fn = _bind(cuda_build.load("sphere_sweep"))
-    # The same operations sphere_t applies (p1 - p0, time1 - time0).
-    dp = (p1 - p0).contiguous()
-    dt = (time1 - time0).contiguous()
+    rec = device_sphere_records(p0, p1, time0, time1, radius)
     cuda_build.launch(
         "sphere_sweep", fn, device, o.data_ptr(), d.data_ptr(),
-        time.data_ptr(), active.data_ptr(), n, p0.data_ptr(), dp.data_ptr(),
-        time0.data_ptr(), dt.data_ptr(), radius.data_ptr(), p, float(t_min),
-        t_best.data_ptr(), best.data_ptr())
+        time.data_ptr(), active.data_ptr(), n, rec.geo.data_ptr(),
+        rec.aux.data_ptr(), p, rec.shutter.data_ptr(), int(rec.has_motion),
+        float(t_min), t_best.data_ptr(), best.data_ptr())
     sphere_sweep.launches += 1
     return t_best, best
 

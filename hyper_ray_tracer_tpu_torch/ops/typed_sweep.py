@@ -7,8 +7,9 @@ implementations of one contract:
 * ``typed_sweep``: the wrapper of the hand-written Hopper kernel
   ``csrc/typed_sweep.cu``.  The JAX package traces these scenes with an
   XLA sweep, not a Pallas kernel; the kernel follows that sweep.  It is
-  bound by FP32 ALU work per ray-primitive pair; the design note is at the
-  top of the CUDA source.
+  bound by FP32 issue per ray-primitive pair; it reads each primitive as
+  packed 16-byte records (``typed_records``, built once per scene by
+  ``sweep_scene``); the design note is at the top of the CUDA source.
 * ``typed_sweep_plain``: the same function in plain torch.  CPU tensors
   take it; on the card it is only the reference the kernel is checked
   against.
@@ -42,11 +43,22 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
-from ..models.scene import PT_NONE, PT_RECT, PT_SPHERE
+from ..models.scene import (
+    PT_BOX,
+    PT_MEDIUM_BOX,
+    PT_MEDIUM_SPHERE,
+    PT_NONE,
+    PT_RECT,
+    PT_SPHERE,
+)
 from .intersect import BIG, PrimFields, prim_hit_t
+from .sphere_sweep import sphere_records
 
 SCAN_TILE = 512  # primitives per plan tile (the JAX package's tile width)
 PLAIN_TILE = 128  # primitives per step of the plain version
+# A plan row as the kernel reads it: 8 int32 (two int4 loads).
+PLAN_COLUMNS = ("start", "width", "ptype", "motion", "xform", "rect_axis",
+                "xf_offset", "pad")
 
 
 def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE):
@@ -97,13 +109,72 @@ class SweepScene(NamedTuple):
     """The typed sweep's view of a scene on one device."""
 
     plan: tuple  # PlanTile per tile, host side
-    plan_rows: torch.Tensor  # [T, 6] int32, the plan as the kernel reads it
-    prims: PrimFields  # [P] fields of the first n_prims primitives
+    plan_rows: torch.Tensor  # [T, 8] int32, PLAN_COLUMNS per tile
+    prims: PrimFields  # [P] fields of the first n_prims primitives (plain)
+    geo: torch.Tensor  # [P, 4] float32 records (typed_records)
+    aux: torch.Tensor  # [P, 4] float32
+    xf: torch.Tensor  # [X, 12] float32, the transformed tiles' primitives
+    shutter: torch.Tensor  # [S, 2] float32 (time0, time1 - time0) per slot
+
+
+def typed_records(geom_np, plan, n_prims: int):
+    """The kernel's packed records of the first ``n_prims`` primitives of
+    the NumPy geometry ``geom_np`` (layout: csrc/typed_sweep.cu).  Returns
+    (plan rows [T, 8] int32, geo [P, 4], aux [P, 4], xf [X, 12], shutter
+    [S, 2] float32).  Spheres are packed by ``sphere_records``, lerped only
+    in the plan's motion tiles, as ``prim_hit_t`` lerps them; ``xf`` holds
+    R row-major and t of every primitive of a transformed tile, tile by
+    tile (one zero row when there is none)."""
+    g = geom_np
+    n = n_prims
+    pt = np.asarray(g.ptype)[:n]
+    p0 = np.asarray(g.p0, np.float32)[:n]
+    p1 = np.asarray(g.p1, np.float32)[:n]
+    nid = np.asarray(g.neg_inv_density, np.float32)[:n]
+    sid = np.asarray(g.stable_id).astype(np.int32)[:n].view(np.float32)
+    zero = np.zeros(n, np.float32)
+    lerp = np.zeros(n, bool)
+    for t in plan:
+        lerp[t.start:t.start + t.width] = t.ptype == PT_SPHERE and t.motion
+    sph = sphere_records(p0, p1, np.asarray(g.time0)[:n],
+                         np.asarray(g.time1)[:n], np.asarray(g.radius)[:n],
+                         lerp)
+    col = np.stack
+    by_type = {
+        PT_SPHERE: (sph.geo, sph.aux),
+        PT_MEDIUM_SPHERE: (sph.geo, col([nid, sid, zero, zero], 1)),
+        PT_RECT: (col([p0[:, 0], p0[:, 1], p0[:, 2], p1[:, 0]], 1),
+                  col([p1[:, 1], zero, zero, zero], 1)),
+        PT_BOX: (np.concatenate([p0, zero[:, None]], 1),
+                 np.concatenate([p1, zero[:, None]], 1)),
+        PT_MEDIUM_BOX: (np.concatenate([p0, nid[:, None]], 1),
+                        np.concatenate([p1, sid[:, None]], 1)),
+    }
+    geo = np.zeros((n, 4), np.float32)
+    aux = np.zeros((n, 4), np.float32)
+    for ptype, (g_rec, a_rec) in by_type.items():
+        sel = pt == ptype
+        geo[sel] = g_rec[sel]
+        aux[sel] = a_rec[sel]
+    xform = np.concatenate([np.asarray(g.rot, np.float32)[:n].reshape(n, 9),
+                            np.asarray(g.trans, np.float32)[:n]], 1)
+    rows, xf = [], []
+    n_xf = 0
+    for t in plan:
+        rows.append([t.start, t.width, t.ptype, int(t.motion), int(t.xform),
+                     t.rect_axis, n_xf if t.xform else 0, 0])
+        if t.xform:
+            xf.append(xform[t.start:t.start + t.width])
+            n_xf += t.width
+    xf = np.concatenate(xf) if xf else np.zeros((1, 12), np.float32)
+    return (np.asarray(rows, np.int32), geo, aux,
+            np.ascontiguousarray(xf, np.float32), sph.shutter)
 
 
 def sweep_scene(geom_np, geom, n_prims: int) -> SweepScene:
-    """Build the plan from the NumPy geometry ``geom_np`` and slice the
-    device tensors ``geom`` (the same GeometrySoA as tensors)."""
+    """Build the plan and the kernel's records from the NumPy geometry
+    ``geom_np`` and slice the device tensors ``geom`` (the same
+    GeometrySoA as tensors)."""
     plan = []
     for s, w, types, motion, xform, rect_axis in tile_plan(geom_np,
                                                            n_prims):
@@ -112,7 +183,9 @@ def sweep_scene(geom_np, geom, n_prims: int) -> SweepScene:
         plan.append(PlanTile(s, w, next(iter(types)), motion, xform,
                              -1 if rect_axis is None else rect_axis))
     device = geom.p0.device
-    rows = torch.tensor([list(map(int, t)) for t in plan], dtype=torch.int32)
+    rows, geo, aux, xf, shutter = (
+        torch.from_numpy(x).to(device)
+        for x in typed_records(geom_np, plan, n_prims))
     prims = PrimFields(
         p0=geom.p0[:n_prims], p1=geom.p1[:n_prims],
         radius=geom.radius[:n_prims], time0=geom.time0[:n_prims],
@@ -121,8 +194,8 @@ def sweep_scene(geom_np, geom, n_prims: int) -> SweepScene:
         neg_inv_density=geom.neg_inv_density[:n_prims],
         rot=geom.rot[:n_prims], trans=geom.trans[:n_prims])
     prims = PrimFields(*(x.contiguous() for x in prims))
-    return SweepScene(plan=tuple(plan), plan_rows=rows.to(device),
-                      prims=prims)
+    return SweepScene(plan=tuple(plan), plan_rows=rows, prims=prims,
+                      geo=geo, aux=aux, xf=xf, shutter=shutter)
 
 
 def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
@@ -156,8 +229,8 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
 def _bind(lib):
     fn = lib.hrt_typed_sweep
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([ptr] * 5 + [c_int] + [ptr] * 10 + [ptr, c_int]
-                   + [ctypes.c_float, ptr, ptr, ptr])
+    fn.argtypes = ([ptr] * 5 + [c_int] + [ptr] * 4 + [c_int, c_int, ptr]
+                   + [c_int, ctypes.c_float, ptr, ptr, ptr])
     fn.restype = c_int
     return fn
 
@@ -173,21 +246,18 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
         return typed_sweep_plain(sw, o, d, time, active, bits, t_min)
     if device.type != "cuda":
         raise ValueError(f"typed_sweep: unsupported device {device}")
-    n, p, f32, i32 = o.shape[0], sw.prims.p0.shape[0], torch.float32, \
+    n, p, f32, i32 = o.shape[0], sw.geo.shape[0], torch.float32, \
         torch.int32
-    pf = sw.prims
+    n_xf = sw.xf.shape[0]
     for name, x, shape, dtype in (
             ("o", o, (n, 3), f32), ("d", d, (n, 3), f32),
             ("time", time, (n,), f32), ("active", active, (n,), torch.bool),
             ("bits", bits, (n,), torch.int64),
-            ("p0", pf.p0, (p, 3), f32), ("p1", pf.p1, (p, 3), f32),
-            ("radius", pf.radius, (p,), f32), ("time0", pf.time0, (p,), f32),
-            ("time1", pf.time1, (p,), f32),
-            ("neg_inv_density", pf.neg_inv_density, (p,), f32),
-            ("rot", pf.rot, (p, 3, 3), f32), ("trans", pf.trans, (p, 3), f32),
-            ("stable_id", pf.stable_id, (p,), i32),
-            ("axis", pf.axis, (p,), i32),
-            ("plan_rows", sw.plan_rows, (len(sw.plan), 6), i32)):
+            ("geo", sw.geo, (p, 4), f32), ("aux", sw.aux, (p, 4), f32),
+            ("xf", sw.xf, (n_xf, 12), f32),
+            ("plan_rows", sw.plan_rows, (len(sw.plan), len(PLAN_COLUMNS)),
+             i32),
+            ("shutter", sw.shutter, (sw.shutter.shape[0], 2), f32)):
         cuda_build.check_arg("typed_sweep", name, x, shape, dtype, device)
     if p == 0 or not sw.plan:
         raise ValueError("typed_sweep: no primitives")
@@ -199,15 +269,13 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
     if n == 0:
         return t_best, best
     fn = _bind(cuda_build.load("typed_sweep"))
+    has_xf = any(t.xform for t in sw.plan)
     cuda_build.launch(
         "typed_sweep", fn, device, o.data_ptr(), d.data_ptr(),
         time.data_ptr(), active.data_ptr(), bits.data_ptr(), n,
-        pf.p0.data_ptr(), pf.p1.data_ptr(), pf.radius.data_ptr(),
-        pf.time0.data_ptr(), pf.time1.data_ptr(),
-        pf.neg_inv_density.data_ptr(), pf.rot.data_ptr(),
-        pf.trans.data_ptr(), pf.stable_id.data_ptr(), pf.axis.data_ptr(),
-        sw.plan_rows.data_ptr(), len(sw.plan), float(t_min),
-        t_best.data_ptr(), best.data_ptr())
+        sw.geo.data_ptr(), sw.aux.data_ptr(), sw.xf.data_ptr(),
+        sw.plan_rows.data_ptr(), len(sw.plan), p, sw.shutter.data_ptr(),
+        int(has_xf), float(t_min), t_best.data_ptr(), best.data_ptr())
     typed_sweep.launches += 1
     return t_best, best
 

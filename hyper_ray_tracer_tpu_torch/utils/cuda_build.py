@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the root of the checkout.  The file name carries a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as is.  Nothing falls back: a missing ``nvcc`` or
+hash of the source, of every file it includes by a quoted ``#include``
+(the shared ``csrc/*.cuh`` headers, followed recursively) and of the
+flags, so an edited source or header builds anew and an unchanged one is
+loaded as is.  Nothing falls back: a missing ``nvcc`` or
 a failed build raises.
 
 The compiler's report (``-Xptxas -v``: registers, shared memory, spills)
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict = {}  # name -> ctypes.CDLL; a loaded library cannot unload
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -52,11 +56,24 @@ def find_nvcc() -> str:
         "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and every file it includes with a quoted
+    ``#include`` (resolved beside the including file), recursively."""
+    todo, seen = [CSRC_DIR / f"{name}.cu"], []
+    while todo:
+        path = todo.pop(0)
+        if path not in seen:
+            seen.append(path)
+            todo += [path.parent / inc
+                     for inc in _INCLUDE.findall(path.read_text())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

@@ -5,7 +5,9 @@ machine run ``python -m pytest tests/test_torch_cuda.py``.
 
 Each kernel performs its plain version's IEEE operations in the same
 order, so the two must agree bit for bit, not only within the near-tie
-rules.
+rules.  The sweeps are also held at ray counts around the packet and
+block edges, with two shutter intervals, and with plan tiles that span
+the kernel's stages.
 """
 
 import numpy as np
@@ -19,7 +21,11 @@ from hyper_ray_tracer_tpu_torch import (  # noqa: E402
     render_image,
 )
 from hyper_ray_tracer_tpu_torch.camera import make_basis  # noqa: E402
-from hyper_ray_tracer_tpu_torch.models.scene import TT_NOISE  # noqa: E402
+from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
+    TT_NOISE,
+    CameraConfig,
+    SceneBuilder,
+)
 from hyper_ray_tracer_tpu_torch.ops import rng as prng  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
     gather_prim_shade_packed,
@@ -239,6 +245,109 @@ def test_marble_ragged_counts_and_far_points(cuda, n):
     assert marble.launches == before + 1
     torch.cuda.synchronize()
     assert torch.equal(got, marble_plain(mask, p[0], p[1], p[2], keys))
+
+
+def _two_shutter_scene():
+    """A ground and 300 small spheres: a third moving over [0, 1], a third
+    over [0.25, 0.75], a third static, interleaved, so the kernels' lerp
+    factor changes slot from one sphere to the next."""
+    rng = np.random.default_rng(5)
+    b = SceneBuilder()
+    mat = b.lambertian(b.solid((0.5, 0.5, 0.5)))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, mat)
+    for i, c in enumerate(rng.uniform(-6, 6, (300, 3))):
+        c[1] = abs(c[1]) * 0.3
+        if i % 3 == 0:
+            b.moving_sphere(c, c + (0.0, 0.5, 0.0), 0.0, 1.0, 0.25, mat)
+        elif i % 3 == 1:
+            b.moving_sphere(c, c + (0.3, 0.0, 0.2), 0.25, 0.75, 0.25, mat)
+        else:
+            b.sphere(c, 0.25, mat)
+    return b.finalize(CameraConfig((13, 2, 3), (0, 0, 0), 20.0, 0.0),
+                      (0.7, 0.8, 1.0), "two-shutters")
+
+
+@pytest.mark.parametrize("bounces", [0, 1])
+def test_two_shutter_intervals(cuda, bounces):
+    scene = _two_shutter_scene()
+    st = to_device(scene.arrays, scene.static, cuda)
+    assert st.sweep.shutter.shape[0] == 2
+    s = _rays(scene, st, 160, 90, cuda, bounces)
+    t_k, b_k, t_p, b_p = _both(st, s.o, s.d, s.time, s.alive)
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    t_k, b_k, t_q, b_q = _typed_both(st, s, bounces)
+    assert torch.equal(b_k, b_q) and torch.equal(t_k, t_q)
+    won = b_p[b_p >= 0].long()
+    sph = st.spheres
+    moving = (sph.p1 != sph.p0).any(1)[won]
+    assert (moving & (sph.time0[won] == 0.25)).any()
+    assert (moving & (sph.time0[won] == 0.0)).any()
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 511, 512, 513, 1023,
+                               1024, 1025, 4097])
+def test_packet_and_block_edges(cuda, n):
+    """Ray counts around 128 (a packet's stride) and 4 * 128 (a block of
+    R = 4 packets) and their multiples, with inactive rays, through both
+    sweeps."""
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    for name, bounces in (("random", 0), ("final", 1)):
+        scene = build_scene(name)
+        st = to_device(scene.arrays, scene.static, cuda)
+        s = _rays(scene, st, 80, 60, cuda, bounces)
+        idx = torch.randperm(80 * 60, device=cuda, generator=gen)[:n]
+        sub = type(s)(*(x[idx] for x in s))
+        active = torch.rand(n, device=cuda, generator=gen) < 0.6
+        if name == "random":
+            t_k, b_k, t_p, b_p = _both(st, sub.o, sub.d, sub.time, active)
+        else:
+            t_k, b_k, t_p, b_p = _typed_both(st, sub, bounces, active)
+        assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+        assert (b_k[~active] == -1).all()
+
+
+def _long_tile_scene(media: bool):
+    """tests/test_torch_typed_sweep.py's 700 spheres (plan tiles of 512 and
+    188) and 37 boxes; with ``media``, 300 medium spheres and 40 medium
+    boxes too.  Tile boundaries fall inside the kernel's stages and tiles
+    span several stages."""
+    rng = np.random.default_rng(9)
+    b = SceneBuilder()
+    mat = b.lambertian(b.solid((0.5, 0.5, 0.5)))
+    for c in rng.uniform(-20, 20, (700, 3)):
+        b.sphere(c, float(rng.uniform(0.2, 1.5)), mat)
+    for c in rng.uniform(-20, 20, (37, 3)):
+        b.cuboid(c, c + rng.uniform(0.5, 3.0, 3), mat)
+    if media:
+        tex = b.solid((0.9, 0.9, 0.9))
+        for c in rng.uniform(-20, 20, (300, 3)):
+            b.medium_sphere(c, float(rng.uniform(0.5, 2.0)), 0.3, tex)
+        for c in rng.uniform(-20, 20, (40, 3)):
+            b.medium_box(c, c + rng.uniform(0.5, 3.0, 3), 0.2, tex)
+    return b.finalize(CameraConfig((0, 0, 60), (0, 0, 0), 40.0, 0.0),
+                      (0.0, 0.0, 0.0), "ragged"), rng
+
+
+@pytest.mark.parametrize("media", [False, True])
+def test_typed_sweep_tiles_across_stages(cuda, media):
+    scene, rng = _long_tile_scene(media)
+    st = to_device(scene.arrays, scene.static, cuda)
+    widths = [t.width for t in st.sweep.plan]
+    assert max(widths) == 512 and len(widths) == (5 if media else 3)
+    n = 4001
+    o, d, time, bits, active = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+            rng.uniform(-25, 25, (n, 3)).astype(np.float32),
+            rng.normal(size=(n, 3)).astype(np.float32),
+            rng.random(n, dtype=np.float32),
+            rng.integers(0, 2**32, n).astype(np.int64),
+            rng.random(n) < 0.9))
+    args = (st.sweep, o, d, time, active, bits)
+    t_k, b_k = typed_sweep(*args)
+    torch.cuda.synchronize()
+    t_p, b_p = typed_sweep_plain(*args)
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_p >= 0).float().mean() > 0.2
 
 
 def test_final_render_goes_through_both_kernels(cuda):
