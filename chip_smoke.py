@@ -2,15 +2,15 @@
 
 Builds the port's three CUDA kernels from the checkout (in parallel,
 beside the sweep folds' instruction-count probes), holds each against its
-plain-PyTorch version on the card (the sweeps bit for bit), renders the
-committed goldens through them, and drives the two main paths through
-the CLI a user calls: the default workload (`random`, 1280x720, 100 spp,
-depth 10; sphere sweep K1) and the bench workload (`final`, 400x225,
-16 spp, depth 10; typed sweep K1b and marble turbulence K2), checking the
-PNG each writes.  Each phase prints one line; any failure ends the run
-with a non-zero exit.  The last three lines are the card's name and
-power limit (nvidia-smi), one JSON object with a record per kernel, and
-``{"ok": true, "device": {...}}``.
+plain-PyTorch version on the card, bit for bit, renders the committed
+goldens through them, and drives the two main paths through the CLI a
+user calls: the default workload (`random`, 1280x720, 100 spp, depth 10;
+sphere sweep K1) and the bench workload (`final`, 400x225, 16 spp, depth
+10; typed sweep K1b and the noise texture's marble turbulence K2),
+checking the PNG each writes.  Each phase prints one line; any failure
+ends the run with a non-zero exit.  The last three lines are the card's
+name and power limit (nvidia-smi), one JSON object with a record per
+kernel, and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -37,12 +37,10 @@ KERNELS = ("sphere_sweep", "typed_sweep", "turbulence")
 PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
-# the tensor cores at 67 TFLOP/s.
-# INT32 issue: 64 lanes per SM (half the FP32 lanes, Hopper white paper)
-# x 132 SMs x the 1.98 GHz that the FP32 figure implies = 16.7 Tops/s.
+# the tensor cores at 67 TFLOP/s (an FMA counted as two operations; the
+# kernels round every step on its own, so exact FP32 code can reach half).
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
-INT32_OPS_S = 16.7e12
 
 # FP32 operations of a sweep, counted from its contract (ops/intersect.py;
 # an IEEE division or square root counted as one operation).  The branch a
@@ -76,7 +74,19 @@ SASS_INT = {"IADD3", "IADD", "VIADD", "IMAD", "LOP3", "SHF", "LEA", "PRMT",
 PROBE_KINDS = (("sphere", 0, 0, 0), ("motion tile (two copies)", 0, 0, 1),
                ("rect", 1, 0, 0), ("box", 4, 0, 0), ("medium sphere", 2, 0, 0),
                ("medium box", 3, 0, 0), ("transformed box", 4, 1, 0))
-K2_OCTAVES = 7  # csrc/turbulence.cu kDepth, the octave loop's trip count
+# FP32 operations of the noise texture's marble, counted from its
+# contract in table form (ops/perlin.py noise, ops/turbulence.py), a sine
+# counted as one.  Per octave, 96: the point at 2^k (3 mul), floor (3),
+# fraction (3 sub), smoothing (4 per axis: u*u, 2u, 3-2u, product), the
+# corner factors 1 - s and s - 1 (6), the lerp weights (4 products of the
+# x and y factors, 8 with z), per corner a 3-term dot (3 mul, 2 add) and
+# its term (1 mul) (48), the corners' sum (7 add), the octave's weight
+# 0.5^k (1 mul) and the octaves' sum (1 add).  Per noise lane, 8 more:
+# scale * point (3), then 10 * turb, z + it, sin, 1 + it, 0.5 * it.  The
+# permutations and gradients are table lookups, not operations.
+TURB_OCTAVES = 7  # csrc/turbulence.cu kDepth, the octave loop's trip count
+TURB_OCTAVE_OPS, TURB_LANE_OPS = 96, 8
+TURB_OPS = TURB_OCTAVES * TURB_OCTAVE_OPS + TURB_LANE_OPS
 
 
 def phase(n, msg):
@@ -122,6 +132,24 @@ def time_ms(fn, args, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, args, reps):
+    """Mean device time per call of the kernels ``fn`` launches: their
+    durations in a torch.profiler trace of ``reps`` calls.  Back-to-back
+    calls timed by events include the host's launch time when it exceeds
+    the kernels'; this does not."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+
+
 def in_turns(plain, kernel, args, plain_reps, kernel_reps):
     """Mean times of (plain, kernel, kernel, plain) turns on one card."""
     p1 = time_ms(plain, args, plain_reps)
@@ -131,11 +159,10 @@ def in_turns(plain, kernel, args, plain_reps, kernel_reps):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def bound(n_bytes, fp_ops, int_ops=0):
-    """(bound_ms, bound_by): the larger of the memory time and the ALU
+def bound(n_bytes, fp_ops):
+    """(bound_ms, bound_by): the larger of the memory time and the FP32
     time of the work."""
-    times = {"bytes": n_bytes / HBM_BYTES_S,
-             "operations": max(fp_ops / FP32_OPS_S, int_ops / INT32_OPS_S)}
+    times = {"bytes": n_bytes / HBM_BYTES_S, "operations": fp_ops / FP32_OPS_S}
     by = max(times, key=times.get)
     return times[by] * 1e3, by
 
@@ -162,49 +189,17 @@ def sweep_fp_ops(sw, kinds):
     return ops + sum(per_ray.values()) + SWEEP_SHUTTER_OPS * len(slots)
 
 
-def sass_loop_ops(sass, kernel, trips):
-    """(FP32 operations, integer instructions) per thread of the loop of
-    ``kernel`` in the SASS text ``sass``, times ``trips``: the instructions
-    between the kernel's widest backward branch and its target, less the
-    blocks a conditional branch skips that call the slow paths of an IEEE
-    division or square root (taken only for special operands).  The code
-    outside the loop is left out, so the count is a floor."""
-    func = next(f for f in sass.split("Function : ")[1:]
-                if kernel in f.splitlines()[0])
-    ins = [(int(a, 16), pred, op, args) for a, pred, op, args in re.findall(
-        r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
-        r"\s*([^;]*);", func)]
-
-    def target(args):
-        return int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16)
-
-    branches = [(a, target(args)) for a, _, op, args in ins
-                if op.startswith("BRA")]
-    end, start = max(((a, t) for a, t in branches if t < a),
-                     key=lambda b: b[0] - b[1])
-    calls = [a for a, _, op, _ in ins if op.startswith("CALL")]
-    slow = [(a, t) for a, t in branches
-            if start <= a < t <= end and any(a < c < t for c in calls)]
-    fp = n_int = 0
-    for a, _, op, _ in ins:
-        if not start <= a <= end or any(s < a < t for s, t in slow):
-            continue
-        base = op.split(".")[0]
-        fp += SASS_FP32.get(base, 0)
-        n_int += base in SASS_INT and not op.startswith("IMAD.MOV")
-    return fp * trips, n_int * trips
-
-
 def sass_pair_ops(sass, kernel, rays):
     """Instructions per ray-primitive pair of the pair loop of the function
     whose name contains ``kernel`` in the SASS text ``sass``: its innermost
     loop with the most instructions, which folds one record into ``rays``
-    rays per trip.  Returns per-pair counts of the code every trip issues:
-    ``fp32`` (operations, an FFMA counted as two), ``int`` (integer
-    instructions, moves left out), ``all`` (every instruction, loads and
-    branches included); and ``branch``: all instructions of the blocks a
-    branch inside the loop may skip (the roots of a sphere the ray's line
-    meets, a moving sphere's lerp, the slow paths of a division)."""
+    rays per trip (the noise texture's: one octave of one lane).  Returns
+    per-pair counts of the code every trip issues: ``fp32`` (operations,
+    an FFMA counted as two), ``int`` (integer instructions, moves left
+    out), ``all`` (every instruction, loads and branches included); and
+    ``branch``: all instructions of the blocks a branch inside the loop
+    may skip (the roots of a sphere the ray's line meets, a moving
+    sphere's lerp, the slow paths of a division)."""
     func = next(f for f in sass.split("Function : ")[1:]
                 if kernel in f.splitlines()[0])
     ins = [(int(a, 16), op) for a, _, op in re.findall(
@@ -302,6 +297,7 @@ def main() -> int:
         PT_RECT,
         PT_SPHERE,
         TT_NOISE,
+        TT_SOLID,
     )
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
     from hyper_ray_tracer_tpu_torch.ops.intersect import (
@@ -313,8 +309,8 @@ def main() -> int:
         sphere_sweep_plain,
     )
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
-        marble,
-        marble_plain,
+        noise_texture,
+        noise_texture_plain,
     )
     from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
         typed_sweep,
@@ -335,7 +331,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
-                "turbulence": marble}
+                "turbulence": noise_texture}
 
     def reset_counts():
         for w in wrappers.values():
@@ -586,44 +582,87 @@ def main() -> int:
                   (label, f"fold_probe<{packet},{pt},{xf},{mo}>")
                   for label, pt, xf, mo in PROBE_KINDS)))
 
-    # Phase 6: K2 against its plain version at the bench shape, with the
-    # noise mask of `final`'s first bounce and with every lane masked.
+    # Phase 6: K2, the noise branch of texture_value, against its plain
+    # version at the bench shape, on the inputs of `final`'s first bounce:
+    # its real noise mask, every lane noise, every other lane noise.
     bb0 = prng.bounce_base(final_cam.base, 0)
     t_hit, prim = trace(final_t, final_cam, bb0)
-    pf, sf = gather_prim_shade_packed(final_t.fpack, final_t.ipack,
-                                      torch.clamp(prim, min=0).long(),
+    pidx = torch.clamp(prim, min=0).long()
+    pf, sf = gather_prim_shade_packed(final_t.fpack, final_t.ipack, pidx,
                                       final.static)
     det = hit_detail(pf, final_cam.o, final_cam.d, final_cam.time,
                      torch.where(prim >= 0, t_hit, 1.0), final.static)
-    sp = sf.scale[:, None] * det.point
-    xyz = tuple(sp[:, c].contiguous() for c in range(3))
-    keys = final_t.tables.perlin_keys
-    # K2's work per noise lane, from the SASS of the library just built.
-    k2_fp, k2_int = sass_loop_ops(sass_of("turbulence"), "marble_kernel",
-                                  K2_OCTAVES)
+    gi = final_t.ipack[pidx]  # the texture type is column 5, stride 7
+    even = torch.arange(n_final, device=dev) % 2 == 0
     k2 = {}
-    for label, mask in (("real mask", sf.ttype == TT_NOISE),
-                        ("all-true", torch.ones_like(prim, dtype=torch.bool))):
-        args = (mask, *xyz, keys)
-        got = marble(*args)
+    for label, col in (("real mask", gi[:, 5]),
+                       ("all-true", torch.full_like(gi[:, 5], TT_NOISE)),
+                       ("half", torch.where(even, TT_NOISE, TT_SOLID))):
+        rows = gi.clone()
+        rows[:, 5] = col
+        args = (rows[:, 5], sf.scale, det.point, sf.color1, final_t.tables)
+        got = noise_texture(*args)
         torch.cuda.synchronize()
-        ref = marble_plain(*args)
-        diff = (got - ref).abs().max().item()
-        exact = (got == ref).float().mean().item()
-        assert diff <= 1e-6, f"marble differs by {diff} ({label})"
-        ms, plain_ms = in_turns(marble_plain, marble, args, 3, 20)
-        n_mask = int(mask.sum())
+        ref = noise_texture_plain(*args)
+        assert torch.equal(got, ref), f"noise_texture not bit-equal ({label})"
+        ms, plain_ms = in_turns(noise_texture_plain, noise_texture, args, 3,
+                                20)
+        dev_ms = device_ms(noise_texture, args, 20)
+        n_noise = int((rows[:, 5] == TT_NOISE).sum())
+        # Bytes: every lane's texture type (4), a noise lane's scale, point
+        # and marble (28), any other lane's value read and written (24).
+        # K2's own work is the marble's: the flags and the noise lanes.
+        work_bytes = n_final * 4 + n_noise * 28
         k2[label] = dict(
-            n=n_mask, err=diff, exact=exact, ms=ms, plain_ms=plain_ms,
-            bound=bound(n_final * 5 + n_mask * 12, n_mask * k2_fp,
-                        n_mask * k2_int))
-    phase(6, f"marble vs plain at N={n_final} ({k2_int} integer and "
-          f"{k2_fp} FP32 operations per noise lane in the SASS octave "
-          f"loop): " + "; ".join(
-        f"{label} ({v['n']} noise lanes): max |diff| {v['err']:.3e}, "
-        f"bit-equal {v['exact']:.6f}, kernel {v['ms']:.4f} ms, plain "
-        f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.6f} ms "
-        f"({v['bound'][1]})" for label, v in k2.items()))
+            n=n_noise, err=(got - ref).abs().max().item(), ms=dev_ms,
+            call_ms=ms, plain_ms=plain_ms,
+            bound=bound(work_bytes + (n_final - n_noise) * 24,
+                        n_noise * TURB_OPS),
+            work=bound(work_bytes, n_noise * TURB_OPS))
+
+    def eager_around_k2(ttype, scale, point, value, m):
+        """The eager noise branch this kernel replaced, less the marble:
+        the compare, the scale multiply, three column copies, the
+        where."""
+        is_noise = ttype == TT_NOISE
+        sp = scale[..., None] * point
+        xyz = [sp[..., c].contiguous() for c in range(3)]
+        return xyz, torch.where(is_noise[..., None],
+                                m[..., None].expand_as(value), value)
+
+    args = (gi[:, 5], sf.scale, det.point, sf.color1,
+            noise_texture(gi[:, 5], sf.scale, det.point, sf.color1,
+                          final_t.tables)[:, 0].contiguous())
+    eager_ms = (time_ms(eager_around_k2, args, 20)
+                + time_ms(eager_around_k2, args, 20)) / 2
+    eager_dev_ms = device_ms(eager_around_k2, args, 20)
+    # What the strided views cost alone: torch's copies of the value
+    # column, of the whole gathered float rows it lies in, and of the
+    # texture-type column.
+    g = final_t.fpack[pidx]
+    copies_ms = [device_ms(torch.clone, (x,), 20)
+                 for x in (sf.color1, g, gi[:, 5])]
+    k2_sass = {k: v * TURB_OCTAVES for k, v in sass_pair_ops(
+        sass_of("turbulence"), "noise_texture_kernel", 1).items()}
+    phase(6, f"noise_texture vs plain at N={n_final}, bit-equal on every "
+          f"mask (asserted): " + "; ".join(
+              f"{label} ({v['n']} noise lanes): kernel {v['ms']:.4f} ms on "
+              f"the device ({v['call_ms']:.4f} ms a call back to back), "
+              f"plain {v['plain_ms']:.4f} ms, bound {v['bound'][0]:.6f} ms "
+              f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it; "
+              f"K2's own work {v['work'][0]:.6f} ms ({v['work'][1]})"
+              for label, v in k2.items())
+          + "; the replaced eager operations around the marble (real "
+          f"mask) {eager_dev_ms:.4f} ms on the device ({eager_ms:.4f} ms a "
+          f"call); torch's copy of the value column {copies_ms[0]:.4f} ms, "
+          f"of the gathered float rows ([N, {g.shape[1]}]) "
+          f"{copies_ms[1]:.4f} ms, of the texture-type column "
+          f"{copies_ms[2]:.4f} ms; contract {TURB_OPS} FP32 operations per "
+          f"noise lane; SASS per noise lane ({TURB_OCTAVES} octave-loop "
+          f"trips): {k2_sass['fp32']:.0f} FP32 operations, "
+          f"{k2_sass['int']:.0f} integer, {k2_sass['all']:.0f} issued, "
+          f"{k2_sass['branch']:.0f} more on branches; ptxas: "
+          f"{resources(ptxas['turbulence'])}")
 
     # Phase 7: the goldens of the scenes K1b and K2 open, on the card.
     glines = []
@@ -658,7 +697,7 @@ def main() -> int:
     # 1280x720, 9 spp, depth 10).
     layers = ("raygen", "trace", "shade", "compaction")
     hand = {"K1": "sphere_sweep_kernel", "K1b": "typed_sweep_kernel",
-            "K2": "marble_kernel"}
+            "K2": "noise_texture_kernel"}
 
     def breakdown(name, W, H, spp):
         from torch.autograd import DeviceType

@@ -6,8 +6,8 @@ Semantics:
   checker  checker_texture.rs:22-30 (3-D sine product over two inline
            solid colors)
   noise    noise_texture.rs:25-31 (marble; the turbulence input is the
-           *pre-scaled* point, a reference quirk); the marble value comes
-           from ``ops/turbulence.marble``, the CUDA kernel on the card
+           *pre-scaled* point, a reference quirk); the whole branch is
+           ``ops/turbulence.noise_texture``, one CUDA kernel on the card
   image    image_texture.rs:36-62 (nearest texel, u clamped, v flipped,
            edge clamp)
 """
@@ -18,8 +18,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..models.scene import TT_CHECKER, TT_IMAGE, TT_NOISE
-from .turbulence import marble
+from ..models.scene import TT_CHECKER, TT_IMAGE
+from .perlin import PerlinTables
+from .turbulence import noise_texture
 
 
 class TextureTables(NamedTuple):
@@ -28,6 +29,7 @@ class TextureTables(NamedTuple):
     images: torch.Tensor  # [NI, IH, IW, 3] float32
     image_wh: torch.Tensor  # [NI, 2] int32 (width, height) of each image
     perlin_keys: tuple  # the seven Perlin keys as Python ints
+    perlin: PerlinTables  # the scene's tables, every array a tensor
 
 
 def texture_value(sf, hit, static, tables: TextureTables):
@@ -43,12 +45,7 @@ def texture_value(sf, hit, static, tables: TextureTables):
         value = torch.where((sf.ttype == TT_CHECKER)[..., None], checker,
                             value)
     if static.has_noise_tex:
-        is_noise = sf.ttype == TT_NOISE
-        sp = sf.scale[..., None] * point
-        m = marble(is_noise, *(sp[..., c].contiguous() for c in range(3)),
-                   tables.perlin_keys)
-        value = torch.where(is_noise[..., None], m[..., None].expand_as(value),
-                            value)
+        value = noise_texture(sf.ttype, sf.scale, point, value, tables)
     if static.has_image_tex:
         wh = tables.image_wh[sf.image_id.long()]  # [B,2] (width, height)
         uu = torch.clamp(hit.u, 0.0, 1.0)

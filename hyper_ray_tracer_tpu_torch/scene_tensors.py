@@ -39,7 +39,7 @@ class SceneTensors(NamedTuple):
     sweep: SweepScene  # the typed sweep's plan and primitive fields
     fpack: torch.Tensor  # [P, F] float32 joined shade rows
     ipack: torch.Tensor  # [P, 7] int32
-    tables: TextureTables  # images and Perlin keys
+    tables: TextureTables  # images, Perlin keys and tables
 
 
 def _tensor(x, device):
@@ -74,7 +74,8 @@ def to_device(arrays, static: SceneStatic, device) -> SceneTensors:
                              (g.p0, g.p1, g.time0, g.time1, g.radius)))
     fpack, ipack = pack_prim_shade(t, static)
     tables = TextureTables(images=t.images, image_wh=t.image_wh,
-                           perlin_keys=key_ints(arrays.perlin.keys))
+                           perlin_keys=key_ints(arrays.perlin.keys),
+                           perlin=t.perlin)
     return SceneTensors(
         arrays=t, static=static,
         sphere_only=sphere_only(static, arrays.geom.ptype),

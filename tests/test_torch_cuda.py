@@ -1,7 +1,7 @@
-"""The CUDA kernels (the sphere sweep, the typed sweep and the marble
-turbulence) against their plain-PyTorch versions, on the card.  Every
-test here needs a CUDA device and nvcc and skips without them; on a GPU
-machine run ``python -m pytest tests/test_torch_cuda.py``.
+"""The CUDA kernels (the sphere sweep, the typed sweep and the noise
+texture's marble turbulence) against their plain-PyTorch versions, on
+the card.  Every test here needs a CUDA device and nvcc and skips without
+them; on a GPU machine run ``python -m pytest tests/test_torch_cuda.py``.
 
 Each kernel performs its plain version's IEEE operations in the same
 order, so the two must agree bit for bit, not only within the near-tie
@@ -26,6 +26,7 @@ from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
     CameraConfig,
     SceneBuilder,
 )
+from hyper_ray_tracer_tpu_torch.ops import perlin  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops import rng as prng  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
     gather_prim_shade_packed,
@@ -35,9 +36,10 @@ from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (  # noqa: E402
     sphere_sweep,
     sphere_sweep_plain,
 )
+from hyper_ray_tracer_tpu_torch.ops.textures import TextureTables  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.turbulence import (  # noqa: E402
-    marble,
-    marble_plain,
+    noise_texture,
+    noise_texture_plain,
 )
 from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (  # noqa: E402
     typed_sweep,
@@ -203,48 +205,85 @@ def test_typed_sweep_counter_and_validation(cuda):
 
 
 def _noise_lanes(cuda, W=160, H=90):
-    """The pre-scaled hit points and noise mask of `final`'s camera rays,
-    as texture_value hands them to the marble kernel."""
+    """The noise branch's inputs on `final`'s camera rays, as
+    texture_value hands them to the kernel: the gathered int rows (the
+    texture type is column 5), the scale and incoming value (strided
+    views of the gathered float rows), the hit point and the tables."""
     scene = build_scene("final")
     st = to_device(scene.arrays, scene.static, cuda)
     s = _rays(scene, st, W, H, cuda)
     bb = prng.bounce_base(s.base, 0)
     t_hit, prim = trace(st, s, bb)
-    pf, sf = gather_prim_shade_packed(st.fpack, st.ipack,
-                                      torch.clamp(prim, min=0).long(),
-                                      scene.static)
+    idx = torch.clamp(prim, min=0).long()
+    pf, sf = gather_prim_shade_packed(st.fpack, st.ipack, idx, scene.static)
     det = hit_detail(pf, s.o, s.d, s.time,
                      torch.where(prim >= 0, t_hit, 1.0), scene.static)
-    sp = sf.scale[:, None] * det.point
-    return (sf.ttype == TT_NOISE, *(sp[:, c].contiguous() for c in range(3)),
-            st.tables.perlin_keys)
+    return st.ipack[idx], sf.scale, det.point, sf.color1, st.tables
+
+
+def _both_noise(ttype, scale, point, value, tables):
+    got = noise_texture(ttype, scale, point, value, tables)
+    torch.cuda.synchronize()
+    return got, noise_texture_plain(ttype, scale, point, value, tables)
 
 
 @pytest.mark.parametrize("mask_kind", ["scene", "all", "half"])
 def test_marble_equals_plain(cuda, mask_kind):
-    mask, x, y, z, keys = _noise_lanes(cuda)
+    gi, scale, point, value, tables = _noise_lanes(cuda)
+    lane = torch.arange(gi.shape[0], device=cuda)
     if mask_kind == "all":
-        mask = torch.ones_like(mask)
+        gi[:, 5] = TT_NOISE
     elif mask_kind == "half":
-        mask = torch.arange(mask.numel(), device=cuda) % 2 == 0
-    assert mask.any()
-    got = marble(mask, x, y, z, keys)
-    torch.cuda.synchronize()
-    assert torch.equal(got, marble_plain(mask, x, y, z, keys))
-    assert (got[~mask] == 0).all()
+        gi[:, 5] = torch.where(lane % 2 == 0, TT_NOISE, 0)
+    ttype = gi[:, 5]  # a strided view, as the row gather gives it
+    noise = ttype == TT_NOISE
+    assert noise.any() and ttype.stride(0) == 7 and scale.stride(0) > 1
+    got, ref = _both_noise(ttype, scale, point, value, tables)
+    assert torch.equal(got, ref)
+    assert torch.equal(got[~noise], value[~noise])
+    assert (got[noise] == got[noise][:, :1]).all()  # grey marble
 
 
 @pytest.mark.parametrize("n", [1, 255, 257, 100_003])
 def test_marble_ragged_counts_and_far_points(cuda, n):
     gen = torch.Generator(device=cuda).manual_seed(n)
-    p = (torch.rand((3, n), device=cuda, generator=gen) - 0.5) * 2e3
-    mask = torch.rand(n, device=cuda, generator=gen) < 0.7
+    point = (torch.rand((n, 3), device=cuda, generator=gen) - 0.5) * 2e3
+    rows = torch.rand((n, 8), device=cuda, generator=gen)
+    ttype = torch.where(rows[:, 0] < 0.7, TT_NOISE, 3).to(torch.int32)
+    scale, value = rows[:, 1], rows[:, 4:7]
     keys = (17, 200, 3, 99, 255, 0, 0xDEADBEEF)
-    before = marble.launches
-    got = marble(mask, p[0], p[1], p[2], keys)
-    assert marble.launches == before + 1
-    torch.cuda.synchronize()
-    assert torch.equal(got, marble_plain(mask, p[0], p[1], p[2], keys))
+    tables = TextureTables(None, None, keys, perlin.PerlinTables(
+        keys, **_hash_tables(keys, cuda)))
+    before = noise_texture.launches
+    got, ref = _both_noise(ttype, scale, point, value, tables)
+    assert noise_texture.launches == before + 1
+    assert torch.equal(got, ref)
+
+
+def _hash_tables(keys, device):
+    """The table form of the Perlin hashes of ``keys`` (what
+    ``make_tables`` stores for a scene's keys)."""
+    kx1, kx2, ky1, ky2, kz1, kz2, gseed = keys
+    h = torch.arange(256, dtype=torch.int64)
+    return dict(
+        vectors=torch.stack(perlin._grad_xyz(h, gseed), -1).to(device),
+        perm_x=perlin._perm8(h, kx1, kx2).to(torch.int32).to(device),
+        perm_y=perlin._perm8(h, ky1, ky2).to(torch.int32).to(device),
+        perm_z=perlin._perm8(h, kz1, kz2).to(torch.int32).to(device))
+
+
+def test_noise_texture_validates_inputs(cuda):
+    gi, scale, point, value, tables = _noise_lanes(cuda, 16, 9)
+    ttype = gi[:, 5]
+    with pytest.raises(TypeError):
+        noise_texture(ttype.long(), scale, point, value, tables)
+    with pytest.raises(ValueError, match="is on cpu"):
+        noise_texture(ttype, scale.cpu(), point, value, tables)
+    with pytest.raises(ValueError, match="shape"):
+        noise_texture(ttype[:-1], scale, point, value, tables)
+    with pytest.raises(ValueError, match="columns"):
+        noise_texture(ttype, scale, point, value.t().contiguous().t(),
+                      tables)
 
 
 def _two_shutter_scene():
@@ -352,8 +391,10 @@ def test_typed_sweep_tiles_across_stages(cuda, media):
 
 def test_final_render_goes_through_both_kernels(cuda):
     scene = build_scene("final")
-    counts = (sphere_sweep.launches, typed_sweep.launches, marble.launches)
+    counts = (sphere_sweep.launches, typed_sweep.launches,
+              noise_texture.launches)
     img = render_image(scene, RenderSettings(64, 36, 1, 3), cuda)
     assert sphere_sweep.launches == counts[0]
-    assert typed_sweep.launches > counts[1] and marble.launches > counts[2]
+    assert typed_sweep.launches > counts[1]
+    assert noise_texture.launches > counts[2]
     assert img.shape == (36, 64, 3) and np.isfinite(img).all()

@@ -1,4 +1,5 @@
-"""The port's Perlin noise and marble against the JAX package's.
+"""The port's Perlin noise, marble and noise texture against the JAX
+package's.
 
 The integer hashing is bit-exact.  The float steps are single IEEE
 operations in the JAX package's order (the gradient's square root
@@ -6,23 +7,54 @@ correctly rounded), so ``turbulence_xyz`` equals the JAX function
 evaluated with NumPy bit for bit.  Only ``sin`` differs by ulps between
 torch and NumPy, so the marble value is held to 1e-6.
 
+The CUDA kernel of the noise branch reads each scene's Perlin tables
+where the plain version computes the hashes per lane; the two are one
+function because every table entry equals its hash bit for bit, which
+the tests here establish for every scene with a noise texture.
+
 ``tools/prof_tex.py::make_pallas_turb`` (the TPU kernel the port's K2
 replaces) is not run here: it bakes the bench shape in at import.  Its
 body is ``turbulence_xyz`` plus the marble formula, which is what these
 tests hold the port to."""
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the tensors are small, and the suite runs in
+# several worker processes that would contend for the cores.
+torch.set_num_threads(1)
 
+from hyper_ray_tracer_tpu import build_scene as j_build_scene  # noqa: E402
 from hyper_ray_tracer_tpu.ops import perlin as jp  # noqa: E402
-from hyper_ray_tracer_tpu_torch.ops import perlin as tp  # noqa: E402
-from hyper_ray_tracer_tpu_torch.ops.turbulence import (  # noqa: E402
-    marble,
-    marble_plain,
+from hyper_ray_tracer_tpu.ops.textures import (  # noqa: E402
+    texture_value as j_texture_value,
 )
+from hyper_ray_tracer_tpu_torch import SCENES, build_scene  # noqa: E402
+from hyper_ray_tracer_tpu_torch.camera import make_basis  # noqa: E402
+from hyper_ray_tracer_tpu_torch.models import builders  # noqa: E402
+from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
+    TT_NOISE,
+    SceneBuilder,
+)
+from hyper_ray_tracer_tpu_torch.ops import perlin as tp  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops import rng as prng  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
+    gather_prim_shade_packed,
+    hit_detail,
+)
+from hyper_ray_tracer_tpu_torch.ops.turbulence import (  # noqa: E402
+    marble_plain,
+    noise_texture,
+    noise_texture_plain,
+)
+from hyper_ray_tracer_tpu_torch.render import init_state, trace  # noqa: E402
+from hyper_ray_tracer_tpu_torch.scene_tensors import to_device  # noqa: E402
+
+NOISE_SCENES = ["final", "simple-light", "two-perlin-spheres"]
 
 SEEDS = [0, 7, 2**32 - 1]
 
@@ -114,18 +146,120 @@ def test_marble_plain_matches_jax_formula():
     assert 0.0 <= got.min() and got.max() <= 1.0
 
 
+def test_noise_scenes_are_the_scenes_with_noise_textures():
+    assert NOISE_SCENES == [n for n in sorted(SCENES)
+                            if build_scene(n).static.has_noise_tex]
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("name", NOISE_SCENES)
+def test_scene_tables_equal_hashes(name, seed, monkeypatch):
+    """The scene's Perlin tables, built with ``seed``, hold exactly the
+    plain version's hashes: the kernel's lookups and the plain version's
+    per-lane hashes are the same function."""
+    monkeypatch.setattr(builders, "SceneBuilder",
+                        functools.partial(SceneBuilder, perlin_seed=seed))
+    tables = build_scene(name).arrays.perlin
+    keys = tp.key_ints(tables.keys)
+    assert keys == tp.key_ints(tp.make_keys(seed))
+    kx1, kx2, ky1, ky2, kz1, kz2, gseed = keys
+    h = torch.arange(tp.POINT_COUNT, dtype=torch.int64)
+    vectors = torch.stack(tp._grad_xyz(h, gseed), -1).numpy()
+    assert tables.vectors.dtype == np.float32
+    assert (tables.vectors.view(np.uint32) == vectors.view(np.uint32)).all()
+    for table, k1, k2 in ((tables.perm_x, kx1, kx2),
+                          (tables.perm_y, ky1, ky2),
+                          (tables.perm_z, kz1, kz2)):
+        np.testing.assert_array_equal(table, tp._perm8(h, k1, k2).numpy())
+
+
+def _final_first_bounce(W=32, H=18, spp=2):
+    """`final`'s camera rays traced on the CPU: the scene, its tensors,
+    the winners' shade fields and hit detail."""
+    scene = build_scene("final")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    pix = torch.arange(W * H).repeat(spp)
+    smp = torch.arange(spp).repeat_interleave(W * H)
+    s = init_state(make_basis(scene.camera, W, H), W, H, pix, smp, 0)
+    t_hit, prim = trace(st, s, prng.bounce_base(s.base, 0))
+    pf, sf = gather_prim_shade_packed(st.fpack, st.ipack,
+                                      torch.clamp(prim, min=0).long(),
+                                      scene.static)
+    det = hit_detail(pf, s.o, s.d, s.time,
+                     torch.where(prim >= 0, t_hit, 1.0), scene.static)
+    return scene, st, prim, sf, det
+
+
+def test_noise_texture_plain_equals_table_form():
+    """The plain branch (per-lane hashes) equals the branch written with
+    the table-form noise (the kernel's lookups) bit for bit, on `final`'s
+    first bounce."""
+    scene, st, _, sf, det = _final_first_bounce()
+    got = noise_texture_plain(sf.ttype, sf.scale, det.point, sf.color1,
+                              st.tables)
+    is_noise = sf.ttype == TT_NOISE
+    assert 10 <= int(is_noise.sum()) < is_noise.numel() // 2
+    sp = sf.scale[:, None] * det.point
+    acc = None
+    for k in range(tp.TURBULENCE_DEPTH):
+        term = float(0.5 ** k) * tp.noise(scene.arrays.perlin,
+                                          sp * float(2.0 ** k))
+        acc = term if acc is None else acc + term
+    marble = 0.5 * (1.0 + torch.sin(sp[:, 2] + 10.0 * torch.abs(acc)))
+    ref = torch.where(is_noise[:, None], marble[:, None].expand(-1, 3),
+                      sf.color1)
+    assert torch.equal(got, ref)
+
+
+def test_noise_texture_plain_matches_jax_texture_value():
+    """On `final`'s first bounce the plain branch equals the JAX package's
+    texture_value on the noise lanes (to the marble's 1e-6) and passes
+    the incoming value through everywhere else."""
+    scene, st, prim, sf, det = _final_first_bounce()
+    got = noise_texture_plain(sf.ttype, sf.scale, det.point, sf.color1,
+                              st.tables).numpy()
+    jscene = j_build_scene("final")
+    a = jscene.arrays
+    pidx = torch.clamp(prim, min=0).numpy()
+    tex_idx = a.materials.texture[a.geom.material[pidx]]
+    ref = j_texture_value(a.textures, a.images, a.image_wh, a.perlin,
+                          tex_idx, det.u.numpy(), det.v.numpy(),
+                          det.point.numpy(), jscene.static, np)
+    is_noise = (sf.ttype == TT_NOISE).numpy()
+    np.testing.assert_allclose(got[is_noise], ref[is_noise], rtol=0,
+                               atol=1e-6)
+    np.testing.assert_array_equal(got[~is_noise], sf.color1.numpy()[~is_noise])
+
+
+def _strided_inputs(n=300):
+    """Noise-branch inputs laid out as the row gather gives them: the
+    texture type a column of [n, 7] int rows, the scale and value columns
+    of [n, 9] float rows."""
+    rng = np.random.default_rng(4)
+    ints = torch.from_numpy(rng.integers(0, 4, (n, 7)).astype(np.int32))
+    floats = torch.from_numpy(rng.uniform(0.1, 4.0, (n, 9))
+                              .astype(np.float32))
+    point = torch.from_numpy(_points(4, n))
+    tables = to_device(j_build_scene("two-perlin-spheres").arrays,
+                       build_scene("two-perlin-spheres").static,
+                       "cpu").tables
+    return ints[:, 5], floats[:, 2], point, floats[:, 4:7], tables
+
+
 def test_marble_wrapper_takes_plain_version_on_cpu():
-    p = _points(4, n=300)
-    mask = torch.from_numpy(np.arange(300) % 3 == 0)
-    keys = tp.key_ints(jp.make_keys(0))
-    before = marble.launches
-    a = marble(mask, *_xyz(p), keys)
-    assert marble.launches == before  # no kernel launched on CPU
-    assert torch.equal(a, marble_plain(mask, *_xyz(p), keys))
+    ttype, scale, point, value, tables = _strided_inputs()
+    assert ttype.stride(0) == 7 and value.stride(0) == 9
+    assert (ttype == TT_NOISE).any() and (ttype != TT_NOISE).any()
+    before = noise_texture.launches
+    a = noise_texture(ttype, scale, point, value, tables)
+    assert noise_texture.launches == before  # no kernel launched on CPU
+    assert torch.equal(a, noise_texture_plain(ttype, scale, point, value,
+                                              tables))
 
 
 def test_marble_wrapper_refuses_other_devices():
-    x = torch.zeros(4, device="meta")
-    mask = torch.zeros(4, dtype=torch.bool, device="meta")
+    ttype, scale, point, value, tables = (
+        x.to("meta") if isinstance(x, torch.Tensor) else x
+        for x in _strided_inputs(4))
     with pytest.raises(ValueError, match="unsupported device"):
-        marble(mask, x, x, x, (0,) * 7)
+        noise_texture(ttype, scale, point, value, tables)

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: the tensors are small, and the suite runs in
+# several worker processes that would contend for the cores.
+torch.set_num_threads(1)
 
 from hyper_ray_tracer_tpu.models.builders import SCENES as J_SCENES  # noqa: E402
 from hyper_ray_tracer_tpu_torch import SCENES, build_scene  # noqa: E402
