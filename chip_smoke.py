@@ -1,16 +1,20 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Builds the port's three CUDA kernels from the checkout (in parallel,
-beside the sweep folds' instruction-count probes), holds each against its
-plain-PyTorch version on the card, bit for bit, renders the committed
-goldens through them, and drives the two main paths through the CLI a
-user calls: the default workload (`random`, 1280x720, 100 spp, depth 10;
-sphere sweep K1) and the bench workload (`final`, 400x225, 16 spp, depth
-10; typed sweep K1b and the noise texture's marble turbulence K2),
-checking the PNG each writes.  Each phase prints one line; any failure
-ends the run with a non-zero exit.  The last three lines are the card's
-name and power limit (nvidia-smi), one JSON object with a record per
-kernel, and ``{"ok": true, "device": {...}}``.
+Builds the port's CUDA kernels from the checkout (in parallel, beside the
+sweep folds' instruction-count probes), holds each against its
+plain-PyTorch version on the card (the forward kernels bit for bit, the
+noise branch's backward K2b to rounding), renders the committed goldens
+through them, and drives the main paths through the entry points a user
+calls: the CLI's default workload (`random`, 1280x720, 100 spp, depth 10;
+sphere sweep K1), the bench workload (`final`, 400x225, 16 spp, depth
+10; typed sweep K1b and the noise texture's marble turbulence K2), and
+the adam train step at bench_grad.py's workload (400x225, 8 spp, depth 8:
+`random` through K1, `final` through K1b, K2 and K2b; `random` at depth
+50 with remat through the train CLI), whose gradients it also holds
+against the port's CPU gradients.  Each phase prints one line; any
+failure ends the run with a non-zero exit.  The last three lines are the
+card's name and power limit (nvidia-smi), one JSON object with a record
+per kernel, and ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -87,6 +91,31 @@ PROBE_KINDS = (("sphere", 0, 0, 0), ("motion tile (two copies)", 0, 0, 1),
 TURB_OCTAVES = 7  # csrc/turbulence.cu kDepth, the octave loop's trip count
 TURB_OCTAVE_OPS, TURB_LANE_OPS = 96, 8
 TURB_OPS = TURB_OCTAVES * TURB_OCTAVE_OPS + TURB_LANE_OPS
+# FP32 operations of the noise branch's backward (K2b), counted from its
+# contract (csrc/turbulence.cu MarbleGrad).  Per octave, 231: the value's
+# 96 again (the turbulence sum's sign is the forward's), per corner 15 for
+# the gradient of its term (the three products of two lerp factors with
+# the weight-vector dot, 6; the lerp weight times each gradient
+# component, 3; the signed sums, 3; the accumulation, 3), per axis 4 for
+# the smoothing's slope 6u(1 - u) and the chain, and 3 to sum the octave's
+# gradient.  Per noise lane, 26: scale * point (3), the marble's argument
+# (2), its cosine and the 0.5 and cotangent-sum factors (3), the
+# cotangent's sum (2), the sign (1), the three components of dm/dsp (7),
+# grad_point (3), grad_scale (5).
+TURB_BWD_OCTAVE_OPS, TURB_BWD_LANE_OPS = 231, 26
+TURB_BWD_OPS = TURB_OCTAVES * TURB_BWD_OCTAVE_OPS + TURB_BWD_LANE_OPS
+# K2b against autograd through the plain marble: grad_value is a copy and
+# must be bit-equal; grad_point and grad_scale sum each octave's analytic
+# derivative where autograd chains every operation, so they agree to
+# rounding: 1e-4 of each output's largest magnitude.
+K2B_SHARE = 1e-4
+# Card gradients against the CPU's (every parameter key, the norm of the
+# difference over the norm of the CPU's gradient): the kernels equal their
+# plain versions, so only the CPU's rounding (its vectorised sqrt is not
+# correctly rounded) and K2b's separate them on `three-spheres`; on
+# `final` an ulp can also flip a fog or winner decision on a lane, which
+# moves its whole sample.
+CARD_GRAD_SHARE = {"three-spheres": 1e-3, "final": 5e-2}
 
 
 def phase(n, msg):
@@ -282,6 +311,245 @@ def project(basis, p, width, height):
     return s * (width - 1), (height - 1) - t * (height - 1)
 
 
+def k2b_phase(dev, gi, sf, det, tables):
+    """K2b, the noise branch's backward, against its plain version
+    (autograd through noise_texture_plain) on the inputs of `final`'s
+    first bounce (``gi`` the gathered int rows, ``sf`` the shade fields,
+    ``det`` the hit detail) for a cotangent from a seed, with the scene's
+    noise mask and with every lane noise.  Asserts the K2B_SHARE rule;
+    returns {mask: errors, times, bound}."""
+    from hyper_ray_tracer_tpu_torch.models.scene import TT_NOISE
+    from hyper_ray_tracer_tpu_torch.ops.turbulence import (
+        noise_texture_grad,
+        noise_texture_grad_plain,
+    )
+
+    n = gi.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    grad_out = torch.rand((n, 3), device=dev, generator=gen) - 0.5
+    out = {}
+    for label, col in (("real mask", gi[:, 5]),
+                       ("all-true", torch.full_like(gi[:, 5], TT_NOISE))):
+        rows = gi.clone()
+        rows[:, 5] = col
+        args = (rows[:, 5], sf.scale, det.point, grad_out, tables)
+        got = noise_texture_grad(*args)
+        torch.cuda.synchronize()
+        ref = noise_texture_grad_plain(*args)
+        assert torch.equal(got[2], ref[2]), f"K2b grad_value ({label})"
+        errs = {}
+        for gname, g, r in zip(("grad_point", "grad_scale", "grad_value"),
+                               got, ref):
+            diff = (g - r).abs()
+            top = r.abs().max().item()
+            big = r.abs() > 1e-3 * top
+            rel = (diff[big] / r.abs()[big]).max().item() if big.any() \
+                else 0.0
+            errs[gname] = (diff.max().item(), rel, top)
+            assert torch.isfinite(g).all(), f"K2b {gname} ({label})"
+            assert diff.max().item() <= K2B_SHARE * top, \
+                f"K2b {gname} ({label}): {errs[gname]}"
+        ms, plain_ms = in_turns(noise_texture_grad_plain, noise_texture_grad,
+                                args, 3, 20)
+        n_noise = int((rows[:, 5] == TT_NOISE).sum())
+        # Bytes: every lane's texture type and cotangent read (16), its
+        # three outputs written (28); a noise lane's scale and point (16).
+        out[label] = dict(
+            n=n_noise, errs=errs, ms=device_ms(noise_texture_grad, args, 20),
+            call_ms=ms, plain_ms=plain_ms,
+            bound=bound(n * 44 + n_noise * 16, n_noise * TURB_BWD_OPS))
+    return out
+
+
+def k2b_line(k2b, n, ptxas_note):
+    return (f"noise_texture_grad (K2b) vs autograd through the plain marble "
+            f"at N={n}: grad_value bit-equal, grad_point and grad_scale "
+            f"within {K2B_SHARE} of their largest magnitude (asserted): "
+            + "; ".join(
+                f"{label} ({v['n']} noise lanes): " + ", ".join(
+                    f"{g} max abs err {e[0]:.3e} (max |plain| {e[2]:.3e}), "
+                    f"max rel err {e[1]:.3e}" for g, e in v["errs"].items())
+                + f"; kernel {v['ms']:.4f} ms on the device "
+                f"({v['call_ms']:.4f} ms a call back to back), plain "
+                f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.6f} ms "
+                f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it"
+                for label, v in k2b.items())
+            + f"; contract {TURB_BWD_OPS} FP32 operations per noise lane; "
+            f"ptxas: {ptxas_note}")
+
+
+def loss_and_grads(scene, device, W, H, spp, depth):
+    """The port's loss and every parameter's gradient (zeros where the
+    render never reads it), on the CPU, of ``make_loss_fn`` on
+    ``device`` against a constant target."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.train import (
+        extract_params,
+        make_loss_fn,
+        pixel_lanes,
+    )
+
+    st = to_device(scene.arrays, scene.static, device)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    pix, sam = pixel_lanes(W, H, spp, device)
+    target = torch.full((W * H, 3), 0.25, device=device)
+    loss = make_loss_fn(scene, W, H, depth)(
+        params, st, make_basis(scene.camera, W, H), pix, sam, 0, target)
+    loss.backward()
+    return loss.item(), {k: (torch.zeros_like(p) if p.grad is None
+                             else p.grad).cpu() for k, p in params.items()}
+
+
+def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
+    """Every gradient key and the loss on ``dev`` against the CPU's within
+    ``share`` (CARD_GRAD_SHARE's rule); returns the phase's text."""
+    loss_c, g_c = loss_and_grads(scene, "cpu", *shape)
+    loss_g, g_g = loss_and_grads(scene, dev, *shape)
+    worst = {}
+    for k, ref in g_c.items():
+        assert torch.isfinite(g_g[k]).all(), (scene.name, k)
+        norm = ref.norm().item()
+        err = (g_g[k] - ref).norm().item()
+        worst[k] = err / norm if norm else err
+        assert err <= share * norm, (scene.name, k, err, norm)
+    assert abs(loss_g - loss_c) <= share * abs(loss_c), (loss_g, loss_c)
+    return (f"{scene.name}: loss card {loss_g:.6f} cpu {loss_c:.6f}; "
+            "|card - cpu| / |cpu| by key "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
+                        if g_c[k].abs().max() > 0)
+            + f" (bound {share}; the other keys' gradients are 0 on both)")
+
+
+# bench_grad.py's workload: 400x225, 8 spp, depth 8.
+TRAIN_SHAPE = (400, 225, 8, 8)
+HAND_FWD = ("sphere_sweep_kernel", "typed_sweep_kernel",
+            "noise_texture_kernel")
+
+
+def train_run(scene, dev, shape, steps, reset_counts, counts):
+    """Adam train steps through ``make_train_step``: one warm-up, ``steps``
+    timed (the launch counts set to 0 before them and read after), then
+    one profiled.  Asserts every gradient finite; returns the times, the
+    losses, peak memory, launches, the largest |grad| of each key and the
+    profiled step's device time by range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.train import make_train_step, pixel_lanes
+
+    W, H, spp, depth = shape
+    st = to_device(scene.arrays, scene.static, dev)
+    init, step = make_train_step(scene, W, H, depth)
+    state = init(st)
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = pixel_lanes(W, H, spp, dev)
+    target = torch.zeros((W * H, 3), device=dev)
+    state, loss = step(state, st, basis, pix, sam, 0, target)
+    loss.item()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        state, loss = step(state, st, basis, pix, sam, 0, target)
+        losses.append(loss.item())
+        secs.append(time.monotonic() - t0)
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k, p in state.params.items():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), \
+            (scene.name, k)
+    gmax = {k: p.grad.abs().max().item() for k, p in state.params.items()}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        state, loss = step(state, st, basis, pix, sam, 0, target)
+        loss.item()
+        wall = (time.monotonic() - t0) * 1e3
+    events = prof.events()
+    ranges = ("forward", "backward", "optimizer")
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in ranges]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3 if kern else 0.0
+    by_range = {r: sum(e.device_time_total for e in events
+                       if e.device_type == DeviceType.CPU and e.name == r)
+                / 1e3 for r in ("forward", "optimizer")}
+    # The backward runs on autograd's device thread, outside the range on
+    # the calling thread: it is the busy time the other two leave.  The
+    # ctypes-launched forward kernels have no op to link them to their
+    # range (phase 8); they all run in the forward pass.
+    linked = sum(k.duration for e in events for k in getattr(e, "kernels", ())
+                 if any(h in k.name for h in HAND_FWD)) / 1e3
+    hand = sum(e.time_range.elapsed_us() for e in kern
+               if any(h in e.name for h in HAND_FWD)) / 1e3
+    fwd = by_range["forward"] + hand - linked
+    opt = by_range["optimizer"]
+    by_name = {}
+    for e in kern:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return dict(losses=losses, secs=secs, s=min(secs),
+                mrays=W * H * spp / min(secs) / 1e6, peak=peak_gb,
+                launched=launched, gmax=gmax, busy=busy, span=span,
+                wall=wall, fwd=fwd, bwd=busy - fwd - opt, opt=opt,
+                kernels=len(kern), top=top)
+
+
+def train_line(name, shape, r):
+    W, H, spp, depth = shape
+    idle = 1 - r["busy"] / r["span"] if r["span"] else float("nan")
+    return (f"{name} {W}x{H}x{spp} d{depth}: {r['s']:.4f} s/step (best of "
+            f"{len(r['secs'])}: " + ", ".join(f"{x:.4f}" for x in r["secs"])
+            + f"), {r['mrays']:.4f} fwd+bwd camera Mrays/s, peak device "
+            f"memory {r['peak']:.2f} GB, losses "
+            + ", ".join(f"{x:.6f}" for x in r["losses"])
+            + f", launches {r['launched']}; profiled step: {r['kernels']} "
+            f"kernels busy {r['busy']:.3f} ms in a {r['span']:.3f} ms span "
+            f"(idle {idle:.3f}; busy / wall {r['busy'] / r['wall']:.3f} of "
+            f"{r['wall']:.3f} ms), forward {r['fwd']:.3f}, backward "
+            f"{r['bwd']:.3f}, optimizer {r['opt']:.3f} ms busy; the kernels "
+            "that take most of it: " + "; ".join(
+                f"{name[:90]} x{n} {ms:.3f} ms" for name, (ms, n) in r["top"])
+            + "; max |grad| "
+            "by key " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                  r["gmax"].items()))
+
+
+def deep_train_line(lanes, depth):
+    """The train CLI (``python -m hyper_ray_tracer_tpu_torch.train``)
+    on `random` at ``depth``, where it switches remat on; its JSON line
+    and the peak device memory."""
+    import contextlib
+    import io
+
+    from hyper_ray_tracer_tpu_torch.train import main as train_main
+
+    W, H, spp = lanes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main(["random", str(W), str(H), str(spp), str(depth),
+                         "--steps", "1"])
+    assert rc == 0, f"train CLI exit code {rc}"
+    r = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert r["remat"] and np.isfinite(r["loss"]), r
+    return (f"train CLI random {W}x{H}x{spp} d{depth} with remat: "
+            f"{r['seconds_per_step']:.4f} s/step (one timed after one "
+            f"warm-up), {r['value']:.4f} fwd+bwd camera Mrays/s, loss "
+            f"{r['loss']:.6f}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -310,6 +578,7 @@ def main() -> int:
     )
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
         noise_texture,
+        noise_texture_grad,
         noise_texture_plain,
     )
     from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
@@ -331,7 +600,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
-                "turbulence": noise_texture}
+                "turbulence": noise_texture,
+                "turbulence_bwd": noise_texture_grad}
 
     def reset_counts():
         for w in wrappers.values():
@@ -679,7 +949,8 @@ def main() -> int:
         launched = counts()
         uses = {"sphere_sweep": st.sphere_only,
                 "typed_sweep": not st.sphere_only,
-                "turbulence": scene.static.has_noise_tex}
+                "turbulence": scene.static.has_noise_tex,
+                "turbulence_bwd": False}
         for kname, used in uses.items():
             assert (launched[kname] > 0) == used, (name, kname, launched)
         med, mean, outl = golden_errors(img, golden)
@@ -805,6 +1076,39 @@ def main() -> int:
           f"PNG mean {lum:.1f}, light patch rows {r0}-{r1} cols {c0}-{c1} "
           f"mean {patch.mean():.1f}")
 
+    # Phase 10: K2b against its plain version on phase 6's inputs.
+    k2b = k2b_phase(dev, gi, sf, det, final_t.tables)
+    phase(10, k2b_line(k2b, n_final, resources(ptxas["turbulence"])))
+
+    # Phase 11: a train step's gradients on the card against the CPU's.
+    phase(11, "card gradients vs the CPU's at 64x36 2spp d4 (asserted): "
+          + "; ".join(card_grad_check(build_scene(name), dev, share)
+                      for name, share in CARD_GRAD_SHARE.items()))
+
+    # Phases 12-13: the train step at bench_grad.py's workload, the counts
+    # set to 0 just before its timed steps and read just after.
+    random_train = train_run(build_scene("random"), dev, TRAIN_SHAPE, 3,
+                             reset_counts, counts)
+    assert random_train["launched"]["sphere_sweep"] > 0, \
+        "the train step missed K1"
+    assert random_train["gmax"]["materials.albedo"] > 0
+    # `random` lights every path with a flat sky through solid or checker
+    # textures, so its geometry gradients are exactly 0, in the JAX
+    # package too; `final` below carries them.
+    phase(12, "train step " + train_line("random", TRAIN_SHAPE,
+                                         random_train))
+    final_train = train_run(final, dev, TRAIN_SHAPE, 3, reset_counts,
+                            counts)
+    for kname in ("typed_sweep", "turbulence", "turbulence_bwd"):
+        assert final_train["launched"][kname] > 0, \
+            f"the final train step missed {kname}"
+    for k in ("geom.p0", "textures.scale", "materials.albedo"):
+        assert final_train["gmax"][k] > 0, f"final: {k}'s gradient is 0"
+    phase(13, "train step " + train_line("final", TRAIN_SHAPE, final_train))
+
+    # Phase 14: `random` at depth 50 through the train CLI.
+    phase(14, deep_train_line(TRAIN_SHAPE[:3], 50))
+
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/sphere_sweep.cu",
@@ -828,6 +1132,16 @@ def main() -> int:
          "ms": k2["real mask"]["ms"], "plain_ms": k2["real mask"]["plain_ms"],
          "bound_ms": k2["real mask"]["bound"][0],
          "bound_by": k2["real mask"]["bound"][1], "library_ms": None},
+        {"name": "turbulence_bwd", "route": "cuda",
+         "source": "hyper_ray_tracer_tpu_torch/csrc/turbulence.cu",
+         "replaces": "hyper_ray_tracer_tpu/ops/perlin.py:203",
+         "launches": final_train["launched"]["turbulence_bwd"],
+         "max_abs_err": max(e[0] for v in k2b.values()
+                            for e in v["errs"].values()),
+         "ms": k2b["real mask"]["ms"],
+         "plain_ms": k2b["real mask"]["plain_ms"],
+         "bound_ms": k2b["real mask"]["bound"][0],
+         "bound_by": k2b["real mask"]["bound"][1], "library_ms": None},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

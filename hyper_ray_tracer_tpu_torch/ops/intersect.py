@@ -45,6 +45,7 @@ from ..models.scene import (
     PT_SPHERE,
 )
 from . import rng as prng
+from .math import sqrt_capped_grad
 
 BIG = float(np.float32(3.0e38))  # sentinel "miss" distance (finite)
 MEDIUM_REHIT_EPS = float(np.float32(1.0e-4))  # constant_medium.rs:38
@@ -150,8 +151,13 @@ def pack_prim_shade(arrays, static):
 
 
 def gather_prim_shade_packed(fpack, ipack, idx, static):
-    """Row-gather the joined pack: (PrimFields, ShadeFields)."""
-    g = fpack[idx]
+    """Row-gather the joined pack: (PrimFields, ShadeFields).  The float
+    rows go through ``index_select``, whose backward accumulates with
+    ``index_add_``: autograd's backward of ``fpack[idx]`` sorts the
+    indices and sums each primitive's rows in one thread, which on the
+    card serialises the hundreds of thousands of lanes that hit one
+    primitive (PERF.md §6)."""
+    g = fpack.index_select(0, idx)
     gi = ipack[idx]
     vals = {}
     off = 0
@@ -213,14 +219,17 @@ def sphere_center(pf: PrimFields, time, has_motion: bool):
 
 
 def sphere_roots(center, radius, o, d):
-    """Both quadratic roots (near, far) and the existence mask."""
+    """Both quadratic roots (near, far) and the existence mask.  The root
+    sees a positive argument on miss lanes and has a capped derivative, so
+    a masked-out lane's zero cotangent never meets an infinite one."""
     oc = o - center
     a = _dot3(d, d)
     half_b = _dot3(oc, d)
     c = _dot3(oc, oc) - radius * radius
     disc = half_b * half_b - a * c
     exists = disc >= 0.0
-    sq = torch.sqrt(torch.where(exists, torch.clamp(disc, min=1e-30), 1.0))
+    sq = sqrt_capped_grad(torch.where(exists, torch.clamp(disc, min=1e-30),
+                                      1.0))
     t_near = (-half_b - sq) / a
     t_far = (-half_b + sq) / a
     return t_near, t_far, exists
@@ -354,6 +363,32 @@ def prim_hit_t(ptype: int, pf: PrimFields, o, d, time, t_min, t_max,
     if ptype == PT_MEDIUM_BOX:
         return medium_box_t(pf, o, d, t_min, t_max, med_u)
     raise ValueError(f"unknown primitive type {ptype}")
+
+
+def prim_hit_t_lanes(pf: PrimFields, o, d, time, t_min, t_max, ray_bits,
+                     static):
+    """Hit distances of primitives of any of the scene's types, one per
+    lane (the winners of a trace), BIG on miss: the JAX package's
+    ``make_prim_intersector(static)`` (``ops/intersect.py:439-510``), a
+    ``where`` chain over every type the scene holds, keyed on each lane's
+    ``pf.ptype``, with the scene-wide motion and transform flags and each
+    rect's own plane tag.  Differentiable in ``pf``'s float fields and
+    the ray."""
+    if static.has_ray_xform:
+        o, d = _xform_ray(pf, o, d)
+    t = torch.where(pf.ptype == PT_SPHERE,
+                    sphere_t(pf, o, d, time, t_min, t_max, static.has_motion),
+                    BIG)
+    t = torch.where(pf.ptype == PT_RECT, rect_t(pf, o, d, t_min, t_max), t)
+    if static.has_boxes:
+        t = torch.where(pf.ptype == PT_BOX, box_t(pf, o, d, t_min, t_max), t)
+    if static.has_media:
+        med_u = medium_uniform(ray_bits, pf.stable_id)
+        t = torch.where(pf.ptype == PT_MEDIUM_SPHERE,
+                        medium_sphere_t(pf, o, d, t_min, t_max, med_u), t)
+        t = torch.where(pf.ptype == PT_MEDIUM_BOX,
+                        medium_box_t(pf, o, d, t_min, t_max, med_u), t)
+    return t
 
 
 def _sphere_uv(outward):

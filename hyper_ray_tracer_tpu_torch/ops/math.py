@@ -6,8 +6,10 @@ reflect (math.rs:47-49), refract (math.rs:51-56, Snell with clamped cos),
 reflectance (math.rs:58-62, Schlick).  Rejection sampling is replaced by
 closed-form transforms of counter-based uniforms, as in the JAX package.
 
-The capped-gradient sqrt (a ``jax.custom_vjp``) is not here: this slice is
-forward-only, so plain ``torch.sqrt`` is exact.
+``sqrt_capped_grad`` is the JAX package's capped-gradient sqrt
+(``ops/math.py:27-68``, a ``jax.custom_vjp``) as a
+``torch.autograd.Function``: the sphere roots go through it so that a
+grazing ray's gradient stays finite.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 NEAR_ZERO_EPS = 1e-8
+SQRT_GRAD_CAP = 1.0e5  # the JAX package's _SQRT_GRAD_CAP
 _TWO_PI = float(np.float32(2.0 * np.pi))  # the JAX package's f32 constant
 
 
@@ -30,6 +33,32 @@ def sqrt_rn(x):
     (53 >= 2 * 24 + 2 bits), which is what CUDA's sqrt and ``__fsqrt_rn``
     give."""
     return torch.sqrt(x.double()).float()
+
+
+class _SqrtCappedGrad(torch.autograd.Function):
+    """sqrt whose derivative is clipped to ``SQRT_GRAD_CAP``.
+
+    At a silhouette the discriminant crosses zero and d sqrt / dx -> inf,
+    which overflows the gradient of every lane within ~1e-7 of tangency.
+    The primal is ``torch.sqrt`` itself, so no forward value changes; only
+    the VJP is clipped: ``g * min(0.5 / max(y, 1e-30), 1e5)``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * torch.clamp(0.5 / torch.clamp(y, min=1e-30),
+                               max=SQRT_GRAD_CAP)
+
+
+def sqrt_capped_grad(x):
+    """Exact sqrt; derivative clipped against silhouette blow-up."""
+    return _SqrtCappedGrad.apply(x)
 
 
 def normalize(v):

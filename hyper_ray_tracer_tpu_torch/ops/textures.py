@@ -59,6 +59,6 @@ def texture_value(sf, hit, static, tables: TextureTables):
         # index into the table, as the JAX package's gather does.
         flat = (sf.image_id.long() * (ih * iw) + j.long() * iw
                 + i.long()).clamp(0, ni * ih * iw - 1)
-        texel = tables.images.reshape(ni * ih * iw, 3)[flat]
+        texel = tables.images.reshape(ni * ih * iw, 3).index_select(0, flat)
         value = torch.where((sf.ttype == TT_IMAGE)[..., None], texel, value)
     return value

@@ -24,6 +24,17 @@ with ``(x, y, z) = scale * point``, where ``ttype == TT_NOISE``, and
 ``value`` elsewhere.  The two agree bit for bit: the kernel performs the
 plain version's IEEE operations in the same order, with the same
 ``sinf``, and its tables hold exactly the plain version's hashes.
+
+Its backward is a second kernel in the same source, K2b
+(``noise_texture_grad``; the JAX package differentiates this branch
+through XLA, ``ops/textures.py:65-70`` and ``ops/perlin.py:203-254``).
+For the cotangent ``grad_out`` [N, 3] it returns (grad_point [N, 3],
+grad_scale [N], grad_value [N, 3]): on noise lanes ``scale * g``,
+``<point, g>`` and 0, with ``g = (sum_c grad_out_c) d marble / d sp``;
+elsewhere 0, 0 and ``grad_out``.  Its plain version is autograd through
+``noise_texture_plain`` (``noise_texture_grad_plain``).  They agree to
+rounding, not bit for bit: the kernel sums the analytic derivative of
+each octave, autograd the chain rule of each operation.
 """
 
 from __future__ import annotations
@@ -63,70 +74,156 @@ def noise_texture_plain(ttype, scale, point, value, tables):
                        value)
 
 
-def _bind(lib):
-    fn = lib.hrt_noise_texture
-    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [ptr, i64] * 4 + [ptr] * 4 + [ctypes.c_int] * 2 \
-        + [ptr, ptr]
-    fn.restype = ctypes.c_int
+def noise_texture_grad_plain(ttype, scale, point, grad_out, tables):
+    """The noise branch's VJP in plain torch: autograd through
+    ``noise_texture_plain``.  Returns (grad_point [N, 3], grad_scale [N],
+    grad_value [N, 3])."""
+    with torch.enable_grad():
+        s = scale.detach().requires_grad_()
+        p = point.detach().requires_grad_()
+        v = torch.zeros_like(grad_out, requires_grad=True)
+        out = noise_texture_plain(ttype, s, p, v, tables)
+        return torch.autograd.grad(out, (p, s, v), grad_out)
+
+
+def _bind(lib, name):
+    fn = getattr(lib, name)
+    ptr, i64, c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    if name == "hrt_noise_texture":
+        fn.argtypes = [ptr, i64] * 4 + [ptr] * 4 + [c_int] * 2 + [ptr, ptr]
+    else:
+        fn.argtypes = [ptr, i64] * 3 + [ptr] * 5 + [c_int] * 2 + [ptr] * 4
+    fn.restype = c_int
     return fn
 
 
-def _view_stride(name, x, shape, dtype, device):
+def _view_stride(kernel, name, x, shape, dtype, device):
     """Raise unless ``x`` is on ``device`` with ``dtype`` and ``shape``
     ([n], or [n, 3] with contiguous columns); return its row stride, as
     the kernel indexes it."""
     if x.device != device:
-        raise ValueError(f"noise_texture: {name} is on {x.device}, "
+        raise ValueError(f"{kernel}: {name} is on {x.device}, "
                          f"expected {device}")
     if x.dtype != dtype:
-        raise TypeError(f"noise_texture: {name} has dtype {x.dtype}, "
+        raise TypeError(f"{kernel}: {name} has dtype {x.dtype}, "
                         f"expected {dtype}")
     if tuple(x.shape) != shape:
-        raise ValueError(f"noise_texture: {name} has shape "
+        raise ValueError(f"{kernel}: {name} has shape "
                          f"{tuple(x.shape)}, expected {shape}")
     if len(shape) == 2 and x.stride(1) != 1:
-        raise ValueError(f"noise_texture: {name}'s columns are not "
+        raise ValueError(f"{kernel}: {name}'s columns are not "
                          "contiguous")
     return x.stride(0)
 
 
-def noise_texture(ttype, scale, point, value, tables):
-    """The noise branch of ``texture_value`` [N, 3].  A CPU tensor takes
-    the plain version; a CUDA tensor launches the kernel (building it on
-    first use) or raises.  Counts its kernel launches in
-    ``noise_texture.launches``."""
-    device = point.device
-    if device.type == "cpu":
-        return noise_texture_plain(ttype, scale, point, value, tables)
-    if device.type != "cuda":
-        raise ValueError(f"noise_texture: unsupported device {device}")
-    n = point.shape[0]
+def _lane_views(kernel, device, n, **named):
+    """[pointer, row stride] of each named input (ttype, scale, point,
+    value or grad_out, in the entry point's order), validated."""
+    kinds = {"ttype": ((n,), torch.int32), "scale": ((n,), torch.float32)}
     views = []
-    for name, x, shape, dtype in (
-            ("ttype", ttype, (n,), torch.int32),
-            ("scale", scale, (n,), torch.float32),
-            ("point", point, (n, 3), torch.float32),
-            ("value", value, (n, 3), torch.float32)):
-        views += [x.data_ptr(), _view_stride(name, x, shape, dtype, device)]
+    for name, x in named.items():
+        shape, dtype = kinds.get(name, ((n, 3), torch.float32))
+        views += [x.data_ptr(),
+                  _view_stride(kernel, name, x, shape, dtype, device)]
+    return views
+
+
+def _table_ptrs(kernel, tables, device):
     perlin = tables.perlin
-    cuda_build.check_arg("noise_texture", "vectors", perlin.vectors,
+    cuda_build.check_arg(kernel, "vectors", perlin.vectors,
                          (POINT_COUNT, 3), torch.float32, device)
     for name in ("perm_x", "perm_y", "perm_z"):
-        cuda_build.check_arg("noise_texture", name, getattr(perlin, name),
+        cuda_build.check_arg(kernel, name, getattr(perlin, name),
                              (POINT_COUNT,), torch.int32, device)
+    return [perlin.vectors.data_ptr(), perlin.perm_x.data_ptr(),
+            perlin.perm_y.data_ptr(), perlin.perm_z.data_ptr()]
+
+
+def _launch_marble(ttype, scale, point, value, tables):
+    """K2 on CUDA tensors: the noise branch's value [N, 3]."""
+    device = point.device
+    n = point.shape[0]
+    views = _lane_views("noise_texture", device, n, ttype=ttype,
+                        scale=scale, point=point, value=value)
+    ptrs = _table_ptrs("noise_texture", tables, device)
     if n >= 2**31:
         raise ValueError(f"noise_texture: {n} lanes exceed 32-bit indexing")
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
     if n == 0:
         return out
-    fn = _bind(cuda_build.load("turbulence"))
-    cuda_build.launch("noise_texture", fn, device, *views,
-                      perlin.vectors.data_ptr(), perlin.perm_x.data_ptr(),
-                      perlin.perm_y.data_ptr(), perlin.perm_z.data_ptr(),
-                      TT_NOISE, n, out.data_ptr())
+    fn = _bind(cuda_build.load("turbulence"), "hrt_noise_texture")
+    cuda_build.launch("noise_texture", fn, device, *views, *ptrs, TT_NOISE,
+                      n, out.data_ptr())
     noise_texture.launches += 1
     return out
 
 
+def noise_texture_grad(ttype, scale, point, grad_out, tables):
+    """The VJP of the noise branch for the cotangent ``grad_out`` [N, 3]:
+    (grad_point [N, 3], grad_scale [N], grad_value [N, 3]).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel K2b
+    (building it on first use) or raises.  Counts its kernel launches in
+    ``noise_texture_grad.launches``."""
+    device = point.device
+    if device.type == "cpu":
+        return noise_texture_grad_plain(ttype, scale, point, grad_out,
+                                        tables)
+    if device.type != "cuda":
+        raise ValueError(f"noise_texture_grad: unsupported device {device}")
+    n = point.shape[0]
+    grad_out = grad_out.contiguous()
+    views = _lane_views("noise_texture_grad", device, n, ttype=ttype,
+                        scale=scale, point=point)
+    cuda_build.check_arg("noise_texture_grad", "grad_out", grad_out, (n, 3),
+                         torch.float32, device)
+    ptrs = _table_ptrs("noise_texture_grad", tables, device)
+    if n >= 2**31:
+        raise ValueError(f"noise_texture_grad: {n} lanes exceed 32-bit "
+                         "indexing")
+    grad_point = torch.empty((n, 3), dtype=torch.float32, device=device)
+    grad_scale = torch.empty((n,), dtype=torch.float32, device=device)
+    grad_value = torch.empty((n, 3), dtype=torch.float32, device=device)
+    if n == 0:
+        return grad_point, grad_scale, grad_value
+    fn = _bind(cuda_build.load("turbulence"), "hrt_noise_texture_grad")
+    cuda_build.launch("noise_texture_grad", fn, device, *views,
+                      grad_out.data_ptr(), *ptrs, TT_NOISE, n,
+                      grad_point.data_ptr(), grad_scale.data_ptr(),
+                      grad_value.data_ptr())
+    noise_texture_grad.launches += 1
+    return grad_point, grad_scale, grad_value
+
+
+class _NoiseTexture(torch.autograd.Function):
+    """K2 forward, K2b backward."""
+
+    @staticmethod
+    def forward(ctx, ttype, scale, point, value, tables):
+        ctx.save_for_backward(ttype, scale, point)
+        ctx.tables = tables
+        return _launch_marble(ttype, scale, point, value, tables)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ttype, scale, point = ctx.saved_tensors
+        grad_point, grad_scale, grad_value = noise_texture_grad(
+            ttype, scale, point, grad_out, ctx.tables)
+        return None, grad_scale, grad_point, grad_value, None
+
+
+def noise_texture(ttype, scale, point, value, tables):
+    """The noise branch of ``texture_value`` [N, 3], differentiable in
+    ``scale``, ``point`` and ``value``.  A CPU tensor takes the plain
+    version (autograd through it); a CUDA tensor launches K2 (building it
+    on first use) or raises, and its backward launches K2b.  Counts its
+    kernel launches in ``noise_texture.launches``."""
+    device = point.device
+    if device.type == "cpu":
+        return noise_texture_plain(ttype, scale, point, value, tables)
+    if device.type != "cuda":
+        raise ValueError(f"noise_texture: unsupported device {device}")
+    return _NoiseTexture.apply(ttype, scale, point, value, tables)
+
+
 noise_texture.launches = 0
+noise_texture_grad.launches = 0

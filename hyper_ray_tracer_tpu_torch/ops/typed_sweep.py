@@ -8,8 +8,9 @@ implementations of one contract:
   ``csrc/typed_sweep.cu``.  The JAX package traces these scenes with an
   XLA sweep, not a Pallas kernel; the kernel follows that sweep.  It is
   bound by FP32 issue per ray-primitive pair; it reads each primitive as
-  packed 16-byte records (``typed_records``, built once per scene by
-  ``sweep_scene``); the design note is at the top of the CUDA source.
+  packed 16-byte records (``typed_records``, built by ``sweep_scene``
+  once per scene, and once per forward in a train step); the design
+  note is at the top of the CUDA source.
 * ``typed_sweep_plain``: the same function in plain torch.  CPU tensors
   take it; on the card it is only the reference the kernel is checked
   against.
@@ -171,10 +172,8 @@ def typed_records(geom_np, plan, n_prims: int):
             np.ascontiguousarray(xf, np.float32), sph.shutter)
 
 
-def sweep_scene(geom_np, geom, n_prims: int) -> SweepScene:
-    """Build the plan and the kernel's records from the NumPy geometry
-    ``geom_np`` and slice the device tensors ``geom`` (the same
-    GeometrySoA as tensors)."""
+def sweep_plan(geom_np, n_prims: int) -> tuple:
+    """The plan of ``tile_plan`` as PlanTiles (every tile of one type)."""
     plan = []
     for s, w, types, motion, xform, rect_axis in tile_plan(geom_np,
                                                            n_prims):
@@ -182,6 +181,18 @@ def sweep_scene(geom_np, geom, n_prims: int) -> SweepScene:
             raise ValueError(f"plan tile at {s} holds types {set(types)}")
         plan.append(PlanTile(s, w, next(iter(types)), motion, xform,
                              -1 if rect_axis is None else rect_axis))
+    return tuple(plan)
+
+
+def sweep_scene(geom_np, geom, n_prims: int, plan=None) -> SweepScene:
+    """Build the kernel's records from the NumPy geometry ``geom_np`` and
+    slice the device tensors ``geom`` (the same GeometrySoA as tensors).
+    ``plan``: the PlanTiles to follow, by default ``sweep_plan`` of
+    ``geom_np``; a train step passes the plan of the scene as built, so
+    that each tile keeps its motion and transform flags while the
+    geometry moves."""
+    if plan is None:
+        plan = sweep_plan(geom_np, n_prims)
     device = geom.p0.device
     rows, geo, aux, xf, shutter = (
         torch.from_numpy(x).to(device)

@@ -15,8 +15,14 @@ Here it is a loop over ``depth`` bounces carrying the whole ray wavefront
     throughput *= attenuation            (only while scattering continues)
 
 telescopes to the recursion.  It follows the JAX package's ``render.py``
-(``init_state`` :335-361, ``bounce_step`` with ``differentiable=False``
-:363-455, ``render_image`` :1459-1672).
+(``init_state`` :335-361, ``bounce_step`` :363-455, ``render_image``
+:1459-1672).
+
+``render_radiance`` is the differentiable form a train step runs: each
+bounce traces its rays with the gradient stopped (the sweep kernels are
+discrete searches) and recomputes the winner's hit distance in plain
+torch, so that gradients reach the geometry through t, the hit point
+and everything shaded from it.
 
 Compaction is eager: after every bounce, each lane's radiance is written to
 its launch slot, and only the ``alive.nonzero()`` lanes, in launch order,
@@ -38,11 +44,17 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from .camera import CameraBasis, get_rays, make_basis
 from .models.scene import Scene
 from .ops import rng as prng
-from .ops.intersect import gather_prim_shade_packed, hit_detail
+from .ops.intersect import (
+    BIG,
+    gather_prim_shade_packed,
+    hit_detail,
+    prim_hit_t_lanes,
+)
 from .ops.materials import shade
 from .ops.sphere_sweep import sphere_sweep
 from .ops.typed_sweep import typed_sweep
@@ -118,10 +130,12 @@ def trace(scene: SceneTensors, state: WavefrontState, bb):
 
 
 def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
-               t_hit, prim) -> WavefrontState:
+               t_hit, prim, differentiable: bool = False) -> WavefrontState:
     """The rest of a bounce after the trace: background on misses, the
     winner's row gather, hit detail, textures and materials, and the
-    radiance / throughput update."""
+    radiance / throughput update.  ``differentiable``: recompute the
+    winner's t from its gathered fields (the JAX package's
+    ``render.py:420-441``), so that t carries gradients."""
     static = scene.static
     o, d, time = state.o, state.d, state.time
     alive, throughput, radiance = state.alive, state.throughput, \
@@ -141,6 +155,14 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
     pidx = torch.clamp(prim, min=0).long()
     pf, sf = gather_prim_shade_packed(scene.fpack, scene.ipack, pidx,
                                       static)
+    if differentiable:
+        # For the winner the closed form gives the trace's t, now with
+        # gradients.  A grazing hit can recompute to a miss (the
+        # discriminant rounds to the other side of 0): it keeps the
+        # trace's t, gradient-free.  Miss lanes take a finite 1.0: with
+        # BIG the hit point overflows, and 0 * inf in a VJP is NaN.
+        t_re = prim_hit_t_lanes(pf, o, d, time, T_MIN, BIG, bb, static)
+        t_hit = torch.where(t_re < 0.5 * BIG, t_re, t_hit)
     t_use = torch.where(hit, t_hit, 1.0)
     det = hit_detail(pf, o, d, time, t_use, static)
     sc = shade(sf, det, d, bb, static, scene.tables)
@@ -158,28 +180,44 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
 
 
 def bounce_step(scene: SceneTensors, background, state: WavefrontState,
-                bounce_idx: int) -> WavefrontState:
-    """One wavefront bounce (the JAX ``bounce_step``, not differentiable)."""
+                bounce_idx: int, differentiable: bool = False
+                ) -> WavefrontState:
+    """One wavefront bounce (the JAX ``bounce_step``).  ``differentiable``:
+    trace the detached rays with no graph, then recompute the winner's t
+    with gradients (``shade_hits``)."""
     with record_function("trace"):
         bb = prng.bounce_base(state.base, bounce_idx)
-        t_hit, prim = trace(scene, state, bb)
+        if differentiable:
+            with torch.no_grad():
+                t_hit, prim = trace(scene, state._replace(
+                    o=state.o.detach(), d=state.d.detach()), bb)
+        else:
+            t_hit, prim = trace(scene, state, bb)
     with record_function("shade"):
-        return shade_hits(scene, background, state, bb, t_hit, prim)
+        return shade_hits(scene, background, state, bb, t_hit, prim,
+                          differentiable)
 
 
 def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
                 width: int, height: int, pixel_ids, sample_ids, seed: int,
-                depth: int):
+                depth: int, differentiable: bool = False,
+                remat: bool = False):
     """Per-lane radiance [N,3] (pre-gamma, pre-averaging) of the camera
     rays (pixel_ids[i], sample_ids[i]), in launch order, with dead lanes
-    compacted out after every bounce."""
+    compacted out after every bounce.  ``differentiable`` and ``remat``:
+    see ``render_radiance``."""
     with record_function("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
         out = torch.zeros_like(state.o)
         slot = torch.arange(pixel_ids.shape[0], device=pixel_ids.device)
     for bounce in range(depth):
-        state = bounce_step(scene, background, state, bounce)
+        if remat:
+            state = checkpoint(bounce_step, scene, background, state, bounce,
+                               differentiable, use_reentrant=False)
+        else:
+            state = bounce_step(scene, background, state, bounce,
+                                differentiable)
         with record_function("compaction"):
             # A lane's radiance no longer changes once it is dead, so the
             # value written here is final for every lane that stops now.
@@ -188,9 +226,31 @@ def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
             if keep.numel() == 0:
                 break
             if keep.numel() < slot.numel():
-                state = WavefrontState(*(x[keep] for x in state))
+                # index_select: its backward is index_add_ (see
+                # gather_prim_shade_packed).
+                state = WavefrontState(*(x.index_select(0, keep)
+                                         for x in state))
                 slot = slot[keep]
     return out
+
+
+def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
+                    width: int, height: int, pixel_ids, sample_ids,
+                    seed: int, depth: int, remat: bool = False):
+    """Per-lane radiance [N,3] with gradients to the scene's parameters
+    (bind them with ``scene_tensors.bind_params``): ``trace_paths`` with
+    differentiable bounces.  Compaction stays eager: ``index_copy_`` and
+    the gathers of the surviving lanes are differentiable, so the
+    gradients equal those of a fixed-width loop over every lane.
+
+    ``remat``: keep only each bounce's input state for the backward pass
+    and recompute the bounce there (``torch.utils.checkpoint``; the JAX
+    package's ``jax.checkpoint`` at ``render.py:457-466``).  The
+    counter-based RNG and the deterministic kernels make the recompute
+    exact."""
+    return trace_paths(scene, background, basis, width, height, pixel_ids,
+                       sample_ids, seed, depth, differentiable=True,
+                       remat=remat)
 
 
 def _gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:

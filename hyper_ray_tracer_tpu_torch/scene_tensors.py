@@ -4,6 +4,14 @@
 port's tensors.  Its input can come from the port's own ``build_scene`` or
 from the JAX package's (``build_scene(name).arrays``): the two are equal
 array for array, which is how the tests feed both packages one scene.
+
+A train step splits the result by what changes.  What stays fixed per
+scene: the sweep's plan (taken from the geometry as built, as the JAX
+package's host-side plan is), the int shade rows, the Perlin tables and
+the image sizes.  What follows the parameters (``PARAM_PATHS``) is
+rebuilt by ``bind_params`` once per forward: the joined float shade rows
+inside the autograd graph, the sphere fields as views of the parameters,
+and the sweeps' packed records from their detached current values.
 """
 
 from __future__ import annotations
@@ -13,11 +21,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .models.scene import PT_SPHERE, SceneStatic
+from .models.scene import PT_SPHERE, GeometrySoA, SceneStatic
 from .ops.intersect import pack_prim_shade
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
 from .ops.typed_sweep import SweepScene, sweep_scene
+
+# SceneArrays leaves that a train step optimises (the JAX package's
+# train.py:32-43); keys are "group.field", "images.None" for the images.
+# Everything else (type tags, ids, times, transforms, Perlin tables)
+# stays fixed.
+PARAM_PATHS = (
+    ("geom", "p0"),
+    ("geom", "p1"),
+    ("geom", "radius"),
+    ("materials", "albedo"),
+    ("materials", "fuzz"),
+    ("materials", "ior"),
+    ("textures", "color1"),
+    ("textures", "color2"),
+    ("textures", "scale"),
+    ("images", None),
+)
 
 
 class SphereFields(NamedTuple):
@@ -40,6 +65,7 @@ class SceneTensors(NamedTuple):
     fpack: torch.Tensor  # [P, F] float32 joined shade rows
     ipack: torch.Tensor  # [P, 7] int32
     tables: TextureTables  # images, Perlin keys and tables
+    host_geom: GeometrySoA  # the geometry as built, NumPy (the plan's)
 
 
 def _tensor(x, device):
@@ -80,4 +106,66 @@ def to_device(arrays, static: SceneStatic, device) -> SceneTensors:
         arrays=t, static=static,
         sphere_only=sphere_only(static, arrays.geom.ptype),
         spheres=spheres, sweep=sweep_scene(arrays.geom, g, n),
-        fpack=fpack, ipack=ipack, tables=tables)
+        fpack=fpack, ipack=ipack, tables=tables,
+        host_geom=GeometrySoA(*(np.asarray(x) for x in arrays.geom)))
+
+
+def extract_params(arrays) -> dict:
+    """{"group.field": leaf} of the trainable leaves of ``arrays``."""
+    params = {}
+    for group, field in PARAM_PATHS:
+        node = getattr(arrays, group)
+        params[f"{group}.{field}"] = (node if field is None
+                                      else getattr(node, field))
+    return params
+
+
+def merge_params(arrays, params):
+    """``arrays`` with its trainable leaves replaced by ``params``."""
+    for group, field in PARAM_PATHS:
+        key = f"{group}.{field}"
+        if field is None:
+            arrays = arrays._replace(**{group: params[key]})
+        else:
+            node = getattr(arrays, group)._replace(**{field: params[key]})
+            arrays = arrays._replace(**{group: node})
+    return arrays
+
+
+def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
+    """``scene_t`` with the parameter tensors ``params`` (keys of
+    ``PARAM_PATHS``) in place of its own, for one forward pass.
+
+    The joined float shade rows are packed from ``params`` inside the
+    autograd graph, so gradients reach every parameter, and the sphere
+    fields are views of them (p1 is p0 for the spheres of tiles planned
+    without motion).  The sweeps trace the parameters' current
+    values: their packed records are rebuilt from detached NumPy copies
+    (equal to ``typed_records`` of those values by construction), on the
+    plan of the scene as built.  The int rows, the plan and the Perlin
+    tables are ``scene_t``'s own."""
+    static = scene_t.static
+    n = static.n_prims
+    arrays = merge_params(scene_t.arrays, params)
+    g = arrays.geom
+    fpack, _ = pack_prim_shade(arrays, static)
+    # The sphere sweep lerps every sphere whose p1 differs from p0; a
+    # sphere of a tile planned without motion traces at p0 however its
+    # p1 has moved, as the typed sweep's plan has it.
+    lerp = np.zeros(n, bool)
+    for t in scene_t.sweep.plan:
+        lerp[t.start:t.start + t.width] = t.motion
+    p1 = g.p1[:n] if lerp.all() else g.p0[:n] if not lerp.any() else \
+        torch.where(torch.from_numpy(lerp).to(g.p1.device)[:, None],
+                    g.p1[:n], g.p0[:n])
+    spheres = SphereFields(g.p0[:n], p1, g.time0[:n], g.time1[:n],
+                           g.radius[:n])
+    moved = {k: params[f"geom.{k}"].detach() for k in ("p0", "p1",
+                                                        "radius")}
+    host = scene_t.host_geom._replace(
+        **{k: v.cpu().numpy() for k, v in moved.items()})
+    sweep = sweep_scene(host, scene_t.arrays.geom._replace(**moved), n,
+                        plan=scene_t.sweep.plan)
+    tables = scene_t.tables._replace(images=params["images.None"])
+    return scene_t._replace(arrays=arrays, spheres=spheres, sweep=sweep,
+                            fpack=fpack, tables=tables)

@@ -1,0 +1,196 @@
+"""Differentiable rendering: the inverse-rendering train step (the JAX
+package's ``train.py``) and its throughput CLI (its ``bench_grad.py``).
+
+The loss is the mean squared error between each pixel's mean radiance
+and a target image, through ``render.render_radiance``; the step is one
+adam update of every parameter in ``PARAM_PATHS`` (sphere centers and
+radii, metal albedo and fuzz, dielectric IOR, texture colors, the noise
+scale, image texels).
+
+Gradient conventions for discrete events (the JAX package's): hit or
+miss, the winner, the reflect-or-refract draw, the checker's sign and the
+texel are decisions of the forward pass.  Gradients flow through the
+continuous quantities (the winner's t, scatter directions,
+attenuations), not through decision boundaries.
+
+Run a train step's timing (one JSON line) with
+``python -m hyper_ray_tracer_tpu_torch.train [scene] [W] [H] [SPP]
+[DEPTH]``; on the CPU add ``--cpu`` and a small shape.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from .camera import make_basis
+from .models.scene import Scene
+from .render import render_radiance
+from .scene_tensors import (  # noqa: F401  (PARAM_PATHS is re-exported)
+    PARAM_PATHS,
+    bind_params,
+    extract_params,
+    merge_params,
+    to_device,
+)
+
+# optax.adam's defaults; its eps_root is 0, which torch's Adam has no
+# term for.
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+REMAT_MIN_DEPTH = 17  # bench_grad.py: remat is on for depth > 16
+
+
+class TrainState(NamedTuple):
+    params: dict  # "group.field" -> leaf tensor that requires grad
+    optimizer: torch.optim.Optimizer
+
+
+def params_from_jax(params: dict, device="cpu") -> dict:
+    """The JAX package's parameters (``extract_params`` there, as NumPy
+    arrays under the same keys) as leaf tensors on ``device`` that
+    require grad."""
+    return {k: torch.tensor(np.asarray(v, np.float32), device=device,
+                            requires_grad=True)
+            for k, v in params.items()}
+
+
+def pixel_lanes(W: int, H: int, spp: int, device):
+    """The [spp, W*H] pixel and sample ids of every camera ray."""
+    pix = torch.arange(W * H, dtype=torch.int64, device=device)
+    sam = torch.arange(spp, dtype=torch.int64, device=device)
+    return pix.expand(spp, W * H), sam[:, None].expand(spp, W * H)
+
+
+def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
+                 remat: bool = False, silhouette: bool = False):
+    """loss(params, scene_t, basis, pixel_ids, sample_ids, seed, target):
+    the mean squared error between each pixel's mean radiance over the
+    [S, W*H] launch and ``target`` ([W*H, 3], linear radiance, bottom-up
+    rows)."""
+    if silhouette:
+        raise NotImplementedError(
+            "the edge-sampled silhouette term is not ported yet (ROADMAP "
+            "queue 1 item 14)")
+
+    def loss_fn(params, scene_t, basis, pixel_ids, sample_ids, seed,
+                target):
+        bound = bind_params(scene_t, params)
+        s_blk = pixel_ids.shape[0]
+        rad = render_radiance(bound, scene.background, basis, W, H,
+                              pixel_ids.reshape(-1), sample_ids.reshape(-1),
+                              seed, depth, remat=remat)
+        mean_rad = rad.reshape(s_blk, W * H, 3).mean(0)
+        return ((mean_rad - target) ** 2).mean()
+
+    return loss_fn
+
+
+def make_train_step(scene: Scene, W: int, H: int, depth: int,
+                    learning_rate: float = 1e-2, remat: bool = False,
+                    silhouette: bool = False):
+    """(init, step): ``init(scene_t)`` copies the scene's parameters into
+    leaf tensors with an adam optimizer; ``step(state, scene_t, basis,
+    pixel_ids, sample_ids, seed, target)`` runs the forward render, the
+    backward pass and one adam update in place, and returns (state, the
+    loss before the update).  The step's parts run in the
+    ``record_function`` ranges ``forward``, ``backward`` and
+    ``optimizer``."""
+    loss_fn = make_loss_fn(scene, W, H, depth, remat=remat,
+                           silhouette=silhouette)
+
+    def init(scene_t) -> TrainState:
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in extract_params(scene_t.arrays).items()}
+        opt = torch.optim.Adam(list(params.values()), lr=learning_rate,
+                               betas=ADAM_BETAS, eps=ADAM_EPS)
+        return TrainState(params=params, optimizer=opt)
+
+    def step(state: TrainState, scene_t, basis, pixel_ids, sample_ids, seed,
+             target):
+        state.optimizer.zero_grad(set_to_none=True)
+        with record_function("forward"):
+            loss = loss_fn(state.params, scene_t, basis, pixel_ids,
+                           sample_ids, seed, target)
+        with record_function("backward"):
+            loss.backward()
+        with record_function("optimizer"):
+            # A parameter the render never reads has a zero gradient, as
+            # in JAX: adam counts the step for it too.
+            for p in state.params.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            state.optimizer.step()
+        return state, loss.detach()
+
+    return init, step
+
+
+def main(argv=None) -> int:
+    """Camera Mrays/s through a whole adam train step (forward render,
+    backward pass, update), as one JSON line; the JAX package's
+    ``bench_grad.py`` with the same positional arguments and defaults.
+    Compaction is always on (eager); the partitioned descent is not
+    ported."""
+    from .models.builders import build_scene
+
+    ap = argparse.ArgumentParser(prog="hyper_ray_tracer_tpu_torch.train")
+    ap.add_argument("scene", nargs="?", default="random")
+    ap.add_argument("width", nargs="?", type=int, default=400)
+    ap.add_argument("height", nargs="?", type=int, default=225)
+    ap.add_argument("spp", nargs="?", type=int, default=8)
+    ap.add_argument("depth", nargs="?", type=int, default=8)
+    ap.add_argument("--remat", action="store_true",
+                    help="force per-bounce remat (auto for depth > 16): "
+                         "trades recompute for backward memory")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="timed steps after one warm-up step")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU with the plain-PyTorch versions "
+                         "of the kernels")
+    a = ap.parse_args(argv)
+    if a.cpu:
+        device = torch.device("cpu")
+    elif torch.cuda.is_available():
+        device = torch.device("cuda")
+    else:
+        raise RuntimeError("no CUDA device is available; pass --cpu to "
+                           "train on the CPU")
+    W, H, spp, depth = a.width, a.height, a.spp, a.depth
+    remat = a.remat or depth >= REMAT_MIN_DEPTH
+    scene = build_scene(a.scene)
+    scene_t = to_device(scene.arrays, scene.static, device)
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = pixel_lanes(W, H, spp, device)
+    target = torch.zeros((W * H, 3), dtype=torch.float32, device=device)
+    init, step = make_train_step(scene, W, H, depth, remat=remat)
+    state = init(scene_t)
+    state, loss = step(state, scene_t, basis, pix, sam, 0, target)
+    loss.item()  # warm-up: kernel builds, allocator
+    best = float("inf")
+    for _ in range(a.steps):
+        t0 = time.perf_counter()
+        state, loss = step(state, scene_t, basis, pix, sam, 0, target)
+        loss.item()
+        best = min(best, time.perf_counter() - t0)
+    print(json.dumps({
+        "metric": f"{a.scene}_fwd_bwd_camera_mrays_per_s_depth{depth}",
+        "value": W * H * spp / best / 1e6,
+        "unit": "Mrays/s",
+        "seconds_per_step": best,
+        "loss": float(loss),
+        "remat": remat,
+        "device": str(device),
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

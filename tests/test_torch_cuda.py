@@ -1,10 +1,11 @@
-"""The CUDA kernels (the sphere sweep, the typed sweep and the noise
-texture's marble turbulence) against their plain-PyTorch versions, on
-the card.  Every test here needs a CUDA device and nvcc and skips without
-them; on a GPU machine run ``python -m pytest tests/test_torch_cuda.py``.
+"""The CUDA kernels (the sphere sweep, the typed sweep, the noise
+texture's marble turbulence and its backward) against their plain-PyTorch
+versions, and a train step on the card against the CPU's.  Every test
+here needs a CUDA device and nvcc and skips without them; on a GPU
+machine run ``python -m pytest tests/test_torch_cuda.py``.
 
-Each kernel performs its plain version's IEEE operations in the same
-order, so the two must agree bit for bit, not only within the near-tie
+Each forward kernel performs its plain version's IEEE operations in the
+same order, so the two must agree bit for bit, not only within the near-tie
 rules.  The sweeps are also held at ray counts around the packet and
 block edges, with two shutter intervals, and with plan tiles that span
 the kernel's stages.
@@ -39,6 +40,8 @@ from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.textures import TextureTables  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.turbulence import (  # noqa: E402
     noise_texture,
+    noise_texture_grad,
+    noise_texture_grad_plain,
     noise_texture_plain,
 )
 from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (  # noqa: E402
@@ -51,6 +54,11 @@ from hyper_ray_tracer_tpu_torch.render import (  # noqa: E402
     trace,
 )
 from hyper_ray_tracer_tpu_torch.scene_tensors import to_device  # noqa: E402
+from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
+    extract_params,
+    make_loss_fn,
+    pixel_lanes,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -398,3 +406,88 @@ def test_final_render_goes_through_both_kernels(cuda):
     assert typed_sweep.launches > counts[1]
     assert noise_texture.launches > counts[2]
     assert img.shape == (36, 64, 3) and np.isfinite(img).all()
+
+
+# K2b against autograd through the plain marble: grad_value is a copy
+# (bit-equal); grad_point and grad_scale sum the analytic derivative of
+# each octave where autograd chains every operation, so they agree to
+# rounding: 1e-4 of each output's largest magnitude.
+GRAD_SHARE = 1e-4
+
+
+def _grad_rules(got, ref, noise):
+    (gp, gs, gv), (rp, rs, rv) = got, ref
+    assert torch.equal(gv, rv)
+    assert (gv[noise] == 0).all() and (gp[~noise] == 0).all() \
+        and (gs[~noise] == 0).all()
+    for g, r in ((gp, rp), (gs, rs)):
+        assert torch.isfinite(g).all()
+        assert (g - r).abs().max() <= GRAD_SHARE * r.abs().max()
+
+
+@pytest.mark.parametrize("mask_kind", ["scene", "all"])
+def test_marble_grad_equals_plain(cuda, mask_kind):
+    gi, scale, point, value, tables = _noise_lanes(cuda)
+    if mask_kind == "all":
+        gi[:, 5] = TT_NOISE
+    ttype = gi[:, 5]
+    noise = ttype == TT_NOISE
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    grad_out = torch.rand(point.shape, device=cuda, generator=gen) - 0.5
+    before = noise_texture_grad.launches
+    got = noise_texture_grad(ttype, scale, point, grad_out, tables)
+    torch.cuda.synchronize()
+    assert noise_texture_grad.launches == before + 1
+    ref = noise_texture_grad_plain(ttype, scale, point, grad_out, tables)
+    _grad_rules(got, ref, noise)
+
+
+def test_marble_backward_runs_k2b(cuda):
+    """Under autograd on the card the noise branch runs K2 forward and
+    K2b backward, and its gradients are the plain version's."""
+    gi, scale, point, value, tables = _noise_lanes(cuda, 64, 36)
+    gi[:, 5] = torch.where(torch.arange(gi.shape[0], device=cuda) % 3 == 0,
+                           TT_NOISE, 0)
+    ttype = gi[:, 5]
+    leaves = [x.detach().clone().requires_grad_()
+              for x in (scale, point, value)]
+    counts = (noise_texture.launches, noise_texture_grad.launches)
+    out = noise_texture(ttype, *leaves, tables)
+    weight = torch.linspace(-1, 1, out.numel(), device=cuda).view_as(out)
+    got = torch.autograd.grad((out * weight).sum(), leaves)
+    assert (noise_texture.launches, noise_texture_grad.launches) == \
+        (counts[0] + 1, counts[1] + 1)
+    rp, rs, rv = noise_texture_grad_plain(ttype, scale, point, weight,
+                                          tables)
+    _grad_rules((got[1], got[0], got[2]), (rp, rs, rv), ttype == TT_NOISE)
+
+
+@pytest.mark.parametrize("name", ["three-spheres", "final"])
+def test_train_step_gradients_on_card_match_cpu(cuda, name):
+    """The loss and every parameter's gradient of a small train step on
+    the card against the CPU's: the sweeps and K2 equal their plain
+    versions, so only the CPU's rounding (its vectorised sqrt, ROADMAP
+    queue 3) and K2b's separate the two: 1e-3 of each key's largest
+    gradient, 5e-2 on `final`, where an ulp can flip a fog decision."""
+    scene = build_scene(name)
+    W, H, spp, depth = 32, 18, 2, 3
+    target = torch.full((W * H, 3), 0.25)
+    out = {}
+    for dev in ("cpu", cuda):
+        st = to_device(scene.arrays, scene.static, dev)
+        params = {k: v.detach().clone().requires_grad_() for k, v in
+                  extract_params(st.arrays).items()}
+        pix, sam = pixel_lanes(W, H, spp, dev)
+        loss = make_loss_fn(scene, W, H, depth)(
+            params, st, make_basis(scene.camera, W, H), pix, sam, 0,
+            target.to(dev))
+        loss.backward()
+        out[str(dev)] = (loss.item(), {k: p.grad.cpu() for k, p in
+                                       params.items() if p.grad is not None})
+    (loss_c, g_c), (loss_g, g_g) = out["cpu"], out[str(cuda)]
+    share = 5e-2 if name == "final" else 1e-3
+    assert loss_g == pytest.approx(loss_c, rel=share)
+    assert g_c.keys() == g_g.keys()
+    for k, ref in g_c.items():
+        assert torch.isfinite(g_g[k]).all(), k
+        assert (g_g[k] - ref).abs().max() <= share * ref.abs().max(), k

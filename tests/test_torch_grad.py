@@ -1,0 +1,384 @@
+"""The port's differentiable path against the JAX package: the
+capped-gradient sqrt, the per-lane winner recompute, the noise branch's
+VJP, and the loss and every parameter's gradient of ``make_loss_fn``.
+
+The JAX side runs ``jax.grad`` of its own ``make_loss_fn`` on the CPU, as
+``tests/test_grad.py`` does; every reference is computed once per module.
+Both packages get the same scene arrays (the JAX package's
+``build_scene``) and the same target image, made from a NumPy seed.
+"""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: the tensors are small, and the suite runs in
+# several worker processes that would contend for the cores.
+torch.set_num_threads(1)
+
+from hyper_ray_tracer_tpu import build_scene as j_build_scene  # noqa: E402
+from hyper_ray_tracer_tpu.camera import make_basis as j_make_basis  # noqa: E402
+from hyper_ray_tracer_tpu.ops import intersect as j_intersect  # noqa: E402
+from hyper_ray_tracer_tpu.ops.math import (  # noqa: E402
+    sqrt_capped_grad as j_sqrt_capped_grad,
+)
+from hyper_ray_tracer_tpu.ops.textures import (  # noqa: E402
+    texture_value as j_texture_value,
+)
+from hyper_ray_tracer_tpu.render import prepare_scene  # noqa: E402
+from hyper_ray_tracer_tpu.train import (  # noqa: E402
+    extract_params as j_extract_params,
+)
+from hyper_ray_tracer_tpu.train import make_loss_fn as j_make_loss_fn  # noqa: E402
+from hyper_ray_tracer_tpu_torch.camera import make_basis  # noqa: E402
+from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
+    TT_NOISE,
+    TT_SOLID,
+)
+from hyper_ray_tracer_tpu_torch.ops import rng as prng  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
+    BIG,
+    gather_prim_shade_packed,
+    prim_hit_t_lanes,
+)
+from hyper_ray_tracer_tpu_torch.ops.math import sqrt_capped_grad  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.perlin import turbulence_xyz  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.turbulence import (  # noqa: E402
+    noise_texture,
+    noise_texture_grad,
+    noise_texture_grad_plain,
+    noise_texture_plain,
+)
+from hyper_ray_tracer_tpu_torch.render import (  # noqa: E402
+    T_MIN,
+    bounce_step,
+    init_state,
+    render_radiance,
+    trace,
+    trace_paths,
+)
+from hyper_ray_tracer_tpu_torch.scene_tensors import (  # noqa: E402
+    bind_params,
+    to_device,
+)
+from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
+    make_loss_fn,
+    params_from_jax,
+    pixel_lanes,
+)
+
+# The gradient tests' shape: a few pixels, 2 spp, depth 4 (smaller than
+# tests/test_grad.py's 24x14).
+W, H, SPP, DEPTH = 16, 9, 2, 4
+
+
+def test_sqrt_capped_grad_forward_and_vjp_match_jax():
+    """The forward is torch.sqrt bit for bit (no render changes); the VJP
+    is g * min(0.5 / max(sqrt(x), 1e-30), 1e5), the JAX package's, also
+    at and near 0, where the cap holds it finite."""
+    x = np.array([0.0, 1e-38, 1e-30, 1e-20, 1e-12, 2.5e-11, 1e-10, 1e-8,
+                  1e-6, 0.25, 1.0, 2.0, 3.7, 1e6], np.float32)
+    g = np.random.default_rng(0).uniform(-2, 2, x.shape).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_()
+    y = sqrt_capped_grad(xt)
+    assert torch.equal(y, torch.sqrt(torch.from_numpy(x)))
+    (got,) = torch.autograd.grad(y, xt, torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda v: j_sqrt_capped_grad(v, jnp), jnp.asarray(x))
+    (ref,) = vjp(jnp.asarray(g))
+    assert np.isfinite(got.numpy()).all()
+    # XLA's and torch's CPU sqrt may round y an ulp apart: 1e-6 relative.
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6,
+                               atol=0)
+    assert abs(float(got[0])) == pytest.approx(abs(g[0]) * 1e5)
+
+
+@functools.lru_cache(maxsize=None)
+def _final_winners():
+    """`final`'s camera rays and first bounce at 16x9, 1 spp, traced by
+    the port: (scene, [(state, bounce words, t_hit, prim)])."""
+    scene = j_build_scene("final")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    pix = torch.arange(W * H, dtype=torch.int64)
+    state = init_state(make_basis(scene.camera, W, H), W, H, pix,
+                       torch.zeros_like(pix), 3)
+    out = []
+    for bounce in range(2):
+        bb = prng.bounce_base(state.base, bounce)
+        t_hit, prim = trace(st, state, bb)
+        out.append((state, bb, t_hit, prim))
+        state = bounce_step(st, scene.background, state, bounce)
+    return scene, st, out
+
+
+def test_prim_hit_t_lanes_matches_jax_intersector_on_final_winners():
+    """The per-lane recompute against ``make_prim_intersector(static)`` on
+    the winners the trace recorded (spheres, boxes, the rect light, both
+    media).  It equals the trace's own t bit for bit on every winner it
+    finds again, as the forward does; the JAX package's t, evaluated op
+    by op, agrees to the ulps that separate the two packages' CPU forward
+    (torch's vectorised sqrt is not correctly rounded, ROADMAP queue 3):
+    2e-6 relative."""
+    scene, st, cases = _final_winners()
+    static = scene.static
+    jf, ji = j_intersect.pack_prim_shade(scene.arrays, static, jnp)
+    hit_t = j_intersect.make_prim_intersector(static)
+    kinds = set()
+    for state, bb, t_hit, prim in cases:
+        pidx = torch.clamp(prim, min=0).long()
+        pf, _ = gather_prim_shade_packed(st.fpack, st.ipack, pidx, static)
+        got = prim_hit_t_lanes(pf, state.o, state.d, state.time, T_MIN, BIG,
+                               bb, static).numpy()
+        pf_j, _, _ = j_intersect.gather_prim_shade_packed(
+            jf, ji, jnp.asarray(pidx.numpy().astype(np.int32)), static)
+        ref = np.asarray(hit_t(
+            pf_j, jnp.asarray(state.o.numpy()), jnp.asarray(state.d.numpy()),
+            jnp.asarray(state.time.numpy()), T_MIN, np.float32(BIG),
+            jnp.asarray(bb.numpy().astype(np.uint32)), jnp))
+        hit = (prim >= 0).numpy()
+        np.testing.assert_allclose(got[hit], ref[hit], rtol=2e-6)
+        assert (got[hit] == ref[hit]).mean() > 0.8
+        again = hit & (got < 0.5 * BIG)
+        assert again.mean() > 0.95 * hit.mean()
+        np.testing.assert_array_equal(got[again], t_hit.numpy()[again])
+        kinds |= set(pf.ptype.numpy()[hit].tolist())
+    assert len(kinds) >= 4, kinds  # sphere, rect, box, a medium
+
+
+def _noise_inputs(n=96, seed=0):
+    """Noise-branch inputs from a seed: half the lanes noise, scales and
+    points of the size the scenes give, a cotangent."""
+    rng = np.random.default_rng(seed)
+    ttype = np.where(rng.uniform(size=n) < 0.5, TT_NOISE,
+                     TT_SOLID).astype(np.int32)
+    scale = rng.uniform(0.5, 4.0, n).astype(np.float32)
+    point = rng.uniform(-3.0, 3.0, (n, 3)).astype(np.float32)
+    value = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    grad_out = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    return ttype, scale, point, value, grad_out
+
+
+def _two_perlin():
+    scene = j_build_scene("two-perlin-spheres")
+    return scene, to_device(scene.arrays, scene.static, "cpu")
+
+
+def test_noise_branch_vjp_matches_jax_texture_value():
+    """``noise_texture_grad``'s plain version (autograd through
+    ``noise_texture_plain``) against ``jax.vjp`` of the JAX package's
+    ``texture_value`` noise branch.  Both differentiate the same float32
+    operations; 1e-4 of each output's largest magnitude covers their
+    different association of the octave sums."""
+    scene, st = _two_perlin()
+    ttype, scale, point, value, grad_out = _noise_inputs()
+    n = ttype.shape[0]
+    static = dataclasses.replace(scene.static, has_checker_tex=False,
+                                 has_image_tex=False, has_noise_tex=True)
+    zeros = jnp.zeros((n,), jnp.float32)
+
+    def branch(sc, p, v):
+        sf = j_intersect.ShadeFields(
+            mtype=jnp.zeros((n,), jnp.int32), ttype=jnp.asarray(ttype),
+            image_id=jnp.zeros((n,), jnp.int32), fuzz=zeros, ior=zeros,
+            albedo=v, color1=v, color2=v, scale=sc)
+        return j_texture_value(None, None, None, scene.arrays.perlin, None,
+                               zeros, zeros, p, static, jnp, sf=sf)
+
+    out_j, vjp = jax.vjp(jax.jit(branch), jnp.asarray(scale),
+                         jnp.asarray(point), jnp.asarray(value))
+    gs_j, gp_j, gv_j = (np.asarray(x) for x in vjp(jnp.asarray(grad_out)))
+    args = (torch.from_numpy(ttype), torch.from_numpy(scale),
+            torch.from_numpy(point))
+    gp, gs, gv = noise_texture_grad_plain(*args, torch.from_numpy(grad_out),
+                                          st.tables)
+    out = noise_texture_plain(*args, torch.from_numpy(value), st.tables)
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=1e-5)
+    for got, ref in ((gp, gp_j), (gs, gs_j), (gv, gv_j)):
+        assert np.abs(got.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+    # The wrapper takes the plain version for CPU tensors.
+    np.testing.assert_array_equal(noise_texture_grad(
+        *args, torch.from_numpy(grad_out), st.tables)[0].numpy(),
+        gp.numpy())
+    assert (gs.numpy()[ttype != TT_NOISE] == 0).all()
+    np.testing.assert_array_equal(gv.numpy()[ttype != TT_NOISE],
+                                  grad_out[ttype != TT_NOISE])
+
+
+def test_noise_branch_vjp_matches_float64_central_differences():
+    """The marble's float32 gradient against float64 central differences
+    of the same plain function (test_grad.py:130-152's check, on the
+    marble instead of the turbulence alone): a few noise lanes, each
+    coordinate of the point and the scale."""
+    _, st = _two_perlin()
+    ttype, scale, point, value, _ = _noise_inputs(n=4, seed=3)
+    ttype[:] = TT_NOISE
+    keys = st.tables.perlin_keys
+
+    def marble64(sc, p):
+        sp = sc[:, None] * p
+        turb = turbulence_xyz(keys, sp[:, 0], sp[:, 1], sp[:, 2])
+        return 0.5 * (1.0 + torch.sin(sp[:, 2] + 10.0 * turb))
+
+    sc_t = torch.from_numpy(scale).requires_grad_()
+    p_t = torch.from_numpy(point).requires_grad_()
+    out = noise_texture(torch.from_numpy(ttype), sc_t, p_t,
+                        torch.from_numpy(value), st.tables)
+    gp, gs = torch.autograd.grad(out[:, 0].sum(), (p_t, sc_t))
+    eps = 1e-6
+    sc64 = torch.from_numpy(scale.astype(np.float64))
+    p64 = torch.from_numpy(point.astype(np.float64))
+    for i in range(4):
+        for a in range(4):  # x, y, z of the point, then the scale
+            hi_p, lo_p, hi_s, lo_s = p64.clone(), p64.clone(), sc64.clone(), \
+                sc64.clone()
+            if a < 3:
+                hi_p[i, a] += eps
+                lo_p[i, a] -= eps
+            else:
+                hi_s[i] += eps
+                lo_s[i] -= eps
+            fd = float((marble64(hi_s, hi_p)[i] - marble64(lo_s, lo_p)[i])
+                       / (2 * eps))
+            got = float(gp[i, a] if a < 3 else gs[i])
+            # The marble's slope is ~10x the turbulence's, so the bounds
+            # are test_grad.py's (rtol 2e-3, atol 1e-4) with atol x10.
+            np.testing.assert_allclose(got, fd, rtol=2e-3, atol=1e-3)
+
+
+# scene: (loss rtol, gradient bound as a share of each key's largest |g|).
+# three-spheres and cornell-smoke follow the JAX package to rounding
+# (measured: 7e-5 and 6e-8 of the largest gradient).  two-perlin-spheres'
+# marble amplifies the ulp-level differences of the camera rays
+# (tests/test_torch_render.py): 7.6e-3 measured, 3e-2 allowed.
+GRAD_CASES = {
+    "three-spheres": (1e-5, 1e-3),
+    "two-perlin-spheres": (1e-3, 3e-2),
+    "cornell-smoke": (1e-5, 1e-3),
+}
+SLOW_GRAD_CASES = {
+    "one-sphere": (1e-5, 1e-3),
+    "earth": (1e-5, 1e-3),
+    "final": (1e-3, 3e-2),
+}
+
+
+def _target():
+    return np.random.default_rng(0).uniform(0, 1, (W * H, 3)).astype(
+        np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_loss_and_grads(name):
+    scene = j_build_scene(name)
+    arrays, bvh, mode = prepare_scene(scene, "sweep")
+    params = j_extract_params(arrays)
+    pix = jnp.broadcast_to(jnp.arange(W * H, dtype=jnp.int32), (SPP, W * H))
+    sam = jnp.broadcast_to(jnp.arange(SPP, dtype=jnp.int32)[:, None],
+                           (SPP, W * H))
+    loss, grads = jax.jit(jax.value_and_grad(
+        j_make_loss_fn(scene, W, H, DEPTH, mode)))(
+        params, arrays, bvh, j_make_basis(scene.camera, W, H), pix, sam,
+        np.uint32(0), jnp.asarray(_target()))
+    return (scene, {k: np.asarray(v) for k, v in params.items()},
+            float(loss), {k: np.asarray(v) for k, v in grads.items()})
+
+
+def _port_loss_and_grads(scene, params_np, depth=DEPTH, remat=False):
+    st = to_device(scene.arrays, scene.static, "cpu")
+    params = params_from_jax(params_np)
+    pix, sam = pixel_lanes(W, H, SPP, "cpu")
+    loss = make_loss_fn(scene, W, H, depth, remat=remat)(
+        params, st, make_basis(scene.camera, W, H), pix, sam, 0,
+        torch.from_numpy(_target()))
+    loss.backward()
+    return loss.item(), {k: (p.grad.numpy() if p.grad is not None
+                             else np.zeros(p.shape, np.float32))
+                         for k, p in params.items()}
+
+
+def _check_against_jax(name, loss_rtol, grad_share):
+    scene, params, loss_j, grads_j = _jax_loss_and_grads(name)
+    loss, grads = _port_loss_and_grads(scene, params)
+    np.testing.assert_allclose(loss, loss_j, rtol=loss_rtol)
+    assert grads.keys() == grads_j.keys()
+    for k, ref in grads_j.items():
+        got = grads[k]
+        assert np.isfinite(got).all(), k
+        bound = grad_share * np.abs(ref).max()
+        assert np.abs(got - ref).max() <= bound, \
+            f"{k}: max |diff| {np.abs(got - ref).max():.3e} > {bound:.3e}"
+    return grads
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_loss_and_gradients_match_jax(name):
+    grads = _check_against_jax(name, *GRAD_CASES[name])
+    assert any(np.abs(g).max() > 0 for g in grads.values())
+    if name == "two-perlin-spheres":
+        assert np.abs(grads["textures.scale"]).max() > 0  # the noise branch
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(SLOW_GRAD_CASES))
+def test_loss_and_gradients_match_jax_slow_scenes(name):
+    _check_against_jax(name, *SLOW_GRAD_CASES[name])
+
+
+def _fixed_scan_loss(scene, params, depth):
+    """The loss through a fixed-width loop: every lane runs every bounce
+    (no compaction), differentiable."""
+    st = bind_params(to_device(scene.arrays, scene.static, "cpu"), params)
+    pix, sam = pixel_lanes(W, H, SPP, "cpu")
+    state = init_state(make_basis(scene.camera, W, H), W, H,
+                       pix.reshape(-1), sam.reshape(-1), 0)
+    for b in range(depth):
+        state = bounce_step(st, scene.background, state, b,
+                            differentiable=True)
+    mean = state.radiance.reshape(SPP, W * H, 3).mean(0)
+    return ((mean - torch.from_numpy(_target())) ** 2).mean()
+
+
+@pytest.mark.parametrize("name", ["three-spheres", "final"])
+def test_remat_and_compaction_gradients_equal_fixed_scan(name):
+    """Compaction (eager, differentiable gathers) and per-bounce remat
+    leave the loss and every gradient as the fixed-width loop gives them:
+    rtol 1e-5, atol 1e-7, tests/test_grad.py:181-249's bounds."""
+    scene = j_build_scene(name)
+    params_np = {k: np.asarray(v) for k, v in
+                 j_extract_params(scene.arrays).items()}
+    depth = 6
+    params = params_from_jax(params_np)
+    ref_loss = _fixed_scan_loss(scene, params, depth)
+    ref_loss.backward()
+    ref = {k: p.grad.numpy() for k, p in params.items()
+           if p.grad is not None}
+    assert ref
+    for remat in (False, True):
+        loss, grads = _port_loss_and_grads(scene, params_np, depth, remat)
+        np.testing.assert_allclose(loss, ref_loss.item(), rtol=1e-6)
+        for k, g in ref.items():
+            np.testing.assert_allclose(grads[k], g, rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{k} remat={remat}")
+
+
+def test_render_radiance_equals_the_plain_render():
+    """The differentiable render's radiance equals the plain render's bit
+    for bit (the recompute reproduces the trace's t) and carries a
+    graph."""
+    scene = j_build_scene("three-spheres")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    params = params_from_jax({k: np.asarray(v) for k, v in
+                              j_extract_params(scene.arrays).items()})
+    bound = bind_params(st, params)
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = pixel_lanes(W, H, 1, "cpu")
+    args = (scene.background, basis, W, H, pix.reshape(-1), sam.reshape(-1),
+            2, DEPTH)
+    rad = render_radiance(bound, *args)
+    plain = trace_paths(st, *args)
+    assert rad.requires_grad and not plain.requires_grad
+    assert torch.equal(rad.detach(), plain)
