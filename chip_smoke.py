@@ -2,19 +2,23 @@
 
 Builds the port's CUDA kernels from the checkout (in parallel, beside the
 sweep folds' instruction-count probes), holds each against its
-plain-PyTorch version on the card (the forward kernels bit for bit, the
-noise branch's backward K2b to rounding), renders the committed goldens
-through them, and drives the main paths through the entry points a user
-calls: the CLI's default workload (`random`, 1280x720, 100 spp, depth 10;
-sphere sweep K1), the bench workload (`final`, 400x225, 16 spp, depth
-10; typed sweep K1b and the noise texture's marble turbulence K2), and
-the adam train step at bench_grad.py's workload (400x225, 8 spp, depth 8:
-`random` through K1, `final` through K1b, K2 and K2b; `random` at depth
-50 with remat through the train CLI), whose gradients it also holds
-against the port's CPU gradients.  Each phase prints one line; any
-failure ends the run with a non-zero exit.  The last three lines are the
-card's name and power limit (nvidia-smi), one JSON object with a record
-per kernel, and ``{"ok": true, "device": {...}}``.
+plain-PyTorch version on the card (the forward kernels and the gathers'
+segmented sum K3 bit for bit, the noise branch's backward K2b to
+rounding), renders the committed goldens through them, and drives the
+main paths through the entry points a user calls: the CLI's default
+workload (`random`, 1280x720, 100 spp, depth 10; sphere sweep K1), the
+bench workload (`final`, 400x225, 16 spp, depth 10; typed sweep K1b and
+the noise texture's marble turbulence K2), and the adam train step at
+bench_grad.py's workload (400x225, 8 spp, depth 8: `random` through K1
+and K3, `final` through K1b, K2, K2b and K3; `random` at depth 50 with
+remat through the train CLI), whose gradients it holds against the
+port's CPU gradients and against themselves: two steps from one restored
+state give bit-equal gradients on `random`, `final` and `earth`, and it
+times what K3 costs a train step against ``index_add_``.  Each
+phase prints one line; any failure ends the run with a non-zero exit.
+The last three lines are the card's name and power limit (nvidia-smi),
+one JSON object with a record per kernel, and
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -37,7 +41,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 BIG = float(np.float32(3.0e38))
 T_MIN = 1.0e-3
-KERNELS = ("sphere_sweep", "typed_sweep", "turbulence")
+KERNELS = ("sphere_sweep", "typed_sweep", "turbulence", "segment_sum")
 PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
@@ -104,6 +108,19 @@ TURB_OPS = TURB_OCTAVES * TURB_OCTAVE_OPS + TURB_LANE_OPS
 # grad_point (3), grad_scale (5).
 TURB_BWD_OCTAVE_OPS, TURB_BWD_LANE_OPS = 231, 26
 TURB_BWD_OPS = TURB_OCTAVES * TURB_BWD_OCTAVE_OPS + TURB_BWD_LANE_OPS
+# The same with K2's saved forward, the contract K2b has had since its
+# redesign: the turbulence sum S comes saved, so an octave is its
+# gradient alone, 198: the point at 2^k (3), floor (3), fraction (3),
+# smoothing (12), the corner factors 1 - s and s - 1 (6), the products of
+# two lerp factors (12), per corner 18 (its weight-vector dot 5, its lerp
+# weight 1, per axis 4: a pair product times the dot, its signed sum,
+# the lerp weight times the gradient component, its sum), per axis 4 for
+# the slope 6u(1 - u) and the chain, and 3 to sum the octave's gradient.
+# Per noise lane the same 26 as above.  Bytes: every lane's flag (a bit),
+# cotangent (12) and outputs (28); a noise lane's scale, point and S
+# (20).
+TURB_SLOPE_OCTAVE_OPS = 198
+TURB_SLOPE_OPS = TURB_OCTAVES * TURB_SLOPE_OCTAVE_OPS + TURB_BWD_LANE_OPS
 # K2b against autograd through the plain marble: grad_value is a copy and
 # must be bit-equal; grad_point and grad_scale sum each octave's analytic
 # derivative where autograd chains every operation, so they agree to
@@ -111,11 +128,13 @@ TURB_BWD_OPS = TURB_OCTAVES * TURB_BWD_OCTAVE_OPS + TURB_BWD_LANE_OPS
 K2B_SHARE = 1e-4
 # Card gradients against the CPU's (every parameter key, the norm of the
 # difference over the norm of the CPU's gradient): the kernels equal their
-# plain versions, so only the CPU's rounding (its vectorised sqrt is not
-# correctly rounded) and K2b's separate them on `three-spheres`; on
+# plain versions and both devices' roots are correctly rounded, so only
+# float32 rounding elsewhere (reduction orders, transcendentals) and
+# K2b's separate them on `three-spheres`: at most 5.44e-5 measured on an
+# H100 (PERF.md), bound the 1-2-5 step at least 3x that; on
 # `final` an ulp can also flip a fog or winner decision on a lane, which
-# moves its whole sample.
-CARD_GRAD_SHARE = {"three-spheres": 1e-3, "final": 5e-2}
+# moves its whole sample (7.11e-3 measured).
+CARD_GRAD_SHARE = {"three-spheres": 2e-4, "final": 5e-2}
 
 
 def phase(n, msg):
@@ -161,22 +180,54 @@ def time_ms(fn, args, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, args, reps):
+def device_ms(fn, args, reps, only=None):
     """Mean device time per call of the kernels ``fn`` launches: their
-    durations in a torch.profiler trace of ``reps`` calls.  Back-to-back
-    calls timed by events include the host's launch time when it exceeds
-    the kernels'; this does not."""
+    durations in a torch.profiler trace of ``reps`` calls (with ``only``,
+    of the kernels whose names contain one of those strings).
+    Back-to-back calls timed by events include the host's launch time
+    when it exceeds the kernels'; this does not.  Every call launches the
+    same kernels, so each name appears k * ``reps`` times for some k.
+    The H100's profiler may drop a trace's first kernel, and now and then
+    every kernel: a name one short of k * ``reps`` counts k times at the
+    mean of those it has; a trace short of more is taken again, and after
+    three the calls are timed one by one by CUDA events around each (the
+    host's gaps between a call's own kernels then count), or, with
+    ``only``, not at all (nan), and that is printed."""
+    from collections import Counter
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn(*args)
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+                and (only is None or any(o in e.name for o in only))]
+        names = Counter(e.name for e in kern)
+        per_call = {k: max(1, round(c / reps)) for k, c in names.items()}
+        if kern and all(0 <= per_call[k] * reps - c <= 1
+                        for k, c in names.items()):
+            return sum(e.time_range.elapsed_us() * per_call[e.name]
+                       / names[e.name] for e in kern) / 1e3
+    print(f"device_ms: the profiler lost kernel events of "
+          f"{getattr(fn, '__name__', fn)}{'' if only is None else only} "
+          f"({dict(names)} in {reps} calls) three times; "
+          + ("not measured" if only else "timed call by call by CUDA "
+             "events"), flush=True)
+    if only is not None:
+        return float("nan")
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn(*args)
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
 
 
 def in_turns(plain, kernel, args, plain_reps, kernel_reps):
@@ -316,12 +367,16 @@ def k2b_phase(dev, gi, sf, det, tables):
     (autograd through noise_texture_plain) on the inputs of `final`'s
     first bounce (``gi`` the gathered int rows, ``sf`` the shade fields,
     ``det`` the hit detail) for a cotangent from a seed, with the scene's
-    noise mask and with every lane noise.  Asserts the K2B_SHARE rule;
-    returns {mask: errors, times, bound}."""
+    noise mask and with every lane noise.  K2 runs with its save first
+    (its value, bitmask and turbulence sums held bit for bit to
+    noise_texture_saved_plain), then K2b on what it saved.  Asserts the
+    K2B_SHARE rule; returns {mask: errors, times, bounds}."""
     from hyper_ray_tracer_tpu_torch.models.scene import TT_NOISE
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
         noise_texture_grad,
         noise_texture_grad_plain,
+        noise_texture_saved,
+        noise_texture_saved_plain,
     )
 
     n = gi.shape[0]
@@ -332,8 +387,22 @@ def k2b_phase(dev, gi, sf, det, tables):
                        ("all-true", torch.full_like(gi[:, 5], TT_NOISE))):
         rows = gi.clone()
         rows[:, 5] = col
-        args = (rows[:, 5], sf.scale, det.point, grad_out, tables)
-        got = noise_texture_grad(*args)
+        ttype = rows[:, 5]
+        noise = ttype == TT_NOISE
+        fwd = (ttype, sf.scale, det.point, sf.color1, tables)
+        value, saved = noise_texture_saved(*fwd)
+        torch.cuda.synchronize()
+        value_p, (mask_p, turb_p) = noise_texture_saved_plain(*fwd)
+        assert torch.equal(value, value_p), f"K2 with its save ({label})"
+        assert torch.equal(saved[0], mask_p), f"K2's bitmask ({label})"
+        assert torch.equal(saved[1][noise], turb_p[noise]), \
+            f"K2's turbulence sums ({label})"
+
+        def k2b(ttype, *a, saved=saved):  # K2b reads the mask, not ttype
+            return noise_texture_grad(*a, saved)
+
+        args = (ttype, sf.scale, det.point, grad_out, tables)
+        got = k2b(*args)
         torch.cuda.synchronize()
         ref = noise_texture_grad_plain(*args)
         assert torch.equal(got[2], ref[2]), f"K2b grad_value ({label})"
@@ -349,33 +418,205 @@ def k2b_phase(dev, gi, sf, det, tables):
             assert torch.isfinite(g).all(), f"K2b {gname} ({label})"
             assert diff.max().item() <= K2B_SHARE * top, \
                 f"K2b {gname} ({label}): {errs[gname]}"
-        ms, plain_ms = in_turns(noise_texture_grad_plain, noise_texture_grad,
-                                args, 3, 20)
-        n_noise = int((rows[:, 5] == TT_NOISE).sum())
-        # Bytes: every lane's texture type and cotangent read (16), its
-        # three outputs written (28); a noise lane's scale and point (16).
+        ms, plain_ms = in_turns(noise_texture_grad_plain, k2b, args, 3, 20)
+        n_noise = int(noise.sum())
         out[label] = dict(
-            n=n_noise, errs=errs, ms=device_ms(noise_texture_grad, args, 20),
-            call_ms=ms, plain_ms=plain_ms,
-            bound=bound(n * 44 + n_noise * 16, n_noise * TURB_BWD_OPS))
+            n=n_noise, errs=errs, ms=device_ms(k2b, args, 20), call_ms=ms,
+            plain_ms=plain_ms, save_ms=device_ms(noise_texture_saved, fwd,
+                                                 20),
+            # The first design's contract: every lane's texture type and
+            # cotangent read (16), its three outputs written (28); a noise
+            # lane's scale and point (16); the value's octaves again.
+            old_bound=bound(n * 44 + n_noise * 16, n_noise * TURB_BWD_OPS),
+            bound=bound(-(-n // 32) * 4 + n * 40 + n_noise * 20,
+                        n_noise * TURB_SLOPE_OPS))
     return out
 
 
-def k2b_line(k2b, n, ptxas_note):
-    return (f"noise_texture_grad (K2b) vs autograd through the plain marble "
-            f"at N={n}: grad_value bit-equal, grad_point and grad_scale "
-            f"within {K2B_SHARE} of their largest magnitude (asserted): "
-            + "; ".join(
+def k2b_line(k2b, n, ptxas_note, sass):
+    return (f"K2 with its save, then noise_texture_grad (K2b) on what it "
+            f"saved, vs the plain versions at N={n}: K2's value, bitmask "
+            f"and turbulence sums bit-equal, K2b's grad_value bit-equal, "
+            f"grad_point and grad_scale within {K2B_SHARE} of their largest "
+            "magnitude (asserted): " + "; ".join(
                 f"{label} ({v['n']} noise lanes): " + ", ".join(
                     f"{g} max abs err {e[0]:.3e} (max |plain| {e[2]:.3e}), "
                     f"max rel err {e[1]:.3e}" for g, e in v["errs"].items())
-                + f"; kernel {v['ms']:.4f} ms on the device "
+                + f"; K2b {v['ms']:.4f} ms on the device "
                 f"({v['call_ms']:.4f} ms a call back to back), plain "
                 f"{v['plain_ms']:.4f} ms, bound {v['bound'][0]:.6f} ms "
-                f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it"
+                f"({v['bound'][1]}; the saved-forward contract), "
+                f"{v['bound'][0] / v['ms']:.3f} of it; against the first "
+                f"design's bound {v['old_bound'][0]:.6f} ms "
+                f"({v['old_bound'][1]}) {v['old_bound'][0] / v['ms']:.3f}; "
+                f"K2 with its save {v['save_ms']:.4f} ms on the device"
                 for label, v in k2b.items())
-            + f"; contract {TURB_BWD_OPS} FP32 operations per noise lane; "
-            f"ptxas: {ptxas_note}")
+            + f"; contract {TURB_SLOPE_OPS} FP32 operations per noise lane "
+            f"({TURB_BWD_OPS} in the first design's); SASS of K2b's octave "
+            f"loop per trip: {sass['fp32']:.0f} FP32 operations (an FFMA "
+            f"two), {sass['all']:.0f} issued, {sass['branch']:.0f} more on "
+            f"branches; ptxas: {ptxas_note}")
+
+
+def k3_phase(dev, cases):
+    """K3 (``segment_sum``) against its plain version, bit for bit, and
+    against ``index_add_``, the PyTorch call it replaces, at the gathers
+    of a train step: ``cases`` maps a label to (the gathered table's rows
+    and width, the lanes' rows).  Cotangents from a seed.
+    Returns {label: measurements}."""
+    from hyper_ray_tracer_tpu_torch.ops.gather import (
+        segment_sum,
+        segment_sum_plain,
+    )
+
+    def index_add(src, idx, n_rows):
+        return torch.zeros((n_rows, src.shape[1]), device=dev).index_add_(
+            0, idx, src)
+
+    out = {}
+    for label, (n_rows, f, idx) in cases.items():
+        gen = torch.Generator(device=dev).manual_seed(1)
+        src = torch.randn((idx.numel(), f), device=dev, generator=gen)
+        args = (src, idx, n_rows)
+        got = segment_sum(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, segment_sum_plain(*args)), f"K3 ({label})"
+        assert torch.equal(segment_sum(*args), got), f"K3 twice ({label})"
+        adds = [index_add(*args) for _ in range(5)]
+        ms, plain_ms = in_turns(segment_sum_plain, segment_sum, args, 2, 20)
+        n = idx.numel()
+        out[label] = dict(
+            n=n, rows=n_rows, f=f, top=int(torch.bincount(idx).max()),
+            differ=sum(not torch.equal(a, adds[0]) for a in adds[1:]),
+            add_err=max((a - got).abs().max().item() for a in adds),
+            ms=device_ms(segment_sum, args, 20),
+            pieces_ms=device_ms(segment_sum, args, 20,
+                                only=("chunk_pieces",)),
+            totals_ms=device_ms(segment_sum, args, 20,
+                                only=("row_totals",)),
+            call_ms=ms, plain_ms=plain_ms,
+            library_ms=device_ms(index_add, args, 20),
+            library_call_ms=time_ms(index_add, args, 20),
+            # The cotangent rows read once, the int64 lane rows read once,
+            # the gradient written once; one addition an element.
+            bound=bound(n * f * 4 + n * 8 + n_rows * f * 4, n * f))
+    return out
+
+
+def k3_line(k3, ptxas_note):
+    return ("segment_sum (K3) vs its plain version at the gathers of a "
+            "train step (bench_grad.py's 400x225x8, first bounce), "
+            "bit-equal and equal to itself twice (asserted): " + "; ".join(
+                f"{label} ({v['n']} lanes into {v['rows']} rows of "
+                f"{v['f']}, the largest row {v['top']} lanes): K3 "
+                f"{v['ms']:.4f} ms on the device with its sort "
+                f"(its kernels chunk_pieces {v['pieces_ms']:.4f} ms, "
+                f"row_totals {v['totals_ms']:.4f} ms; {v['call_ms']:.4f} ms "
+                f"a call back to back), plain {v['plain_ms']:.4f} ms, "
+                f"index_add_ {v['library_ms']:.4f} ms on the device "
+                f"({v['library_call_ms']:.4f} ms a call); 4 more index_add_ "
+                f"calls on the same inputs: {v['differ']} differ from the "
+                f"first in some bit, max |index_add_ - K3| "
+                f"{v['add_err']:.3e}; bound {v['bound'][0]:.6f} ms "
+                f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it"
+                for label, v in k3.items())
+            + f"; ptxas: {ptxas_note}")
+
+
+def k3_step_cost(scene, dev, shape, rounds=2, steps=5):
+    """K3's cost in a train step: the step as it ships against the same
+    step with the gathers' backward through ``index_add_``
+    (``gather_rows`` swapped for ``index_select`` in ``ops/intersect``
+    and ``ops/textures`` for a turn, then put back), in turns K3,
+    index_add_, index_add_, K3, ``rounds`` times.  A turn is the best
+    wall of ``steps`` steps, each from one state restored outside the
+    timer.  Returns {"K3": [s, ...], "index_add_": [s, ...]}."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import intersect, textures
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.train import (
+        make_train_step,
+        pixel_lanes,
+        restore,
+        snapshot,
+    )
+
+    W, H, spp, depth = shape
+    st = to_device(scene.arrays, scene.static, dev)
+    init, step = make_train_step(scene, W, H, depth)
+    state = init(st)
+    start = snapshot(state)
+    args = (st, make_basis(scene.camera, W, H), *pixel_lanes(W, H, spp, dev),
+            0, torch.zeros((W * H, 3), device=dev))
+    shipped = intersect.gather_rows
+    gathers = {"K3": shipped,
+               "index_add_": lambda table, idx: table.index_select(0, idx)}
+
+    def turn(label):
+        nonlocal state
+        intersect.gather_rows = textures.gather_rows = gathers[label]
+        try:
+            secs = []
+            for _ in range(steps):
+                restore(state, start)
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                state, loss = step(state, *args)
+                loss.item()
+                secs.append(time.monotonic() - t0)
+            return min(secs)
+        finally:
+            intersect.gather_rows = textures.gather_rows = shipped
+
+    turn("K3"), turn("index_add_")  # warm-up
+    out = {"K3": [], "index_add_": []}
+    for _ in range(rounds):
+        for label in ("K3", "index_add_", "index_add_", "K3"):
+            out[label].append(turn(label))
+    return out
+
+
+def k3_cost_line(name, turns):
+    k3, add = (sum(turns[k]) / len(turns[k]) for k in ("K3", "index_add_"))
+    return (f"{name} K3 " + " / ".join(f"{s:.4f}" for s in turns["K3"])
+            + " s, index_add_ " + " / ".join(f"{s:.4f}"
+                                            for s in turns["index_add_"])
+            + f" s, K3 over index_add_ {k3 / add:.4f} (means)")
+
+
+def determinism_line(scene, dev, shape):
+    """Two adam train steps from one state (``train.snapshot`` and
+    ``train.restore`` around each): the losses and every parameter's
+    gradient bit-equal (asserted)."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.train import (
+        make_train_step,
+        pixel_lanes,
+        restore,
+        snapshot,
+    )
+
+    W, H, spp, depth = shape
+    st = to_device(scene.arrays, scene.static, dev)
+    init, step = make_train_step(scene, W, H, depth)
+    state = init(st)
+    start = snapshot(state)
+    args = (st, make_basis(scene.camera, W, H), *pixel_lanes(W, H, spp, dev),
+            0, torch.zeros((W * H, 3), device=dev))
+    runs = []
+    for _ in range(2):
+        restore(state, start)
+        state, loss = step(state, *args)
+        runs.append((loss.clone(), {k: p.grad.clone()
+                                    for k, p in state.params.items()}))
+    (loss_a, g_a), (loss_b, g_b) = runs
+    differ = [k for k in g_a if not torch.equal(g_a[k], g_b[k])]
+    assert torch.equal(loss_a, loss_b) and not differ, (scene.name, differ)
+    nonzero = [k for k in g_a if g_a[k].abs().max() > 0]
+    return (f"{scene.name}: loss {loss_a.item():.6f} both times, all "
+            f"{len(g_a)} gradient keys bit-equal ({len(nonzero)} nonzero: "
+            f"{', '.join(nonzero)})")
 
 
 def loss_and_grads(scene, device, W, H, spp, depth):
@@ -415,11 +656,21 @@ def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
         worst[k] = err / norm if norm else err
         assert err <= share * norm, (scene.name, k, err, norm)
     assert abs(loss_g - loss_c) <= share * abs(loss_c), (loss_g, loss_c)
+    # The rule of tests/test_torch_cuda.py
+    # test_train_step_gradients_on_card_match_cpu, at its shape: max
+    # |card - cpu| over max |cpu|, by key.
+    _, t_c = loss_and_grads(scene, "cpu", 32, 18, 2, 3)
+    _, t_g = loss_and_grads(scene, dev, 32, 18, 2, 3)
+    test_rule = {k: ((t_g[k] - ref).abs().max() / ref.abs().max()).item()
+                 for k, ref in t_c.items() if ref.abs().max() > 0}
     return (f"{scene.name}: loss card {loss_g:.6f} cpu {loss_c:.6f}; "
             "|card - cpu| / |cpu| by key "
             + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
                         if g_c[k].abs().max() > 0)
-            + f" (bound {share}; the other keys' gradients are 0 on both)")
+            + f" (bound {share}; the other keys' gradients are 0 on both); "
+            "the card test's rule at 32x18 2spp d3, max |card - cpu| / max "
+            "|cpu| by key " + ", ".join(f"{k} {v:.2e}"
+                                        for k, v in test_rule.items()))
 
 
 # bench_grad.py's workload: 400x225, 8 spp, depth 8.
@@ -568,6 +819,7 @@ def main() -> int:
         TT_SOLID,
     )
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
     from hyper_ray_tracer_tpu_torch.ops.intersect import (
         gather_prim_shade_packed,
         hit_detail,
@@ -576,6 +828,7 @@ def main() -> int:
         sphere_sweep,
         sphere_sweep_plain,
     )
+    from hyper_ray_tracer_tpu_torch.ops.textures import texel_rows
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
         noise_texture,
         noise_texture_grad,
@@ -601,7 +854,8 @@ def main() -> int:
     smi = nvidia_smi()
     wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
                 "turbulence": noise_texture,
-                "turbulence_bwd": noise_texture_grad}
+                "turbulence_bwd": noise_texture_grad,
+                "segment_sum": segment_sum}
 
     def reset_counts():
         for w in wrappers.values():
@@ -912,8 +1166,10 @@ def main() -> int:
     g = final_t.fpack[pidx]
     copies_ms = [device_ms(torch.clone, (x,), 20)
                  for x in (sf.color1, g, gi[:, 5])]
+    turb_sass = sass_of("turbulence")
+    # K2 without its save (the instantiation every render runs).
     k2_sass = {k: v * TURB_OCTAVES for k, v in sass_pair_ops(
-        sass_of("turbulence"), "noise_texture_kernel", 1).items()}
+        turb_sass, "noise_texture_kernelILb0E", 1).items()}
     phase(6, f"noise_texture vs plain at N={n_final}, bit-equal on every "
           f"mask (asserted): " + "; ".join(
               f"{label} ({v['n']} noise lanes): kernel {v['ms']:.4f} ms on "
@@ -936,6 +1192,7 @@ def main() -> int:
 
     # Phase 7: the goldens of the scenes K1b and K2 open, on the card.
     glines = []
+    saves = noise_texture.saves
     for name, spp, depth in (("final", 1, 5), ("cornell", 4, 8),
                              ("cornell-smoke", 4, 8), ("simple-light", 4, 8),
                              ("earth", 4, 8), ("two-perlin-spheres", 4, 8)):
@@ -950,15 +1207,17 @@ def main() -> int:
         uses = {"sphere_sweep": st.sphere_only,
                 "typed_sweep": not st.sphere_only,
                 "turbulence": scene.static.has_noise_tex,
-                "turbulence_bwd": False}
+                "turbulence_bwd": False, "segment_sum": False}
         for kname, used in uses.items():
             assert (launched[kname] > 0) == used, (name, kname, launched)
         med, mean, outl = golden_errors(img, golden)
         glines.append(f"{name} {spp}spp d{depth}: median {med:.3e} mean "
                       f"{mean:.3e} outliers {outl:.4f}, launches "
                       f"{ {k: v for k, v in launched.items() if v} }")
+    assert noise_texture.saves == saves, "a render without grad saved"
     phase(7, f"goldens on {kind} (bounds 1e-3 / 4e-3 / 0.02): "
-          + "; ".join(glines))
+          + "; ".join(glines) + "; K2 saved nothing for a backward "
+          "(asserted)")
 
     # Phase 8: where the device time of a render goes, on the path users
     # run: render_image under torch.profiler, its kernels' time given to
@@ -1078,7 +1337,9 @@ def main() -> int:
 
     # Phase 10: K2b against its plain version on phase 6's inputs.
     k2b = k2b_phase(dev, gi, sf, det, final_t.tables)
-    phase(10, k2b_line(k2b, n_final, resources(ptxas["turbulence"])))
+    k2b_sass = sass_pair_ops(turb_sass, "noise_texture_grad_kernel", 1)
+    phase(10, k2b_line(k2b, n_final, resources(ptxas["turbulence"]),
+                       k2b_sass))
 
     # Phase 11: a train step's gradients on the card against the CPU's.
     phase(11, "card gradients vs the CPU's at 64x36 2spp d4 (asserted): "
@@ -1089,8 +1350,9 @@ def main() -> int:
     # set to 0 just before its timed steps and read just after.
     random_train = train_run(build_scene("random"), dev, TRAIN_SHAPE, 3,
                              reset_counts, counts)
-    assert random_train["launched"]["sphere_sweep"] > 0, \
-        "the train step missed K1"
+    for kname in ("sphere_sweep", "segment_sum"):
+        assert random_train["launched"][kname] > 0, \
+            f"the random train step missed {kname}"
     assert random_train["gmax"]["materials.albedo"] > 0
     # `random` lights every path with a flat sky through solid or checker
     # textures, so its geometry gradients are exactly 0, in the JAX
@@ -1099,7 +1361,8 @@ def main() -> int:
                                          random_train))
     final_train = train_run(final, dev, TRAIN_SHAPE, 3, reset_counts,
                             counts)
-    for kname in ("typed_sweep", "turbulence", "turbulence_bwd"):
+    for kname in ("typed_sweep", "turbulence", "turbulence_bwd",
+                  "segment_sum"):
         assert final_train["launched"][kname] > 0, \
             f"the final train step missed {kname}"
     for k in ("geom.p0", "textures.scale", "materials.albedo"):
@@ -1108,6 +1371,43 @@ def main() -> int:
 
     # Phase 14: `random` at depth 50 through the train CLI.
     phase(14, deep_train_line(TRAIN_SHAPE[:3], 50))
+
+    # Phase 15: K3 against its plain version and index_add_ at the
+    # gathers of the train steps above (their first bounce): the winner's
+    # rows on `random` and `final`, and `final`'s texels (rows of 3, one
+    # for every texel of its images).
+    TW, TH, TSPP = TRAIN_SHAPE[:3]
+    gathers = {}
+    for name, st in (("random", random_t), ("final", final_t)):
+        scene = build_scene(name)
+        cam = camera(scene, TW, TH, *lanes(TW, TH, TSPP))
+        t_hit, prim = trace(st, cam, prng.bounce_base(cam.base, 0))
+        pidx = torch.clamp(prim, min=0).long()
+        gathers[name] = (st.fpack.shape[0], st.fpack.shape[1], pidx)
+    pf, sf = gather_prim_shade_packed(final_t.fpack, final_t.ipack, pidx,
+                                      final.static)
+    det = hit_detail(pf, cam.o, cam.d, cam.time,
+                     torch.where(prim >= 0, t_hit, 1.0), final.static)
+    ni, ih, iw, _ = final_t.tables.images.shape
+    gathers["final texels"] = (ni * ih * iw, 3,
+                               texel_rows(sf, det, final_t.tables))
+    k3 = k3_phase(dev, gathers)
+    phase(15, k3_line(k3, resources(ptxas["segment_sum"])))
+
+    # Phase 16: two train steps from one state, bit-equal gradients.
+    phase(16, f"train steps at {TW}x{TH}x{TSPP} d{TRAIN_SHAPE[3]} twice "
+          "from one restored state: " + "; ".join(
+              determinism_line(build_scene(name), dev, TRAIN_SHAPE)
+              for name in ("random", "final", "earth")))
+
+    # Phase 17: what K3 costs a train step against index_add_, in turns.
+    phase(17, "train step with the gathers' backward through K3 vs "
+          "index_add_ (gather_rows swapped for index_select), in turns "
+          "K3, index_add_, index_add_, K3, twice, each turn the best of 5 "
+          "steps from one restored state: " + "; ".join(
+              k3_cost_line(name, k3_step_cost(build_scene(name), dev,
+                                              TRAIN_SHAPE))
+              for name in ("random", "final")))
 
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
@@ -1141,7 +1441,20 @@ def main() -> int:
          "ms": k2b["real mask"]["ms"],
          "plain_ms": k2b["real mask"]["plain_ms"],
          "bound_ms": k2b["real mask"]["bound"][0],
-         "bound_by": k2b["real mask"]["bound"][1], "library_ms": None},
+         "bound_by": k2b["real mask"]["bound"][1], "library_ms": None,
+         # the same work by the first design's contract (type column,
+         # the octaves' values again)
+         "old_bound_ms": k2b["real mask"]["old_bound"][0],
+         "old_bound_by": k2b["real mask"]["old_bound"][1]},
+        {"name": "segment_sum", "route": "cuda",
+         "source": "hyper_ray_tracer_tpu_torch/csrc/segment_sum.cu",
+         "replaces": "hyper_ray_tracer_tpu/ops/intersect.py:234",
+         "launches": final_train["launched"]["segment_sum"],
+         "max_abs_err": 0.0, "ms": k3["random"]["ms"],
+         "plain_ms": k3["random"]["plain_ms"],
+         "bound_ms": k3["random"]["bound"][0],
+         "bound_by": k3["random"]["bound"][1],
+         "library_ms": k3["random"]["library_ms"]},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -76,11 +76,28 @@
 // XLA, ops/textures.py:65-70 and ops/perlin.py:203-254), walks the lanes
 // as K2 does, with the same tables and compaction: a lane that is not
 // noise passes its cotangent through (a 12-byte read, 28 bytes written),
-// a noise lane recomputes its seven octaves with K2's rounding (so the
-// turbulence sum's sign is the forward's) and sums each octave's
-// analytic gradient.  Bound by bytes on a sparse mask, by FP32 throughput
-// on a dense one (~2.4x K2's operations); a first, simple design: it holds
-// each lane's derivative accumulators in registers (80, no spills).
+// a noise lane sums each octave's analytic gradient.  What it needs of
+// the forward, K2 saves when the branch's output requires grad (the
+// kSave instantiation; without grad K2 writes nothing more): its ballot
+// words, as a noise bitmask of one bit a lane, and each noise lane's
+// signed turbulence sum S.  So:
+// - K2b reads one bit a lane where a first design read the 4-byte type
+//   from a column of the gathered int rows (28-byte rows, served in
+//   32-byte sectors): ~40 bytes a lane on a sparse mask in place of ~68.
+// - K2b takes sign(S) and z + 10 |S| from the saved S in place of
+//   recomputing the seven octaves with K2's rounding, so its octave walk
+//   is the derivative alone, and nvcc may contract it into FMAs: where
+//   exact code reaches at most half the FMA-counted rate, this can reach
+//   the whole.  The cell of each octave (the floor of 2^k sp) is the
+//   forward's: sp = scale * point is rounded as K2 rounds it, and the
+//   rest is exact.
+// - Its register budget (kGradMinBlocks resident blocks: 80 registers
+//   a thread at 3) and its octave loop's unrolling (kGradUnroll octaves
+//   a trip) are tune_turbulence.py's fastest variant without spills.
+//   Two octaves a trip, so that one octave's shared-memory lookups
+//   overlap the other's arithmetic, timed no faster than one (within
+//   3%), and 4 resident blocks spill.
+// Bound by bytes on a sparse mask, by FP32 throughput on a dense one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,7 +108,8 @@ namespace {
 // of tune_turbulence.py (4 resident blocks cap a thread at 64 registers).
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 4;  // resident-block floor for ptxas
-constexpr int kGradMinBlocks = 2;  // the same for the backward kernel
+constexpr int kGradMinBlocks = 3;  // the same for the backward kernel
+constexpr int kGradUnroll = 1;     // octaves a trip of K2b's octave loop
 constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;  // flags each thread reads per tile
 constexpr int kTile = kThreads * kSteps;
@@ -113,12 +131,49 @@ struct Smem {
   int offset[kWords + 1];
 };
 
-// The lanes both kernels walk: the texture type column and its tag.
-struct Lanes {
+// Where a walk takes its noise flags from: bit s of the result is lane
+// base + s * kThreads + tid's.  K2 reads the texture type column.
+struct TypeFlags {
   const int* ttype;
   long long ttype_stride;
   int noise_tag;
-  int n;
+
+  __device__ __forceinline__ uint32_t operator()(int base, int tid, int n)
+      const {
+    int tt[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int i = base + s * kThreads + tid;
+      tt[s] = i < n ? ttype[i * ttype_stride] : ~noise_tag;
+    }
+    uint32_t mine = 0;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s)
+      mine |= static_cast<uint32_t>(tt[s] == noise_tag) << s;
+    return mine;
+  }
+};
+
+// K2b reads K2's saved bitmask: bit l of word w is lane 32 w + l's flag,
+// a tile's warp-sized runs of lanes are whole words, and the words past
+// the last lane are not read.
+struct MaskFlags {
+  const uint32_t* mask;
+
+  __device__ __forceinline__ uint32_t operator()(int base, int tid, int n)
+      const {
+    const int lane = tid & 31, first = base + (tid & ~31);
+    uint32_t word[kSteps];
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      const int i = first + s * kThreads;
+      word[s] = i < n ? mask[i >> 5] : 0u;
+    }
+    uint32_t mine = 0;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) mine |= (word[s] >> lane & 1u) << s;
+    return mine;
+  }
 };
 
 struct Tables {
@@ -170,12 +225,10 @@ __device__ __forceinline__ float4 corner_grad(const Smem& sh, const Cell& c,
 }
 
 // One octave of gradient noise (ops/perlin.py:_noise_xyz) from the
-// tables; `q` picks this lane's copy of the gradients.  With `d` set,
-// also its gradient with respect to (x, y, z) into d[0..2] (plain float
-// operations: only the value must round as the plain version does).
-template <bool kGrad>
+// tables, rounded as the plain version; `q` picks this lane's copy of the
+// gradients.
 __device__ __forceinline__ float noise(const Smem& sh, int q, float x,
-                                       float y, float z, float* d) {
+                                       float y, float z) {
   const Cell c = cell(sh, q, x, y, z);
   const float sx = c.s[0], sy = c.s[1], sz = c.s[2];
   // Corner offset 0: lerp weight 1 - s, weight vector s; offset 1: lerp
@@ -184,7 +237,7 @@ __device__ __forceinline__ float noise(const Smem& sh, int q, float x,
               az = __fsub_rn(1.0f, sz);
   const float bx = __fsub_rn(sx, 1.0f), by = __fsub_rn(sy, 1.0f),
               bz = __fsub_rn(sz, 1.0f);
-  float acc = 0.0f, ds[3] = {0.0f, 0.0f, 0.0f};
+  float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
@@ -193,52 +246,90 @@ __device__ __forceinline__ float noise(const Smem& sh, int q, float x,
     const float wv_dot = __fadd_rn(
         __fadd_rn(__fmul_rn(g.x, dx ? bx : sx), __fmul_rn(g.y, dy ? by : sy)),
         __fmul_rn(g.z, dz ? bz : sz));
-    const float lerp_w = __fmul_rn(__fmul_rn(wx, wy), wz);
-    const float term = __fmul_rn(lerp_w, wv_dot);
+    const float term = __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), wv_dot);
     acc = k == 0 ? term : __fadd_rn(acc, term);
-    if constexpr (kGrad) {
-      // d term / d s_a: the lerp weight's factor on axis a turns into
-      // +-1 (s or 1 - s), and the weight vector's component into g_a.
-      const float ex = wy * wz * wv_dot, ey = wx * wz * wv_dot,
-                  ez = wx * wy * wv_dot;
-      ds[0] += (dx ? ex : -ex) + lerp_w * g.x;
-      ds[1] += (dy ? ey : -ey) + lerp_w * g.y;
-      ds[2] += (dz ? ez : -ez) + lerp_w * g.z;
-    }
-  }
-  if constexpr (kGrad) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a)  // d s / d u = 6 u (1 - u)
-      d[a] = ds[a] * (6.0f * c.u[a] * (1.0f - c.u[a]));
   }
   return acc;
 }
 
-// The turbulence sum at the pre-scaled point, rounded as the plain
-// version; with kGrad, d[0..2] gets the gradient of the (signed) sum.
-// The octave at 2^k weighs 0.5^k, so each octave's gradient counts once.
-template <bool kGrad>
-__device__ float octaves(const Smem& sh, int q, float px, float py, float pz,
-                         float* d) {
+// The signed turbulence sum at the pre-scaled point, rounded as the
+// plain version (ops/perlin.py turbulence_sum_xyz).
+__device__ float octaves(const Smem& sh, int q, float px, float py,
+                         float pz) {
   float acc = 0.0f;
   float sc = 1.0f, w = 1.0f;  // 2^k and 0.5^k, exact
-  if constexpr (kGrad) d[0] = d[1] = d[2] = 0.0f;
 #pragma unroll 1
   for (int k = 0; k < kDepth; ++k) {
-    float dk[3];
     const float term = __fmul_rn(
-        w, noise<kGrad>(sh, q, __fmul_rn(px, sc), __fmul_rn(py, sc),
-                        __fmul_rn(pz, sc), dk));
+        w, noise(sh, q, __fmul_rn(px, sc), __fmul_rn(py, sc),
+                 __fmul_rn(pz, sc)));
     acc = k == 0 ? term : __fadd_rn(acc, term);
-    if constexpr (kGrad) {
-      d[0] += dk[0];
-      d[1] += dk[1];
-      d[2] += dk[2];
-    }
     sc = __fmul_rn(sc, 2.0f);
     w = __fmul_rn(w, 0.5f);
   }
   return acc;
+}
+
+// The gradient of one octave of noise with respect to (x, y, z), added
+// into d[0..2]: plain float operations, which nvcc may contract.  With
+// the corner weights W_c = w_x w_y w_z (w = 1 - s at offset 0, s at 1)
+// and D_c the corner's weight-vector dot, noise = sum_c W_c D_c and
+//   d noise / d s_a = sum_c (+-(W_c / w_a) D_c + W_c g_c,a),
+// + at offset 1 on axis a, - at 0; then d s / d u = 6 u (1 - u).
+__device__ __forceinline__ void noise_slope(const Smem& sh, int q, float x,
+                                            float y, float z, float* d) {
+  const Cell c = cell(sh, q, x, y, z);
+  const float s[3] = {c.s[0], c.s[1], c.s[2]};
+  float w[3][2], v[3][2];  // lerp weight and weight-vector component
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    w[a][0] = 1.0f - s[a];
+    w[a][1] = s[a];
+    v[a][0] = s[a];
+    v[a][1] = s[a] - 1.0f;
+  }
+  float wxy[2][2], wyz[2][2], wxz[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      wxy[i][j] = w[0][i] * w[1][j];
+      wyz[i][j] = w[1][i] * w[2][j];
+      wxz[i][j] = w[0][i] * w[2][j];
+    }
+  }
+  float ds[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
+    const float4 g = corner_grad(sh, c, dx, dy, dz);
+    const float dot = g.x * v[0][dx] + g.y * v[1][dy] + g.z * v[2][dz];
+    const float lw = wxy[dx][dy] * w[2][dz];
+    ds[0] += (dx ? wyz[dy][dz] : -wyz[dy][dz]) * dot + lw * g.x;
+    ds[1] += (dy ? wxz[dx][dz] : -wxz[dx][dz]) * dot + lw * g.y;
+    ds[2] += (dz ? wxy[dx][dy] : -wxy[dx][dy]) * dot + lw * g.z;
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    d[a] += ds[a] * (6.0f * c.u[a] * (1.0f - c.u[a]));
+}
+
+// d[0..2] = the gradient of the signed turbulence sum at the pre-scaled
+// point.  The octave at 2^k weighs 0.5^k, so each octave's gradient
+// counts once.  kGradUnroll octaves a trip.
+__device__ void turbulence_slope(const Smem& sh, int q, float px, float py,
+                                 float pz, float* d) {
+  d[0] = d[1] = d[2] = 0.0f;
+#pragma unroll 1
+  for (int k = 0; k < kDepth; k += kGradUnroll) {
+#pragma unroll
+    for (int u = 0; u < kGradUnroll; ++u) {
+      if (k + u < kDepth) {
+        const float sc = static_cast<float>(1 << (k + u));  // exact
+        noise_slope(sh, q, px * sc, py * sc, pz * sc, d);
+      }
+    }
+  }
 }
 
 // The marble's argument z + 10 |turbulence| (ops/turbulence.py).
@@ -263,36 +354,34 @@ __device__ void stage_tables(Smem& sh, const Tables& t) {
 }
 
 // The walk both kernels share.  The block stages the tables, then takes
-// tiles of kTile lanes: it reads their texture types (lane
+// tiles of kTile lanes: it reads their noise flags (lane
 // base + s * kThreads + tid for s < kSteps: each load coalesced across
 // the block), lets `op.other` write every lane's output that needs no
-// turbulence, ballots the noise flags per warp into a shared-memory list
-// of the tile's noise lanes in launch order, and then all its threads
-// work through that list with `op.noise`.
-template <class Op>
-__device__ __forceinline__ void walk(Smem& sh, const Lanes& a, const Op& op) {
+// turbulence, ballots the flags per warp (one word per 32 consecutive
+// lanes, which `op.ballot` may keep) into a shared-memory list of the
+// tile's noise lanes in launch order, and then all its threads work
+// through that list with `op.noise`.
+template <class Flags, class Op>
+__device__ __forceinline__ void walk(Smem& sh, const Flags& flags, int n,
+                                     const Op& op) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tiles = (a.n + kTile - 1) / kTile;
+  const int tiles = (n + kTile - 1) / kTile;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int base = tile * kTile;
-    int tt[kSteps];
+    uint32_t copy = 0;  // bit s: lane s is in range and not noise
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const int i = base + s * kThreads + tid;
-      tt[s] = i < a.n ? a.ttype[i * a.ttype_stride] : a.noise_tag;
-    }
-    uint32_t mine = 0, copy = 0;  // bit s: lane s is noise / is not
-#pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      const bool in = base + s * kThreads + tid < a.n;
-      mine |= static_cast<uint32_t>(in && tt[s] == a.noise_tag) << s;
-      copy |= static_cast<uint32_t>(in && tt[s] != a.noise_tag) << s;
-    }
+    for (int s = 0; s < kSteps; ++s)
+      copy |= static_cast<uint32_t>(base + s * kThreads + tid < n) << s;
+    const uint32_t mine = flags(base, tid, n) & copy;
+    copy &= ~mine;
     op.other(base + tid, mine, copy);
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       const uint32_t b = __ballot_sync(0xFFFFFFFFu, mine >> s & 1u);
-      if (lane == 0) sh.ballot[s * kWarps + warp] = b;
+      if (lane == 0) {
+        sh.ballot[s * kWarps + warp] = b;
+        op.ballot(base + s * kThreads + warp * 32, b);
+      }
     }
     __syncthreads();
     if (warp == 0) {  // exclusive scan of the ballot words' counts
@@ -335,7 +424,11 @@ __device__ __forceinline__ void walk(Smem& sh, const Lanes& a, const Op& op) {
   }
 }
 
-// K2: the marble on noise lanes, the incoming value elsewhere.
+// K2: the marble on noise lanes, the incoming value elsewhere.  With
+// kSave (the branch's output requires grad), also what K2b needs: the
+// ballot words as a noise bitmask, and each noise lane's signed
+// turbulence sum.
+template <bool kSave>
 struct Marble {
   const float* scale;
   long long scale_stride;
@@ -344,6 +437,9 @@ struct Marble {
   const float* value;
   long long value_stride;
   float* out;
+  uint32_t* mask;  // [ceil(n / 32)], kSave only
+  float* turb;     // [n], written on noise lanes, kSave only
+  int n;
 
   // Every load of the tile starts before its first store, so they are
   // all in flight at once.
@@ -370,12 +466,20 @@ struct Marble {
     }
   }
 
+  // The ballot word of lanes first .. first + 31.
+  __device__ __forceinline__ void ballot(int first, uint32_t word) const {
+    if constexpr (kSave) {
+      if (first < n) mask[first >> 5] = word;
+    }
+  }
+
   __device__ __forceinline__ void noise(const Smem& sh, int q, int i) const {
     const float sc = scale[i * scale_stride];
     const float* p = point + i * point_stride;
     const float pz = __fmul_rn(sc, p[2]);
-    const float acc = octaves<false>(sh, q, __fmul_rn(sc, p[0]),
-                                     __fmul_rn(sc, p[1]), pz, nullptr);
+    const float acc = octaves(sh, q, __fmul_rn(sc, p[0]),
+                              __fmul_rn(sc, p[1]), pz);
+    if constexpr (kSave) turb[i] = acc;
     const float m = __fmul_rn(0.5f, __fadd_rn(1.0f, sinf(marble_arg(pz,
                                                                     acc))));
     float* o = out + 3LL * i;
@@ -386,19 +490,19 @@ struct Marble {
 };
 
 // K2b: the vector-Jacobian product of K2 for the cotangent grad_out.
-// On a noise lane, with m = 0.5 (1 + sin(sp_z + 10 |A|)), sp = scale *
-// point and A the turbulence sum, the output's three channels are m:
+// On a noise lane, with m = 0.5 (1 + sin(sp_z + 10 |S|)), sp = scale *
+// point and S the turbulence sum (K2's, saved):
 //   g = (sum_c grad_out_c) dm/dsp,
-//   dm/dsp = 0.5 cos(sp_z + 10 |A|) (e_z + 10 sign(A) dA/dsp),
+//   dm/dsp = 0.5 cos(sp_z + 10 |S|) (e_z + 10 sign(S) dS/dsp),
 //   grad_point = scale g, grad_scale = <point, g>, grad_value = 0;
-// on every other lane grad_value = grad_out and the others are 0.  A is
-// recomputed with K2's rounding, so sign(A) is the forward's (sign(0) =
-// 0, as torch's abs backward has it).
+// on every other lane grad_value = grad_out and the others are 0.
+// sign(0) = 0, as torch's abs backward has it.
 struct MarbleGrad {
   const float* scale;
   long long scale_stride;
   const float* point;
   long long point_stride;
+  const float* turb;      // [n], K2's on noise lanes
   const float* grad_out;  // [n, 3] contiguous
   float* grad_point;      // [n, 3]
   float* grad_scale;      // [n]
@@ -435,16 +539,18 @@ struct MarbleGrad {
     }
   }
 
+  __device__ __forceinline__ void ballot(int, uint32_t) const {}
+
   __device__ __forceinline__ void noise(const Smem& sh, int q, int i) const {
     const float sc = scale[i * scale_stride];
     const float* p = point + i * point_stride;
     const float px = p[0], py = p[1], pz = p[2];
     const float* go = grad_out + 3LL * i;
     const float gsum = go[0] + go[1] + go[2];
+    const float acc = turb[i];
     const float spz = __fmul_rn(sc, pz);
     float dA[3];
-    const float acc = octaves<true>(sh, q, __fmul_rn(sc, px),
-                                    __fmul_rn(sc, py), spz, dA);
+    turbulence_slope(sh, q, __fmul_rn(sc, px), __fmul_rn(sc, py), spz, dA);
     const float c = 0.5f * cosf(marble_arg(spz, acc)) * gsum;
     const float k = acc > 0.0f ? 10.0f : acc < 0.0f ? -10.0f : 0.0f;
     const float gx = c * (k * dA[0]), gy = c * (k * dA[1]),
@@ -456,18 +562,19 @@ struct MarbleGrad {
   }
 };
 
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-noise_texture_kernel(Lanes a, Marble op, Tables t) {
+noise_texture_kernel(TypeFlags flags, int n, Marble<kSave> op, Tables t) {
   __shared__ Smem sh;
   stage_tables(sh, t);
-  walk(sh, a, op);
+  walk(sh, flags, n, op);
 }
 
 __global__ void __launch_bounds__(kThreads, kGradMinBlocks)
-noise_texture_grad_kernel(Lanes a, MarbleGrad op, Tables t) {
+noise_texture_grad_kernel(MaskFlags flags, int n, MarbleGrad op, Tables t) {
   __shared__ Smem sh;
   stage_tables(sh, t);
-  walk(sh, a, op);
+  walk(sh, flags, n, op);
 }
 
 // Blocks `kernel` can keep resident on the current device (cached per
@@ -501,48 +608,64 @@ int grid_for(int n, int resident) {
 // ttype [n] int32 and scale [n] float32 with element strides; point and
 // value [n, 3] float32 with row strides (their columns contiguous);
 // vectors [256, 3] float32, perm_x / perm_y / perm_z [256] int32, all
-// contiguous; every output contiguous.  noise_tag is TT_NOISE.  The grid
-// is the tiles, capped at the blocks the card holds at once (each block
-// walks its tiles and stages the tables once).  Each launches on
-// `stream` and returns cudaGetLastError() (0 on success, or the error of
-// a device query); neither synchronises.
+// contiguous; every output and saved array contiguous.  noise_tag is
+// TT_NOISE.  The grid is the tiles, capped at the blocks the card holds
+// at once (each block walks its tiles and stages the tables once).  Each
+// launches on `stream` and returns cudaGetLastError() (0 on success, or
+// the error of a device query); neither synchronises.
 
-// K2: out [n, 3].
+// K2: out [n, 3]; with mask [ceil(n / 32)] uint32 and turb [n] float32
+// both non-null, also the saved forward (K2's kSave instantiation), and
+// with both null nothing more.
 extern "C" int hrt_noise_texture(
     const int* ttype, long long ttype_stride, const float* scale,
     long long scale_stride, const float* point, long long point_stride,
     const float* value, long long value_stride, const float* vectors,
     const int* perm_x, const int* perm_y, const int* perm_z, int noise_tag,
-    int n, float* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  static int resident[64];
-  const int r = resident_blocks(noise_texture_kernel, resident);
-  if (r < 0) return -r;
-  noise_texture_kernel<<<grid_for(n, r), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      Lanes{ttype, ttype_stride, noise_tag, n},
-      Marble{scale, scale_stride, point, point_stride, value, value_stride,
-             out},
-      Tables{vectors, perm_x, perm_y, perm_z});
+    int n, float* out, uint32_t* mask, float* turb, void* stream) {
+  if (n <= 0 || (mask == nullptr) != (turb == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TypeFlags flags{ttype, ttype_stride, noise_tag};
+  const Tables t{vectors, perm_x, perm_y, perm_z};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask == nullptr) {
+    static int resident[64];
+    const int r = resident_blocks(noise_texture_kernel<false>, resident);
+    if (r < 0) return -r;
+    noise_texture_kernel<false><<<grid_for(n, r), kThreads, 0, s>>>(
+        flags, n,
+        Marble<false>{scale, scale_stride, point, point_stride, value,
+                      value_stride, out, nullptr, nullptr, n},
+        t);
+  } else {
+    static int resident[64];
+    const int r = resident_blocks(noise_texture_kernel<true>, resident);
+    if (r < 0) return -r;
+    noise_texture_kernel<true><<<grid_for(n, r), kThreads, 0, s>>>(
+        flags, n,
+        Marble<true>{scale, scale_stride, point, point_stride, value,
+                     value_stride, out, mask, turb, n},
+        t);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2b: grad_out [n, 3] contiguous in; grad_point [n, 3], grad_scale [n],
-// grad_value [n, 3] out.
+// K2b: mask and turb as K2 saved them, grad_out [n, 3] contiguous in;
+// grad_point [n, 3], grad_scale [n], grad_value [n, 3] out.
 extern "C" int hrt_noise_texture_grad(
-    const int* ttype, long long ttype_stride, const float* scale,
+    const uint32_t* mask, const float* turb, const float* scale,
     long long scale_stride, const float* point, long long point_stride,
     const float* grad_out, const float* vectors, const int* perm_x,
-    const int* perm_y, const int* perm_z, int noise_tag, int n,
-    float* grad_point, float* grad_scale, float* grad_value, void* stream) {
+    const int* perm_y, const int* perm_z, int n, float* grad_point,
+    float* grad_scale, float* grad_value, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   static int resident[64];
   const int r = resident_blocks(noise_texture_grad_kernel, resident);
   if (r < 0) return -r;
   noise_texture_grad_kernel<<<grid_for(n, r), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      Lanes{ttype, ttype_stride, noise_tag, n},
-      MarbleGrad{scale, scale_stride, point, point_stride, grad_out,
+      MaskFlags{mask}, n,
+      MarbleGrad{scale, scale_stride, point, point_stride, turb, grad_out,
                  grad_point, grad_scale, grad_value},
       Tables{vectors, perm_x, perm_y, perm_z});
   return static_cast<int>(cudaGetLastError());

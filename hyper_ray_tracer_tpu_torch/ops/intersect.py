@@ -45,6 +45,7 @@ from ..models.scene import (
     PT_SPHERE,
 )
 from . import rng as prng
+from .gather import gather_rows
 from .math import sqrt_capped_grad
 
 BIG = float(np.float32(3.0e38))  # sentinel "miss" distance (finite)
@@ -152,12 +153,13 @@ def pack_prim_shade(arrays, static):
 
 def gather_prim_shade_packed(fpack, ipack, idx, static):
     """Row-gather the joined pack: (PrimFields, ShadeFields).  The float
-    rows go through ``index_select``, whose backward accumulates with
-    ``index_add_``: autograd's backward of ``fpack[idx]`` sorts the
-    indices and sums each primitive's rows in one thread, which on the
+    rows go through ``gather.gather_rows``, whose backward sums each
+    primitive's cotangent rows in one fixed order (K3 on the card), so a
+    train step's gradients are reproducible; autograd's backward of
+    ``fpack[idx]`` sums each primitive's rows in one thread, which on the
     card serialises the hundreds of thousands of lanes that hit one
     primitive (PERF.md §6)."""
-    g = fpack.index_select(0, idx)
+    g = gather_rows(fpack, idx)
     gi = ipack[idx]
     vals = {}
     off = 0

@@ -40,12 +40,15 @@ class _SqrtCappedGrad(torch.autograd.Function):
 
     At a silhouette the discriminant crosses zero and d sqrt / dx -> inf,
     which overflows the gradient of every lane within ~1e-7 of tangency.
-    The primal is ``torch.sqrt`` itself, so no forward value changes; only
-    the VJP is clipped: ``g * min(0.5 / max(y, 1e-30), 1e5)``."""
+    The primal is the correctly rounded root, so no forward value changes;
+    only the VJP is clipped: ``g * min(0.5 / max(y, 1e-30), 1e5)``.  On
+    the card that root is ``torch.sqrt`` (one launch); on the CPU, whose
+    vectorised sqrt is not correctly rounded, it is ``sqrt_rn``, so the
+    CPU's roots are the card's and the JAX package's."""
 
     @staticmethod
     def forward(ctx, x):
-        y = torch.sqrt(x)
+        y = sqrt_rn(x) if x.device.type == "cpu" else torch.sqrt(x)
         ctx.save_for_backward(y)
         return y
 

@@ -202,12 +202,17 @@ def _noise_xyz(keys, x, y, z):
     return acc
 
 
-def turbulence_xyz(keys, x, y, z, depth: int = TURBULENCE_DEPTH):
-    """|sum_k 0.5^k noise(2^k p)| on coordinate tensors, octaves summed in
+def turbulence_sum_xyz(keys, x, y, z, depth: int = TURBULENCE_DEPTH):
+    """sum_k 0.5^k noise(2^k p) on coordinate tensors, octaves summed in
     order (perlin_noise.rs:66-78); ``keys`` as in ``_noise_xyz``."""
     acc = None
     for k in range(depth):
         sc = float(2.0 ** k)
         term = float(0.5 ** k) * _noise_xyz(keys, x * sc, y * sc, z * sc)
         acc = term if acc is None else acc + term
-    return torch.abs(acc)
+    return acc
+
+
+def turbulence_xyz(keys, x, y, z, depth: int = TURBULENCE_DEPTH):
+    """|turbulence_sum_xyz|: the turbulence."""
+    return torch.abs(turbulence_sum_xyz(keys, x, y, z, depth))

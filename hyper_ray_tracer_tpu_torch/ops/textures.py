@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.scene import TT_CHECKER, TT_IMAGE
+from .gather import gather_rows
 from .perlin import PerlinTables
 from .turbulence import noise_texture
 
@@ -30,6 +31,23 @@ class TextureTables(NamedTuple):
     image_wh: torch.Tensor  # [NI, 2] int32 (width, height) of each image
     perlin_keys: tuple  # the seven Perlin keys as Python ints
     perlin: PerlinTables  # the scene's tables, every array a tensor
+
+
+def texel_rows(sf, hit, tables: TextureTables):
+    """[B] int64: each lane's row of the scene's texels flattened to
+    [NI * IH * IW, 3], from its image and uv."""
+    wh = tables.image_wh[sf.image_id.long()]  # [B,2] (width, height)
+    uu = torch.clamp(hit.u, 0.0, 1.0)
+    vv = 1.0 - torch.clamp(hit.v, 0.0, 1.0)
+    i = torch.minimum((uu * wh[..., 0].to(torch.float32)).to(torch.int32),
+                      wh[..., 0] - 1)
+    j = torch.minimum((vv * wh[..., 1].to(torch.float32)).to(torch.int32),
+                      wh[..., 1] - 1)
+    ni, ih, iw, _ = tables.images.shape
+    # Lanes of other textures may carry any uv; clamp their (unused)
+    # index into the table, as the JAX package's gather does.
+    return (sf.image_id.long() * (ih * iw) + j.long() * iw
+            + i.long()).clamp(0, ni * ih * iw - 1)
 
 
 def texture_value(sf, hit, static, tables: TextureTables):
@@ -47,18 +65,9 @@ def texture_value(sf, hit, static, tables: TextureTables):
     if static.has_noise_tex:
         value = noise_texture(sf.ttype, sf.scale, point, value, tables)
     if static.has_image_tex:
-        wh = tables.image_wh[sf.image_id.long()]  # [B,2] (width, height)
-        uu = torch.clamp(hit.u, 0.0, 1.0)
-        vv = 1.0 - torch.clamp(hit.v, 0.0, 1.0)
-        i = torch.minimum((uu * wh[..., 0].to(torch.float32))
-                          .to(torch.int32), wh[..., 0] - 1)
-        j = torch.minimum((vv * wh[..., 1].to(torch.float32))
-                          .to(torch.int32), wh[..., 1] - 1)
         ni, ih, iw, _ = tables.images.shape
-        # Lanes of other textures may carry any uv; clamp their (unused)
-        # index into the table, as the JAX package's gather does.
-        flat = (sf.image_id.long() * (ih * iw) + j.long() * iw
-                + i.long()).clamp(0, ni * ih * iw - 1)
-        texel = tables.images.reshape(ni * ih * iw, 3).index_select(0, flat)
+        # Many lanes read one texel: a reproducible backward.
+        texel = gather_rows(tables.images.reshape(ni * ih * iw, 3),
+                            texel_rows(sf, hit, tables))
         value = torch.where((sf.ttype == TT_IMAGE)[..., None], texel, value)
     return value

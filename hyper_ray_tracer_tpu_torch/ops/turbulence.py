@@ -34,7 +34,14 @@ grad_scale [N], grad_value [N, 3]): on noise lanes ``scale * g``,
 elsewhere 0, 0 and ``grad_out``.  Its plain version is autograd through
 ``noise_texture_plain`` (``noise_texture_grad_plain``).  They agree to
 rounding, not bit for bit: the kernel sums the analytic derivative of
-each octave, autograd the chain rule of each operation.
+each octave (contracted into FMAs), autograd the chain rule of each
+operation.  K2b reads what K2 saved of the forward
+(``noise_texture_saved``; ``noise_texture_saved_plain`` is its plain
+version, bit for bit): the noise flags as a bitmask (int32 words, bit
+``l`` of word ``w`` the flag of lane ``32 w + l``) and each noise lane's
+signed turbulence sum S (``ops/perlin.turbulence_sum_xyz``; other lanes
+unwritten on the card, 0 in the plain version).  K2 writes them only
+when the branch's output requires grad.
 """
 
 from __future__ import annotations
@@ -43,9 +50,9 @@ import ctypes
 
 import torch
 
-from ..models.scene import TT_NOISE
+from ..models.scene import TT_NOISE, TT_SOLID
 from ..utils import cuda_build
-from .perlin import POINT_COUNT, turbulence_xyz
+from .perlin import POINT_COUNT, turbulence_sum_xyz, turbulence_xyz
 
 
 def _marble_formula(z, turb):
@@ -74,6 +81,27 @@ def noise_texture_plain(ttype, scale, point, value, tables):
                        value)
 
 
+def noise_texture_saved_plain(ttype, scale, point, value, tables):
+    """(out, (mask, turb)): ``noise_texture_plain``'s value and what K2
+    saves for K2b, in plain torch."""
+    is_noise = ttype == TT_NOISE
+    n = is_noise.shape[0]
+    bits = torch.zeros(-(-n // 32) * 32, dtype=torch.int64,
+                       device=is_noise.device)
+    bits[:n] = is_noise.long()
+    words = (bits.view(-1, 32) << torch.arange(
+        32, device=bits.device)).sum(1)
+    mask = torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+    sp = scale[..., None] * point
+    turb = torch.zeros_like(scale)
+    idx = is_noise.nonzero().squeeze(1)
+    if idx.numel():
+        turb[idx] = turbulence_sum_xyz(tables.perlin_keys,
+                                       *(sp[idx, c] for c in range(3)))
+    return noise_texture_plain(ttype, scale, point, value, tables), \
+        (mask, turb)
+
+
 def noise_texture_grad_plain(ttype, scale, point, grad_out, tables):
     """The noise branch's VJP in plain torch: autograd through
     ``noise_texture_plain``.  Returns (grad_point [N, 3], grad_scale [N],
@@ -90,9 +118,10 @@ def _bind(lib, name):
     fn = getattr(lib, name)
     ptr, i64, c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     if name == "hrt_noise_texture":
-        fn.argtypes = [ptr, i64] * 4 + [ptr] * 4 + [c_int] * 2 + [ptr, ptr]
+        fn.argtypes = [ptr, i64] * 4 + [ptr] * 4 + [c_int] * 2 + [ptr] * 4
     else:
-        fn.argtypes = [ptr, i64] * 3 + [ptr] * 5 + [c_int] * 2 + [ptr] * 4
+        fn.argtypes = [ptr, ptr] + [ptr, i64] * 2 + [ptr] * 5 + [c_int] \
+            + [ptr] * 4
     fn.restype = c_int
     return fn
 
@@ -117,8 +146,8 @@ def _view_stride(kernel, name, x, shape, dtype, device):
 
 
 def _lane_views(kernel, device, n, **named):
-    """[pointer, row stride] of each named input (ttype, scale, point,
-    value or grad_out, in the entry point's order), validated."""
+    """[pointer, row stride] of each named input (ttype, scale, point or
+    value, in the entry point's order), validated."""
     kinds = {"ttype": ((n,), torch.int32), "scale": ((n,), torch.float32)}
     views = []
     for name, x in named.items():
@@ -139,8 +168,9 @@ def _table_ptrs(kernel, tables, device):
             perlin.perm_y.data_ptr(), perlin.perm_z.data_ptr()]
 
 
-def _launch_marble(ttype, scale, point, value, tables):
-    """K2 on CUDA tensors: the noise branch's value [N, 3]."""
+def _launch_marble(ttype, scale, point, value, tables, save):
+    """K2 on CUDA tensors: (the noise branch's value [N, 3], and with
+    ``save`` the (mask, turb) that K2b reads, else None)."""
     device = point.device
     n = point.shape[0]
     views = _lane_views("noise_texture", device, n, ttype=ttype,
@@ -149,31 +179,63 @@ def _launch_marble(ttype, scale, point, value, tables):
     if n >= 2**31:
         raise ValueError(f"noise_texture: {n} lanes exceed 32-bit indexing")
     out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    saved = None
+    if save:
+        saved = (torch.empty((-(-n // 32),), dtype=torch.int32,
+                             device=device),
+                 torch.empty((n,), dtype=torch.float32, device=device))
     if n == 0:
-        return out
+        return out, saved
     fn = _bind(cuda_build.load("turbulence"), "hrt_noise_texture")
     cuda_build.launch("noise_texture", fn, device, *views, *ptrs, TT_NOISE,
-                      n, out.data_ptr())
+                      n, out.data_ptr(),
+                      *((x.data_ptr() for x in saved) if save
+                        else (None, None)))
     noise_texture.launches += 1
-    return out
+    noise_texture.saves += bool(save)
+    return out, saved
 
 
-def noise_texture_grad(ttype, scale, point, grad_out, tables):
-    """The VJP of the noise branch for the cotangent ``grad_out`` [N, 3]:
+def noise_texture_saved(ttype, scale, point, value, tables):
+    """(out, (mask, turb)): the noise branch's value and what K2b reads
+    of the forward.  A CPU tensor takes the plain version; a CUDA tensor
+    launches K2 with its save (counted in ``noise_texture.launches`` and
+    ``noise_texture.saves``) or raises."""
+    device = point.device
+    if device.type == "cpu":
+        return noise_texture_saved_plain(ttype, scale, point, value, tables)
+    if device.type != "cuda":
+        raise ValueError(f"noise_texture: unsupported device {device}")
+    return _launch_marble(ttype, scale, point, value, tables, save=True)
+
+
+def noise_texture_grad(scale, point, grad_out, tables, saved):
+    """The VJP of the noise branch for the cotangent ``grad_out`` [N, 3]
+    at the lanes that ``saved``, the (mask, turb) that
+    ``noise_texture_saved`` returned for them, marks as noise:
     (grad_point [N, 3], grad_scale [N], grad_value [N, 3]).  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel K2b
-    (building it on first use) or raises.  Counts its kernel launches in
+    takes the plain version (on the saved mask; it recomputes the sums);
+    a CUDA tensor launches the kernel K2b (building it on first use) on
+    the saved mask and sums, or raises.  Counts its kernel launches in
     ``noise_texture_grad.launches``."""
     device = point.device
     if device.type == "cpu":
+        n = point.shape[0]
+        bits = (saved[0][:, None] >> torch.arange(32)) & 1
+        ttype = torch.where(bits.flatten()[:n] == 1, TT_NOISE, TT_SOLID)
         return noise_texture_grad_plain(ttype, scale, point, grad_out,
                                         tables)
     if device.type != "cuda":
         raise ValueError(f"noise_texture_grad: unsupported device {device}")
     n = point.shape[0]
+    mask, turb = saved
     grad_out = grad_out.contiguous()
-    views = _lane_views("noise_texture_grad", device, n, ttype=ttype,
-                        scale=scale, point=point)
+    cuda_build.check_arg("noise_texture_grad", "mask", mask, (-(-n // 32),),
+                         torch.int32, device)
+    cuda_build.check_arg("noise_texture_grad", "turb", turb, (n,),
+                         torch.float32, device)
+    views = _lane_views("noise_texture_grad", device, n, scale=scale,
+                        point=point)
     cuda_build.check_arg("noise_texture_grad", "grad_out", grad_out, (n, 3),
                          torch.float32, device)
     ptrs = _table_ptrs("noise_texture_grad", tables, device)
@@ -186,28 +248,30 @@ def noise_texture_grad(ttype, scale, point, grad_out, tables):
     if n == 0:
         return grad_point, grad_scale, grad_value
     fn = _bind(cuda_build.load("turbulence"), "hrt_noise_texture_grad")
-    cuda_build.launch("noise_texture_grad", fn, device, *views,
-                      grad_out.data_ptr(), *ptrs, TT_NOISE, n,
-                      grad_point.data_ptr(), grad_scale.data_ptr(),
+    cuda_build.launch("noise_texture_grad", fn, device, mask.data_ptr(),
+                      turb.data_ptr(), *views, grad_out.data_ptr(), *ptrs,
+                      n, grad_point.data_ptr(), grad_scale.data_ptr(),
                       grad_value.data_ptr())
     noise_texture_grad.launches += 1
     return grad_point, grad_scale, grad_value
 
 
 class _NoiseTexture(torch.autograd.Function):
-    """K2 forward, K2b backward."""
+    """K2 forward with its save, K2b backward."""
 
     @staticmethod
     def forward(ctx, ttype, scale, point, value, tables):
-        ctx.save_for_backward(ttype, scale, point)
+        out, (mask, turb) = _launch_marble(ttype, scale, point, value,
+                                           tables, save=True)
+        ctx.save_for_backward(scale, point, mask, turb)
         ctx.tables = tables
-        return _launch_marble(ttype, scale, point, value, tables)
+        return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        ttype, scale, point = ctx.saved_tensors
+        scale, point, mask, turb = ctx.saved_tensors
         grad_point, grad_scale, grad_value = noise_texture_grad(
-            ttype, scale, point, grad_out, ctx.tables)
+            scale, point, grad_out, ctx.tables, (mask, turb))
         return None, grad_scale, grad_point, grad_value, None
 
 
@@ -215,15 +279,22 @@ def noise_texture(ttype, scale, point, value, tables):
     """The noise branch of ``texture_value`` [N, 3], differentiable in
     ``scale``, ``point`` and ``value``.  A CPU tensor takes the plain
     version (autograd through it); a CUDA tensor launches K2 (building it
-    on first use) or raises, and its backward launches K2b.  Counts its
-    kernel launches in ``noise_texture.launches``."""
+    on first use) or raises.  When the output requires grad, K2 also
+    saves what K2b, its backward, reads; otherwise it writes the value
+    alone.  Counts its kernel launches in ``noise_texture.launches``, and
+    those that saved in ``noise_texture.saves``."""
     device = point.device
     if device.type == "cpu":
         return noise_texture_plain(ttype, scale, point, value, tables)
     if device.type != "cuda":
         raise ValueError(f"noise_texture: unsupported device {device}")
-    return _NoiseTexture.apply(ttype, scale, point, value, tables)
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (scale, point, value)):
+        return _NoiseTexture.apply(ttype, scale, point, value, tables)
+    return _launch_marble(ttype, scale, point, value, tables,
+                          save=False)[0]
 
 
 noise_texture.launches = 0
+noise_texture.saves = 0
 noise_texture_grad.launches = 0

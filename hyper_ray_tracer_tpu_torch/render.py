@@ -226,8 +226,11 @@ def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
             if keep.numel() == 0:
                 break
             if keep.numel() < slot.numel():
-                # index_select: its backward is index_add_ (see
-                # gather_prim_shade_packed).
+                # index_select: its backward is index_add_, exact here
+                # because ``keep`` is unique: each lane's gradient is one
+                # addend onto 0, whatever the atomics' order
+                # (tests/test_torch_gather.py
+                # test_compaction_gather_backward_is_exact).
                 state = WavefrontState(*(x.index_select(0, keep)
                                          for x in state))
                 slot = slot[keep]

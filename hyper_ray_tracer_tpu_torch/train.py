@@ -21,6 +21,7 @@ Run a train step's timing (one JSON line) with
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import sys
 import time
@@ -78,7 +79,7 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
     if silhouette:
         raise NotImplementedError(
             "the edge-sampled silhouette term is not ported yet (ROADMAP "
-            "queue 1 item 14)")
+            "queue 1 item 6)")
 
     def loss_fn(params, scene_t, basis, pixel_ids, sample_ids, seed,
                 target):
@@ -133,12 +134,34 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
     return init, step
 
 
+def snapshot(state: TrainState) -> dict:
+    """A copy of ``state``'s parameter values and optimizer state, for
+    ``restore``."""
+    return {"params": {k: p.detach().clone()
+                       for k, p in state.params.items()},
+            "optimizer": copy.deepcopy(state.optimizer.state_dict())}
+
+
+def restore(state: TrainState, snap: dict) -> None:
+    """Put ``snapshot``'s values back into ``state`` in place: the next
+    step starts from the same parameters and adam moments (and step
+    count) as the step after the snapshot did."""
+    with torch.no_grad():
+        for k, p in state.params.items():
+            p.copy_(snap["params"][k])
+            p.grad = None
+    state.optimizer.load_state_dict(copy.deepcopy(snap["optimizer"]))
+
+
 def main(argv=None) -> int:
     """Camera Mrays/s through a whole adam train step (forward render,
     backward pass, update), as one JSON line; the JAX package's
     ``bench_grad.py`` with the same positional arguments and defaults.
-    Compaction is always on (eager); the partitioned descent is not
-    ported."""
+    As there, every step (the warm-up and each timed one) starts from
+    the initial state: the parameters and the optimizer's state are
+    restored before it, outside the timer.  The loss printed is the
+    first step's, the loss at the initial parameters.  Compaction is
+    always on (eager); the partitioned descent is not ported."""
     from .models.builders import build_scene
 
     ap = argparse.ArgumentParser(prog="hyper_ray_tracer_tpu_torch.train")
@@ -172,20 +195,25 @@ def main(argv=None) -> int:
     target = torch.zeros((W * H, 3), dtype=torch.float32, device=device)
     init, step = make_train_step(scene, W, H, depth, remat=remat)
     state = init(scene_t)
-    state, loss = step(state, scene_t, basis, pix, sam, 0, target)
-    loss.item()  # warm-up: kernel builds, allocator
+    start = snapshot(state)
     best = float("inf")
-    for _ in range(a.steps):
+    for i in range(a.steps + 1):  # 0: the warm-up (kernel builds, allocator)
+        restore(state, start)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         state, loss = step(state, scene_t, basis, pix, sam, 0, target)
-        loss.item()
-        best = min(best, time.perf_counter() - t0)
+        value = loss.item()
+        if i == 0:
+            first_loss = value
+        else:
+            best = min(best, time.perf_counter() - t0)
     print(json.dumps({
         "metric": f"{a.scene}_fwd_bwd_camera_mrays_per_s_depth{depth}",
         "value": W * H * spp / best / 1e6,
         "unit": "Mrays/s",
         "seconds_per_step": best,
-        "loss": float(loss),
+        "loss": first_loss,
         "remat": remat,
         "device": str(device),
     }))

@@ -46,6 +46,8 @@ from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     merge_params,
     params_from_jax,
     pixel_lanes,
+    restore,
+    snapshot,
 )
 
 W, H, SPP, DEPTH = 16, 9, 1, 3
@@ -188,7 +190,7 @@ def test_params_carry_the_jax_package_keys():
 
 
 def test_silhouette_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         make_loss_fn(build_scene("one-sphere"), W, H, DEPTH,
                      silhouette=True)
 
@@ -206,6 +208,53 @@ def test_train_main_on_cpu(capsys):
                  "--steps", "1"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["remat"] is True and np.isfinite(line["loss"])
+
+
+def test_train_main_times_every_step_from_the_initial_state(capsys):
+    """As bench_grad.py does, every step starts from the initial state:
+    ``--steps 1`` and ``--steps 3`` print the same loss, the first step's,
+    which is ``loss_fn`` at the initial parameters."""
+    w, h, depth = 8, 6, 3
+    losses = []
+    for steps in ("1", "3"):
+        assert main(["--cpu", "three-spheres", str(w), str(h), "1",
+                     str(depth), "--steps", steps]) == 0
+        losses.append(json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1])["loss"])
+    scene = build_scene("three-spheres")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    pix, sam = pixel_lanes(w, h, 1, "cpu")
+    loss = make_loss_fn(scene, w, h, depth)(
+        params, st, make_basis(scene.camera, w, h), pix, sam, 0,
+        torch.zeros((w * h, 3)))
+    assert losses[0] == losses[1] == loss.item()
+
+
+def test_snapshot_and_restore_repeat_a_step():
+    """After two adam steps, ``restore`` puts back the parameters and an
+    empty optimizer state: the next step repeats the first one bit for
+    bit (its loss and the parameters it leaves)."""
+    scene = build_scene("three-spheres")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    init, step = make_train_step(scene, W, H, DEPTH)
+    state = init(st)
+    snap = snapshot(state)
+    args = (st, make_basis(scene.camera, W, H), *pixel_lanes(W, H, SPP,
+                                                              "cpu"),
+            0, torch.full((W * H, 3), 0.25))
+    state, first = step(state, *args)
+    after_first = {k: p.detach().clone() for k, p in state.params.items()}
+    state, _ = step(state, *args)
+    restore(state, snap)
+    for k, p in state.params.items():
+        assert torch.equal(p, snap["params"][k]) and p.grad is None, k
+    assert not state.optimizer.state
+    state, again = step(state, *args)
+    assert torch.equal(again, first)
+    for k, p in state.params.items():
+        assert torch.equal(p, after_first[k]), k
 
 
 def test_train_main_without_cuda_refuses_to_fall_back():
