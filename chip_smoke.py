@@ -14,7 +14,13 @@ and K3, `final` through K1b, K2, K2b and K3; `random` at depth 50 with
 remat through the train CLI), whose gradients it holds against the
 port's CPU gradients and against themselves: two steps from one restored
 state give bit-equal gradients on `random`, `final` and `earth`, and it
-times what K3 costs a train step against ``index_add_``.  Each
+times what K3 costs a train step against ``index_add_``.  BVH mode
+(phases 18-19): the traversal kernel K4 against its plain version on
+every scene kind, leaf size and bounce, and on rays built to meet the
+slab test's 0 * inf, timed beside the sweeps on the same rays; then
+`sphereflake` (66,431 spheres) through the CLI at its defaults with
+``--intersector bvh``, the BVH's images against the sweeps', and the
+reference scenes still traced by the sweeps under auto.  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -41,7 +47,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 BIG = float(np.float32(3.0e38))
 T_MIN = 1.0e-3
-KERNELS = ("sphere_sweep", "typed_sweep", "turbulence", "segment_sum")
+KERNELS = ("sphere_sweep", "typed_sweep", "turbulence", "segment_sum",
+           "bvh_traverse")
 PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
@@ -800,13 +807,236 @@ def deep_train_line(lanes, depth):
             f"{r['loss']:.6f}, peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
+# FP32 operations of K4's walk, counted from its contract (ops/bvh.py):
+# a node's slab test (ops/intersect.py aabb_hit) 25: 6 sub and 6 mul, the
+# min and max of each axis' pair (6), the reductions over the axes (4),
+# the t_min and t_max clamps (2) and the compare (1); the NaN checks are
+# not counted.  Per ray once, 8: the three slab reciprocals and |d|^2 (5).
+# A leaf test costs its type's pair count (SWEEP_PAIR_OPS, +6 for a
+# sphere that moves, +33 and the type's per-ray terms in a scene with ray
+# transforms), the branch taken only on a hit left out as for the sweeps.
+# The tests are those these rays need: bvh_traverse_plain counts them.
+BVH_NODE_OPS, BVH_RAY_OPS = 25, 8
+# Bytes: a ray's o, d, time, active and bits read (37) and its t and
+# index written (8); a node's two records (32); a primitive's tag and two
+# records (36), and its transform (48) in a scene with ray transforms.
+BVH_RAY_BYTES, BVH_NODE_BYTES, BVH_PRIM_BYTES, BVH_XF_BYTES = 45, 32, 36, 48
+
+
+def bvh_fp_ops(bvh, stats, kinds):
+    """FP32 operations of the node and leaf tests that
+    ``bvh_traverse_plain`` counted (``stats``) on a BVHScene ``bvh``;
+    ``kinds`` maps each PT_* tag to "sphere", "rect" or "box"."""
+    tests = stats["prim_tests"].cpu()
+    tag = bvh.tag.cpu()
+    slot = bvh.aux[:, 3].contiguous().view(torch.int32).cpu()
+    ops = stats["node_tests"] * BVH_NODE_OPS
+    for ptype, kind in kinds.items():
+        sel = tag == ptype
+        n = int(tests[sel].sum())
+        ops += n * SWEEP_PAIR_OPS[kind]
+        if bvh.static.has_ray_xform:
+            ops += n * (SWEEP_XFORM_OPS + SWEEP_RAY_OPS[kind])
+        if kind == "sphere":
+            ops += SWEEP_MOTION_OPS * int(tests[sel & (slot >= 0)].sum())
+    return ops
+
+
+def flat_scene():
+    """Zero-radius spheres on a grid in the plane y = 0 beside ordinary
+    spheres centered in it (tests/test_torch_bvh.py flat_scene): every
+    node over the zero-radius spheres alone is flat in y."""
+    from hyper_ray_tracer_tpu_torch.models.scene import (
+        CameraConfig,
+        SceneBuilder,
+    )
+
+    b = SceneBuilder()
+    mat = b.lambertian(b.solid((0.5, 0.5, 0.5)))
+    for i in range(6):
+        for j in range(6):
+            b.sphere((2.0 * i, 0.0, 2.0 * j), 0.0, mat)
+    for i in range(4):
+        for j in range(2):
+            b.sphere((30.0 + 2.0 * i, 0.0, 2.0 * j), 0.5, mat)
+    return b.finalize(CameraConfig((0, 5, -20), (5, 0, 5), 40.0, 0.0),
+                      (0, 0, 0), "flat")
+
+
+def slab_nan_rays(scene, dev):
+    """Rays in the plane y = 0 (d.y = +-0), each aimed exactly at a
+    zero-radius sphere of ``flat_scene``: the sweep hits one, but every
+    node over it meets the slab test as 0 * inf = NaN on both planes of
+    y, and NaN-propagating min and max miss it
+    (tests/test_torch_bvh.py slab_nan_rays)."""
+    g = scene.arrays.geom
+    pts = np.asarray(g.p0)[np.asarray(g.radius) == 0.0]
+    dirs = np.float32([[1, 0, 1], [1, -0.0, 0.5], [-1, 0, 2],
+                       [0.5, -0.0, -1], [2, 0, 1]])
+    c = np.repeat(pts, len(dirs), 0)
+    d = np.tile(dirs, (len(pts), 1))
+    o = (c - 5.0 * d).astype(np.float32)
+    rng = np.random.default_rng(len(o))
+    time = rng.random(len(o)).astype(np.float32)
+    bits = rng.integers(0, 2**32, len(o)).astype(np.int64)
+    return tuple(torch.from_numpy(x).to(dev) for x in (o, d, time, bits))
+
+
+# Phase 18's scenes and leaf sizes: every primitive type, media, motion
+# and transforms, and the leaf sizes 1, 4 and 8 on `final`.
+K4_CASES = (("random", 4), ("cornell", 4), ("cornell-smoke", 4),
+            ("final", 1), ("final", 4), ("final", 8),
+            ("sphereflake-small", 4), ("sphereflake", 4))
+CASE_SHAPE = (320, 180)  # phase 18's correctness cases
+K4_TIMED = ("random", "cornell", "cornell-smoke", "final",
+            "sphereflake-small", "sphereflake")
+
+
+def k4_phase(dev, kinds, W=1280, H=720):
+    """K4 (``bvh_traverse``) against ``bvh_traverse_plain``, bit for bit:
+    camera rays and bounces 1-2 of each of K4_CASES at 320x180, and the
+    slab-NaN rays; then at the main path's shape (each K4_TIMED scene's
+    camera rays at W x H, 1 spp) again bit for bit, with the node and leaf
+    tests the rays need, K4's device time and bound, and K1's or K1b's
+    device time on the same rays through the scene as built (the measured
+    sweep-vs-BVH crossover).  Returns (case lines, {scene: measurements},
+    the largest |t| gap on matched hits)."""
+    from hyper_ray_tracer_tpu_torch import build_scene, prepare_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.bvh import (
+        bvh_traverse,
+        bvh_traverse_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import typed_sweep
+    from hyper_ray_tracer_tpu_torch.render import bounce_step, init_state
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    def bvh_tensors(scene, leaf):
+        arrays, tree, _ = prepare_scene(scene, "bvh", leaf)
+        return to_device(arrays, scene.static, dev, tree)
+
+    def camera(scene, w, h):
+        pix = torch.arange(w * h, dtype=torch.int64, device=dev)
+        return init_state(make_basis(scene.camera, w, h), w, h, pix,
+                          torch.zeros_like(pix), 0)
+
+    def plain(st, *args, stats=None):
+        return bvh_traverse_plain(st.bvh.tree, st.bvh.prims, *args, T_MIN,
+                                  st.bvh.static, stats=stats)
+
+    def check(label, st, o, d, tm, active, bits, stats=None):
+        args = tuple(x.contiguous() for x in (o, d, tm, active, bits))
+        t_k, b_k = bvh_traverse(st.bvh, *args, T_MIN)
+        torch.cuda.synchronize()
+        t_p, b_p = plain(st, *args, stats=stats)
+        errs.append(sweep_rules(f"K4 {label}", t_k, b_k, t_p, b_p,
+                                args[3])[2])
+        return args, t_k, b_k
+
+    lines, hits, errs = [], {}, []
+    for name, leaf in K4_CASES:
+        scene = build_scene(name)
+        st = bvh_tensors(scene, leaf)
+        s = camera(scene, *CASE_SHAPE)
+        share = []
+        for b in range(3):
+            _, _, b_k = check(f"{name} leaf {leaf} bounce {b}", st, s.o,
+                              s.d, s.time, s.alive,
+                              prng.bounce_base(s.base, b))
+            share.append(f"{(b_k >= 0).float().mean().item():.3f}")
+            s = bounce_step(st, scene.background, s, b)
+        lines.append(f"{name} leaf {leaf} (hit share by bounce "
+                     f"{'/'.join(share)})")
+    flat = flat_scene()
+    for leaf in (1, 4, 8):
+        st = bvh_tensors(flat, leaf)
+        o, d, tm, bits = slab_nan_rays(flat, dev)
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=dev)
+        _, _, b_k = check(f"slab-NaN rays leaf {leaf}", st, o, d, tm,
+                          active, bits)
+        hits[leaf] = (b_k >= 0).float().mean().item()
+    lines.append(f"{o.shape[0]} slab-NaN rays, leaf 1/4/8 (hit share "
+                 + "/".join(f"{v:.3f}" for v in hits.values())
+                 + "; the sweep hits every one)")
+
+    timed = {}
+    for name in K4_TIMED:
+        scene = build_scene(name)
+        st = bvh_tensors(scene, 4)
+        cam = camera(scene, W, H)
+        stats = {}
+        args, t_k, b_k = check(f"{name} camera {W}x{H}", st, cam.o, cam.d,
+                               cam.time, cam.alive,
+                               prng.bounce_base(cam.base, 0), stats)
+        k4_args = (st.bvh, *args, T_MIN)
+        n = cam.o.shape[0]
+        sweep_t = to_device(scene.arrays, scene.static, dev)
+        if sweep_t.sphere_only:
+            sweep, sweep_name = sphere_sweep, "K1"
+            sweep_args = (*sweep_t.spheres, *args[:4], T_MIN)
+        else:
+            sweep, sweep_name = typed_sweep, "K1b"
+            sweep_args = (sweep_t.sweep, *args, T_MIN)
+        t_s, b_s = sweep(*sweep_args)
+        # The walk's winners in the scene's own order: the reordered
+        # geometry's stable_id is the canonical index.
+        canon = torch.where(b_k >= 0, st.arrays.geom.stable_id[
+            b_k.clamp(min=0).long()].to(torch.int32), -1)
+        same = (canon == b_s) & (t_k == t_s)
+        ties = int((~same & (t_k == t_s)).sum())
+        n_nodes, n_prims = st.bvh.nodes.shape[0], st.bvh.geo.shape[0]
+        ops = bvh_fp_ops(st.bvh, stats, kinds) + n * BVH_RAY_OPS
+        n_bytes = (n * BVH_RAY_BYTES + n_nodes * BVH_NODE_BYTES
+                   + n_prims * (BVH_PRIM_BYTES + BVH_XF_BYTES
+                                * scene.static.has_ray_xform))
+        row = dict(
+            n=n, nodes=n_nodes, prims=scene.static.n_prims,
+            node_tests=stats["node_tests"] / n,
+            leaf_tests=int(stats["prim_tests"].sum()) / n,
+            ms=device_ms(bvh_traverse, k4_args, 10),
+            sweep=sweep_name,
+            sweep_ms=device_ms(sweep, sweep_args,
+                               2 if name == "sphereflake" else 10),
+            differ=int((~same).sum()), ties=ties,
+            bound=bound(n_bytes, ops), ops=ops / n)
+        if name == "sphereflake":
+            row["call_ms"], row["plain_ms"] = in_turns(
+                lambda *a: plain(st, *a[1:-1]), bvh_traverse, k4_args, 1,
+                10)
+        timed[name] = row
+    return lines, timed, max(errs)
+
+
+def k4_line(lines, timed, ptxas_note):
+    flake = timed["sphereflake"]
+    return (
+        "bvh_traverse (K4) vs bvh_traverse_plain, bit-equal on every case "
+        "and inactive rays at (BIG, -1) (asserted): camera rays and bounces"
+        " 1-2 at 320x180 of " + "; ".join(lines)
+        + f" | at the main path's shape (camera rays, 1280x720, leaf 4, "
+        "bit-equal again): " + "; ".join(
+            f"{name} ({v['prims']} primitives, {v['nodes']} nodes): "
+            f"{v['node_tests']:.2f} node and {v['leaf_tests']:.2f} leaf "
+            f"tests a ray, K4 {v['ms']:.4f} ms on the device, bound "
+            f"{v['bound'][0]:.6f} ms ({v['bound'][1]}, {v['ops']:.1f} FP32 "
+            f"operations a ray), {v['bound'][0] / v['ms']:.3f} of it; "
+            f"{v['sweep']} {v['sweep_ms']:.4f} ms on the same rays "
+            f"({v['sweep_ms'] / v['ms']:.2f}x K4's), winner or t other than "
+            f"the walk's on {v['differ']} rays ({v['ties']} of them ties "
+            "at one t)"
+            for name, v in timed.items())
+        + f" | sphereflake: K4 {flake['call_ms']:.4f} ms a call back to "
+        f"back, plain {flake['plain_ms']:.4f} ms; ptxas: {ptxas_note}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from hyper_ray_tracer_tpu_torch import RenderSettings, build_scene
-    from hyper_ray_tracer_tpu_torch import render_image
+    from hyper_ray_tracer_tpu_torch import prepare_scene, render_image
     from hyper_ray_tracer_tpu_torch.__main__ import main as cli_main
     from hyper_ray_tracer_tpu_torch.camera import make_basis
     from hyper_ray_tracer_tpu_torch.models.scene import (
@@ -819,6 +1049,7 @@ def main() -> int:
         TT_SOLID,
     )
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
     from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
     from hyper_ray_tracer_tpu_torch.ops.intersect import (
         gather_prim_shade_packed,
@@ -855,7 +1086,7 @@ def main() -> int:
     wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
                 "turbulence": noise_texture,
                 "turbulence_bwd": noise_texture_grad,
-                "segment_sum": segment_sum}
+                "segment_sum": segment_sum, "bvh_traverse": bvh_traverse}
 
     def reset_counts():
         for w in wrappers.values():
@@ -1207,7 +1438,8 @@ def main() -> int:
         uses = {"sphere_sweep": st.sphere_only,
                 "typed_sweep": not st.sphere_only,
                 "turbulence": scene.static.has_noise_tex,
-                "turbulence_bwd": False, "segment_sum": False}
+                "turbulence_bwd": False, "segment_sum": False,
+                "bvh_traverse": False}
         for kname, used in uses.items():
             assert (launched[kname] > 0) == used, (name, kname, launched)
         med, mean, outl = golden_errors(img, golden)
@@ -1409,6 +1641,96 @@ def main() -> int:
                                               TRAIN_SHAPE))
               for name in ("random", "final")))
 
+    # Phase 18: K4 against its plain version, and the sweeps beside it.
+    k4_lines, k4, k4_err = k4_phase(dev, kinds)
+    phase(18, k4_line(k4_lines, k4, resources(ptxas["bvh_traverse"])))
+
+    # Phase 19: BVH mode end to end.  The CLI at its defaults on
+    # `sphereflake` (1280x720, 100 spp, depth 10) with --intersector bvh.
+    flake_rays = 1280 * 720 * 100
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sphereflake.png"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        rc = cli_main(["--scene", "sphereflake", "--intersector", "bvh",
+                       "--output", str(out)])
+        flake_wall = time.monotonic() - t0
+        flake_launches = counts()
+        assert rc == 0, f"CLI exit code {rc}"
+        assert flake_launches["bvh_traverse"] > 0, \
+            "the BVH path never launched bvh_traverse"
+        assert flake_launches["sphere_sweep"] == 0, flake_launches
+        png = read_png(out)
+    flake_peak = torch.cuda.max_memory_allocated() / 1e9
+    assert png.shape == (720, 1280, 3), png.shape
+    assert len(np.unique(png.reshape(-1, 3), axis=0)) > 1000, \
+        "the image is flat"
+    flake_lum = png.astype(np.float64).mean()
+    flake = build_scene("sphereflake")
+    t0 = time.monotonic()
+    prepare_scene(flake, "bvh")
+    flake_prep = time.monotonic() - t0
+    # `sphereflake` through the sweep and through the BVH at one reduced
+    # shape, through the CLI, and the two PNGs held to the goldens' bounds.
+    RW, RH, RSPP = 640, 360, 4
+    walls, pngs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("sweep", "bvh"):
+            out = Path(tmp) / f"{mode}.png"
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            rc = cli_main(["--scene", "sphereflake", "--intersector", mode,
+                           "--width", str(RW), "--height", str(RH),
+                           "--samples", str(RSPP), "--output", str(out)])
+            walls[mode] = time.monotonic() - t0
+            assert rc == 0, f"CLI exit code {rc}"
+            pngs[mode] = read_png(out).astype(np.float64) / 255.0
+    same_px = (pngs["bvh"] == pngs["sweep"]).all(-1).mean()
+    png_err = golden_errors(pngs["bvh"], pngs["sweep"])
+    # sphereflake-small's golden through the BVH.
+    golden = np.load(ROOT / "tests" / "golden" /
+                     "sphereflake-small_160x90_4spp_d8.npy")
+    reset_counts()
+    img = render_image(build_scene("sphereflake-small"),
+                       RenderSettings(160, 90, 4, 8, intersector="bvh"), dev)
+    assert counts()["bvh_traverse"] > 0, "the golden render missed K4"
+    small_err = golden_errors(img, golden)
+    # random and cornell through the BVH and through the sweeps: equal.
+    equal = []
+    for name in ("random", "cornell"):
+        scene = build_scene(name)
+        imgs = [render_image(scene, RenderSettings(160, 90, 2, 8,
+                                                   intersector=mode), dev)
+                for mode in ("bvh", "sweep")]
+        assert np.array_equal(*imgs), f"{name}: BVH and sweep images differ"
+        equal.append(name)
+    # Under auto the reference scenes still trace through the sweeps.
+    auto = {}
+    for name, kernel in (("random", "sphere_sweep"), ("final", "typed_sweep")):
+        reset_counts()
+        render_image(build_scene(name), RenderSettings(64, 36, 1, 3), dev)
+        auto[name] = counts()
+        assert auto[name][kernel] > 0 and auto[name]["bvh_traverse"] == 0, \
+            (name, auto[name])
+    phase(19, f"CLI sphereflake --intersector bvh 1280x720 100spp d10 "
+          f"({flake_rays} camera rays): wall {flake_wall:.3f} s, "
+          f"{flake_rays / flake_wall / 1e6:.3f} camera Mrays/s, launches "
+          f"{flake_launches}, peak device memory {flake_peak:.2f} GB, PNG "
+          f"mean {flake_lum:.1f}; its BVH's host build (prepare_scene) "
+          f"{flake_prep:.3f} s | sphereflake {RW}x{RH} {RSPP}spp d10 "
+          f"through the CLI: --intersector sweep {walls['sweep']:.3f} s, "
+          f"bvh {walls['bvh']:.3f} s ({walls['sweep'] / walls['bvh']:.2f}x);"
+          f" PNGs: {same_px:.6f} of pixels equal, median / mean err / "
+          f"outliers {png_err[0]:.3e} / {png_err[1]:.3e} / {png_err[2]:.4f} "
+          "(golden bounds, asserted) | sphereflake-small 160x90 4spp d8 "
+          f"through the BVH vs its golden: median {small_err[0]:.3e} mean "
+          f"{small_err[1]:.3e} outliers {small_err[2]:.4f} (asserted) | "
+          f"BVH images equal to the sweeps' at 160x90 2spp d8 (asserted): "
+          f"{', '.join(equal)} | under auto (asserted: the sweeps, not K4): "
+          + "; ".join(f"{k} {v}" for k, v in auto.items()))
+
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/sphere_sweep.cu",
@@ -1455,6 +1777,14 @@ def main() -> int:
          "bound_ms": k3["random"]["bound"][0],
          "bound_by": k3["random"]["bound"][1],
          "library_ms": k3["random"]["library_ms"]},
+        {"name": "bvh_traverse", "route": "cuda",
+         "source": "hyper_ray_tracer_tpu_torch/csrc/bvh_traverse.cu",
+         "replaces": "hyper_ray_tracer_tpu/ops/bvh.py:408",
+         "launches": flake_launches["bvh_traverse"],
+         "max_abs_err": k4_err, "ms": k4["sphereflake"]["ms"],
+         "plain_ms": k4["sphereflake"]["plain_ms"],
+         "bound_ms": k4["sphereflake"]["bound"][0],
+         "bound_by": k4["sphereflake"]["bound"][1], "library_ms": None},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

@@ -3,14 +3,18 @@
 The JAX package beside it is the reference this port is held against.
 Plain tensor code is PyTorch; the kernels are CUDA written for Hopper and
 built with nvcc on first use: the trace step of sphere-only scenes
-(``csrc/sphere_sweep.cu``), of every other scene (``csrc/typed_sweep.cu``)
-and the noise texture's turbulence (``csrc/turbulence.cu``).  Importing the
-package imports neither JAX nor a compiler.
+(``csrc/sphere_sweep.cu``, K1), of every other scene
+(``csrc/typed_sweep.cu``, K1b), and of BVH mode (``csrc/bvh_traverse.cu``,
+K4: the walk of the skip-threaded BVH, which auto picks from 30,000
+primitives); the noise texture's turbulence and its backward
+(``csrc/turbulence.cu``, K2 and K2b) and the gathers' segmented sum
+(``csrc/segment_sum.cu``, K3).  Importing the package imports neither JAX
+nor a compiler.
 """
 
 from .models.builders import SCENES, build_scene
 from .models.scene import Scene, SceneBuilder
-from .render import RenderSettings, render_image
+from .render import RenderSettings, prepare_scene, render_image
 
 __all__ = [
     "SCENES",
@@ -18,5 +22,6 @@ __all__ = [
     "Scene",
     "SceneBuilder",
     "RenderSettings",
+    "prepare_scene",
     "render_image",
 ]

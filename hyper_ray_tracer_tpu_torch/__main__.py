@@ -2,7 +2,9 @@
 
 Keeps the reference's six flags and defaults (arguments.rs:21-47:
 --width 1280 --height 720 --samples 100 --depth 10 --tile-size 80
---scene random) plus --output, --seed, --spp-chunk and --cpu.  The device
+--scene random) plus --output, --seed, --spp-chunk, --intersector,
+--leaf-size, --verbosity and --cpu (the JAX package's CLI has the same
+names and defaults).  The device
 is CUDA; without a card the program stops with an error unless ``--cpu``
 asks for the plain-PyTorch CPU path.
 """
@@ -38,6 +40,15 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spp-chunk", type=int, default=None,
                         help="Samples per device pass (default: auto)")
+    parser.add_argument("--intersector", default="auto",
+                        choices=["auto", "sweep", "cluster", "bvh"],
+                        help="Intersector mode (auto: the all-pairs sweep "
+                             "below 30,000 primitives, the BVH from there; "
+                             "cluster is not ported yet)")
+    parser.add_argument("--leaf-size", type=int, default=4,
+                        help="Primitives per BVH leaf (1-8)")
+    parser.add_argument("--verbosity", type=int, default=2,
+                        help="0=warn 1=info 2=debug (logger.rs:45-51)")
     parser.add_argument("--cpu", action="store_true",
                         help="Render on the CPU with the plain-PyTorch "
                              "versions of the kernels")
@@ -46,11 +57,11 @@ def main(argv=None) -> int:
     import torch
 
     from . import build_scene
-    from .render import RenderSettings, render_image
+    from .render import RenderSettings, render_image, resolve_intersector
     from .utils.image import write_png
     from .utils.logging import init as log_init
 
-    log = log_init(1)
+    log = log_init(args.verbosity)
     if args.cpu:
         device = torch.device("cpu")
     elif torch.cuda.is_available():
@@ -63,9 +74,12 @@ def main(argv=None) -> int:
     log.info("Generating world...")
     scene = build_scene(args.scene)
     log.info("Generated world (%d primitives)", scene.static.n_prims)
+    mode = resolve_intersector(scene, args.intersector)
+    log.debug("Intersector: %s (%s)", mode, args.intersector)
     settings = RenderSettings(width=args.width, height=args.height,
                               samples=args.samples, depth=args.depth,
-                              seed=args.seed, spp_chunk=args.spp_chunk)
+                              seed=args.seed, spp_chunk=args.spp_chunk,
+                              intersector=mode, leaf_size=args.leaf_size)
     t0 = time.monotonic()
     img = render_image(scene, settings, device)
     dt = time.monotonic() - t0

@@ -50,9 +50,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "prim_hit.cuh"
+
 namespace hrt {
 
-constexpr float kBig = 3.0e38f;
 constexpr int kThreads = 128;  // threads per block of both sweeps
 constexpr int kRays = 4;       // rays per thread, the packet size R
 
@@ -67,23 +68,6 @@ __device__ __forceinline__ int word(int r) {
 // register; the running best t, which every second phase reads, stays in
 // registers.
 __shared__ int s_best[kRays * kThreads];
-
-// a.b summed left to right with one rounding per step (ops/intersect.py
-// _dot3).
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(ax, bx), __fmul_rn(ay, by)),
-                   __fmul_rn(az, bz));
-}
-
-// x unchanged, as computed here.  The empty asm claims to change x, so
-// the compiler cannot move x's computation (a correctly rounded division,
-// say) into the pair loop that reads x, as it otherwise may to save a
-// register: a per-ray term is computed once per ray, not once per pair.
-__device__ __forceinline__ float pin(float x) {
-  asm volatile("" : "+f"(x));
-  return x;
-}
 
 // 16-byte asynchronous copy global -> shared (cp.async.cg: through L2 only).
 __device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
@@ -174,49 +158,6 @@ __device__ __forceinline__ void shutter_factor(
     pk.f[r] = pin(__fdiv_rn(__fsub_rn(tm, s.x), s.y));
   }
   pk.slot = slot;
-}
-
-// The half-b quadratic of a sphere (c, r2 = r * r) against ray (o, d)
-// with a = |d|^2 (ops/intersect.py sphere_roots): the discriminant, and
-// the roots when it is >= 0.
-struct Roots {
-  float t_near, t_far;
-  bool exists;
-};
-
-__device__ __forceinline__ Roots sphere_roots(float cx, float cy, float cz,
-                                              float r2, float ox, float oy,
-                                              float oz, float dx, float dy,
-                                              float dz, float a) {
-  const float ocx = __fsub_rn(ox, cx);
-  const float ocy = __fsub_rn(oy, cy);
-  const float ocz = __fsub_rn(oz, cz);
-  const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
-  const float c = __fsub_rn(dot3(ocx, ocy, ocz, ocx, ocy, ocz), r2);
-  const float disc = __fsub_rn(__fmul_rn(half_b, half_b), __fmul_rn(a, c));
-  Roots out;
-  out.exists = disc >= 0.0f;
-  out.t_near = out.t_far = kBig;
-  if (out.exists) {  // rare per pair: the ray's line meets the sphere
-    const float sq = __fsqrt_rn(fmaxf(disc, 1e-30f));
-    out.t_near = __fdiv_rn(__fsub_rn(-half_b, sq), a);
-    out.t_far = __fdiv_rn(__fadd_rn(-half_b, sq), a);
-  }
-  return out;
-}
-
-// Nearer root first, inclusive [t_min, t_max] (sphere.rs:40-58); kBig on
-// a miss.
-__device__ __forceinline__ float sphere_t(float cx, float cy, float cz,
-                                          float r2, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz, float a, float t_min,
-                                          float t_max) {
-  const Roots rt = sphere_roots(cx, cy, cz, r2, ox, oy, oz, dx, dy, dz, a);
-  if (!rt.exists) return kBig;
-  if (rt.t_near >= t_min && rt.t_near <= t_max) return rt.t_near;
-  if (rt.t_far >= t_min && rt.t_far <= t_max) return rt.t_far;
-  return kBig;
 }
 
 // Update ray r's running best with candidate t: only a strictly smaller t

@@ -77,22 +77,24 @@
 
 namespace {
 
+using hrt::box_slab;
 using hrt::dot3;
 using hrt::kBig;
+using hrt::kBox;
+using hrt::kMediumBox;
+using hrt::kMediumSphere;
+using hrt::kRect;
+using hrt::kSphere;
 using hrt::kThreads;
+using hrt::medium_scatter_t;
+using hrt::medium_uniform;
+using hrt::ray_terms;
+using hrt::RayTerms;
+using hrt::rect_t;
+using hrt::to_object;
 
 constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 96 registers
 constexpr int kStage = 256;    // primitive records per ring slot
-constexpr float kRehitEps = 1.0e-4f;  // constant_medium.rs:38
-constexpr float kSlabFloor = 1e-20f;
-
-// Primitive type tags (models/scene.py PT_*).
-constexpr int kSphere = 0;
-constexpr int kRect = 1;
-constexpr int kMediumSphere = 2;
-constexpr int kMediumBox = 3;
-constexpr int kBox = 4;
-
 // A plan row: 8 int32 (ops/typed_sweep.py PLAN_COLUMNS).
 struct Tile {
   int start, width, type, motion, xform, axis, xf_off;
@@ -122,127 +124,6 @@ struct Ring {
   float4* aux;
   float4* xf;
 };
-
-// ops/rng.py: fmix32, stream_bits(bits, P_MEDIUM, salt), bits_to_uniform.
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-__device__ __forceinline__ float medium_uniform(uint32_t bits,
-                                                uint32_t salt) {
-  const uint32_t mixed = bits + 0x20u * 0x9E3779B9u + salt * 0x85EBCA6Bu;
-  return __fmul_rn(__uint2float_rn(fmix32(mixed) >> 8), 0x1p-24f);
-}
-
-// Terms of the ray in a tile's frame that every pair of the tile shares.
-struct RayTerms {
-  float a;           // |d|^2
-  float ix, iy, iz;  // slab reciprocals
-  float len;         // sqrt(|d|^2)
-};
-
-__device__ __forceinline__ float slab_inv(float d) {
-  return __fdiv_rn(1.0f, fabsf(d) < kSlabFloor ? kSlabFloor : d);
-}
-
-template <int kType>
-__device__ __forceinline__ RayTerms ray_terms(float dx, float dy, float dz) {
-  RayTerms t{0.f, 0.f, 0.f, 0.f, 0.f};
-  if constexpr (kType == kSphere || kType == kMediumSphere ||
-                kType == kMediumBox) {
-    t.a = hrt::pin(dot3(dx, dy, dz, dx, dy, dz));
-  }
-  if constexpr (kType == kMediumSphere || kType == kMediumBox) {
-    t.len = hrt::pin(__fsqrt_rn(t.a));
-  }
-  if constexpr (kType == kBox || kType == kMediumBox) {
-    t.ix = hrt::pin(slab_inv(dx));
-    t.iy = hrt::pin(slab_inv(dy));
-    t.iz = hrt::pin(slab_inv(dz));
-  }
-  return t;
-}
-
-// World ray -> object frame: o' = R^T (o - t), d' = R^T d, component i
-// summed left to right over R's rows (ops/intersect.py _xform_ray).
-// x0..x2 hold R row-major, then t.
-__device__ __forceinline__ void to_object(const float4 x0, const float4 x1,
-                                          const float4 x2, float& ox,
-                                          float& oy, float& oz, float& dx,
-                                          float& dy, float& dz) {
-  const float mx = __fsub_rn(ox, x2.y);
-  const float my = __fsub_rn(oy, x2.z);
-  const float mz = __fsub_rn(oz, x2.w);
-  const float c0[3] = {x0.x, x0.w, x1.z};  // column 0: R00, R10, R20
-  const float c1[3] = {x0.y, x1.x, x1.w};  // column 1
-  const float c2[3] = {x0.z, x1.y, x2.x};  // column 2
-  ox = dot3(c0[0], c0[1], c0[2], mx, my, mz);
-  oy = dot3(c1[0], c1[1], c1[2], mx, my, mz);
-  oz = dot3(c2[0], c2[1], c2[2], mx, my, mz);
-  const float ex = dx, ey = dy, ez = dz;
-  dx = dot3(c0[0], c0[1], c0[2], ex, ey, ez);
-  dy = dot3(c1[0], c1[1], c1[2], ex, ey, ez);
-  dz = dot3(c2[0], c2[1], c2[2], ex, ey, ez);
-}
-
-// ops/intersect.py rect_t: (k, a, b) axes by plane tag (rect.rs:54-58);
-// geo = (a0, b0, k, a1), b1.
-__device__ __forceinline__ float rect_t(const float4 g, float b1, int ax,
-                                        float ox, float oy, float oz,
-                                        float dx, float dy, float dz,
-                                        float t_min, float t_max) {
-  float ok, oa, ob, dk, da, db;
-  if (ax == 0) {  // XY: k on z
-    ok = oz; oa = ox; ob = oy; dk = dz; da = dx; db = dy;
-  } else if (ax == 1) {  // YZ: k on x
-    ok = ox; oa = oy; ob = oz; dk = dx; da = dy; db = dz;
-  } else {  // ZX: k on y
-    ok = oy; oa = oz; ob = ox; dk = dy; da = dz; db = dx;
-  }
-  if (dk == 0.0f) return kBig;  // parallel to the plane
-  const float t = __fdiv_rn(__fsub_rn(g.z, ok), dk);
-  const float a = __fadd_rn(oa, __fmul_rn(t, da));
-  const float b = __fadd_rn(ob, __fmul_rn(t, db));
-  const bool hit = t >= t_min && t <= t_max && a >= g.x && a <= g.w &&
-                   b >= g.y && b <= b1;
-  return hit ? t : kBig;
-}
-
-// ops/intersect.py _box_slab with the reciprocals of the ray's direction.
-__device__ __forceinline__ void box_slab(const float4 p0, const float4 p1,
-                                         float ox, float oy, float oz,
-                                         const RayTerms& rt, float& entry,
-                                         float& exit) {
-  const float lx = __fmul_rn(__fsub_rn(p0.x, ox), rt.ix);
-  const float hx = __fmul_rn(__fsub_rn(p1.x, ox), rt.ix);
-  const float ly = __fmul_rn(__fsub_rn(p0.y, oy), rt.iy);
-  const float hy = __fmul_rn(__fsub_rn(p1.y, oy), rt.iy);
-  const float lz = __fmul_rn(__fsub_rn(p0.z, oz), rt.iz);
-  const float hz = __fmul_rn(__fsub_rn(p1.z, oz), rt.iz);
-  entry = fmaxf(fmaxf(fminf(lx, hx), fminf(ly, hy)), fminf(lz, hz));
-  exit = fminf(fminf(fmaxf(lx, hx), fmaxf(ly, hy)), fmaxf(lz, hz));
-}
-
-// ops/intersect.py _medium_scatter_t: free flight inside [entry, exit].
-__device__ __forceinline__ float medium_scatter_t(float entry, float exit,
-                                                  float nid, float ray_len,
-                                                  float t_min, float t_max,
-                                                  float u) {
-  bool exists = exit >= __fadd_rn(entry, kRehitEps);
-  float t1 = fmaxf(entry, t_min);
-  const float t2 = fminf(exit, t_max);
-  exists = exists && t1 < t2;
-  t1 = fmaxf(t1, 0.0f);
-  const float dist_inside = __fmul_rn(__fsub_rn(t2, t1), ray_len);
-  const float hit_dist = __fmul_rn(nid, logf(u));
-  exists = exists && hit_dist <= dist_inside;
-  return exists ? __fadd_rn(t1, __fdiv_rn(hit_dist, ray_len)) : kBig;
-}
 
 // The candidate t of one pair of a rect or medium tile, or of a
 // transformed tile (f: the ray's lerp factor, read when a sphere's slot is

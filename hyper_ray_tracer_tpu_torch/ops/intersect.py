@@ -393,6 +393,22 @@ def prim_hit_t_lanes(pf: PrimFields, o, d, time, t_min, t_max, ray_bits,
     return t
 
 
+def aabb_hit(box_min, box_max, o, inv_d, t_min, t_max):
+    """Slab test of a BVH node (aabb.rs:20-47; the JAX package's
+    ``ops/intersect.py:aabb_hit``): strict overlap of the ray's slab
+    interval with [t_min, t_max].  ``inv_d`` is 1 / d with no floor: an
+    axis-parallel ray's ±inf meets a bound plane through its origin as
+    0 * inf = NaN, and every min and max here propagates it, so such a
+    node is missed, as with ``jnp``'s."""
+    t0 = (box_min - o) * inv_d
+    t1 = (box_max - o) * inv_d
+    lo = torch.minimum(t0, t1)
+    hi = torch.maximum(t0, t1)
+    tmin_all = torch.clamp(lo.amax(-1), min=t_min)
+    tmax_all = torch.minimum(hi.amin(-1), t_max)
+    return tmax_all > tmin_all
+
+
 def _sphere_uv(outward):
     """sphere.rs:31-36: theta = acos(-y), phi = atan2(-z, x) + pi, clipped
     a hair inside [-1, 1] exactly as the JAX package and the oracle do."""

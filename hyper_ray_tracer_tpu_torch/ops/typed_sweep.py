@@ -118,14 +118,12 @@ class SweepScene(NamedTuple):
     shutter: torch.Tensor  # [S, 2] float32 (time0, time1 - time0) per slot
 
 
-def typed_records(geom_np, plan, n_prims: int):
-    """The kernel's packed records of the first ``n_prims`` primitives of
-    the NumPy geometry ``geom_np`` (layout: csrc/typed_sweep.cu).  Returns
-    (plan rows [T, 8] int32, geo [P, 4], aux [P, 4], xf [X, 12], shutter
-    [S, 2] float32).  Spheres are packed by ``sphere_records``, lerped only
-    in the plan's motion tiles, as ``prim_hit_t`` lerps them; ``xf`` holds
-    R row-major and t of every primitive of a transformed tile, tile by
-    tile (one zero row when there is none)."""
+def prim_records(geom_np, n_prims: int, lerp):
+    """The packed per-type records of the first ``n_prims`` primitives of
+    the NumPy geometry ``geom_np`` (layout: csrc/typed_sweep.cu; a rect's
+    aux also carries its plane tag, which K4 reads and K1b does not).
+    Returns (geo [P, 4], aux [P, 4], shutter [S, 2] float32).  Spheres
+    are packed by ``sphere_records``, lerped where ``lerp`` [P] is set."""
     g = geom_np
     n = n_prims
     pt = np.asarray(g.ptype)[:n]
@@ -133,10 +131,8 @@ def typed_records(geom_np, plan, n_prims: int):
     p1 = np.asarray(g.p1, np.float32)[:n]
     nid = np.asarray(g.neg_inv_density, np.float32)[:n]
     sid = np.asarray(g.stable_id).astype(np.int32)[:n].view(np.float32)
+    axis = np.asarray(g.axis).astype(np.int32)[:n].view(np.float32)
     zero = np.zeros(n, np.float32)
-    lerp = np.zeros(n, bool)
-    for t in plan:
-        lerp[t.start:t.start + t.width] = t.ptype == PT_SPHERE and t.motion
     sph = sphere_records(p0, p1, np.asarray(g.time0)[:n],
                          np.asarray(g.time1)[:n], np.asarray(g.radius)[:n],
                          lerp)
@@ -145,7 +141,7 @@ def typed_records(geom_np, plan, n_prims: int):
         PT_SPHERE: (sph.geo, sph.aux),
         PT_MEDIUM_SPHERE: (sph.geo, col([nid, sid, zero, zero], 1)),
         PT_RECT: (col([p0[:, 0], p0[:, 1], p0[:, 2], p1[:, 0]], 1),
-                  col([p1[:, 1], zero, zero, zero], 1)),
+                  col([p1[:, 1], axis, zero, zero], 1)),
         PT_BOX: (np.concatenate([p0, zero[:, None]], 1),
                  np.concatenate([p1, zero[:, None]], 1)),
         PT_MEDIUM_BOX: (np.concatenate([p0, nid[:, None]], 1),
@@ -157,6 +153,23 @@ def typed_records(geom_np, plan, n_prims: int):
         sel = pt == ptype
         geo[sel] = g_rec[sel]
         aux[sel] = a_rec[sel]
+    return geo, aux, sph.shutter
+
+
+def typed_records(geom_np, plan, n_prims: int):
+    """The kernel's packed records of the first ``n_prims`` primitives of
+    the NumPy geometry ``geom_np`` (layout: csrc/typed_sweep.cu).  Returns
+    (plan rows [T, 8] int32, geo [P, 4], aux [P, 4], xf [X, 12], shutter
+    [S, 2] float32).  Spheres are lerped only in the plan's motion tiles,
+    as ``prim_hit_t`` lerps them; ``xf`` holds R row-major and t of every
+    primitive of a transformed tile, tile by tile (one zero row when
+    there is none)."""
+    g = geom_np
+    n = n_prims
+    lerp = np.zeros(n, bool)
+    for t in plan:
+        lerp[t.start:t.start + t.width] = t.ptype == PT_SPHERE and t.motion
+    geo, aux, shutter = prim_records(g, n, lerp)
     xform = np.concatenate([np.asarray(g.rot, np.float32)[:n].reshape(n, 9),
                             np.asarray(g.trans, np.float32)[:n]], 1)
     rows, xf = [], []
@@ -169,7 +182,7 @@ def typed_records(geom_np, plan, n_prims: int):
             n_xf += t.width
     xf = np.concatenate(xf) if xf else np.zeros((1, 12), np.float32)
     return (np.asarray(rows, np.int32), geo, aux,
-            np.ascontiguousarray(xf, np.float32), sph.shutter)
+            np.ascontiguousarray(xf, np.float32), shutter)
 
 
 def sweep_plan(geom_np, n_prims: int) -> tuple:

@@ -24,6 +24,11 @@ discrete searches) and recomputes the winner's hit distance in plain
 torch, so that gradients reach the geometry through t, the hit point
 and everything shaded from it.
 
+The trace step has two modes (``resolve_intersector``): the all-pairs
+sweeps, and BVH mode, the walk of a skip-threaded BVH over the geometry
+reordered into its leaves (``prepare_scene``; the JAX package's
+``render.py:119-151, 547-575``).
+
 Compaction is eager: after every bounce, each lane's radiance is written to
 its launch slot, and only the ``alive.nonzero()`` lanes, in launch order,
 go on to the next bounce.  Every lane carries its own RNG base and shutter
@@ -39,7 +44,7 @@ operations, four per bounce against the bounce's hundreds.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -47,8 +52,10 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .camera import CameraBasis, get_rays, make_basis
+from .models.bvh_build import build_bvh
 from .models.scene import Scene
 from .ops import rng as prng
+from .ops.bvh import MAX_LEAF_SIZE, bvh_traverse
 from .ops.intersect import (
     BIG,
     gather_prim_shade_packed,
@@ -74,6 +81,11 @@ _SKY_BLUE = (0.5, 0.7, 1.0)
 # millions of lanes.
 CHUNK_LANES = 1 << 23
 
+# Primitives from which auto leaves the sweep: the JAX package's
+# AUTO_CLUSTER_MIN_PRIMS.  Its cluster intersector is not ported yet
+# (ROADMAP queue 1), so auto takes the BVH there.
+AUTO_MIN_PRIMS = 30_000
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderSettings:
@@ -83,6 +95,9 @@ class RenderSettings:
     depth: int
     seed: int = 0
     spp_chunk: Optional[int] = None  # samples per pass (None: CHUNK_LANES)
+    # None / 'auto' / True / 'sweep' / 'bvh' (resolve_intersector).
+    intersector: Union[None, bool, str] = None
+    leaf_size: int = 4  # primitives per BVH leaf, 1..MAX_LEAF_SIZE
 
 
 class WavefrontState(NamedTuple):
@@ -117,11 +132,55 @@ def init_state(basis: CameraBasis, width: int, height: int, pixel_ids,
     )
 
 
+def resolve_intersector(scene: Scene, intersector) -> str:
+    """Map a ``RenderSettings.intersector`` value to a mode, as the JAX
+    package's ``resolve_intersector`` does: 'sweep' and 'bvh' are forced,
+    True means 'bvh', False, None and 'auto' are auto.  Auto traces with
+    the sweeps below ``AUTO_MIN_PRIMS`` primitives (every reference
+    scene) and with the BVH from there (where the JAX package takes its
+    cluster intersector).  'cluster' is not ported yet and raises."""
+    if isinstance(intersector, str):
+        if intersector == "cluster":
+            raise NotImplementedError(
+                "the cluster intersector is not ported yet (ROADMAP queue 1,"
+                " item 4); use intersector 'sweep', 'bvh' or 'auto'")
+        if intersector in ("sweep", "bvh"):
+            return intersector
+        if intersector != "auto":
+            raise ValueError(f"unknown intersector {intersector!r}")
+    elif intersector is True:
+        return "bvh"
+    elif intersector not in (None, False):
+        raise ValueError(f"unknown intersector {intersector!r}")
+    return "bvh" if scene.static.n_prims >= AUTO_MIN_PRIMS else "sweep"
+
+
+def prepare_scene(scene: Scene, intersector=None, leaf_size: int = 4):
+    """Resolve the intersector mode and produce the arrays it traces:
+    (arrays, bvh, mode).  In BVH mode ``arrays`` holds the geometry
+    reordered into leaf order and ``bvh`` the tree
+    (``models/bvh_build.build_bvh``); otherwise ``arrays`` is the
+    scene's and ``bvh`` None.  ``scene_tensors.to_device(arrays, static,
+    device, bvh)`` uploads them."""
+    mode = resolve_intersector(scene, intersector)
+    if mode == "sweep":
+        return scene.arrays, None, mode
+    if not 1 <= leaf_size <= MAX_LEAF_SIZE:
+        raise ValueError(f"leaf_size {leaf_size} is outside 1.."
+                         f"{MAX_LEAF_SIZE}")
+    bvh, geom = build_bvh(scene.arrays.geom, leaf_size=leaf_size)
+    return scene.arrays._replace(geom=geom), bvh, mode
+
+
 def trace(scene: SceneTensors, state: WavefrontState, bb):
     """The trace step: each lane's closest hit (t, primitive index; BIG
-    and -1 for a miss or a dead lane).  Sphere-only scenes go through the
-    sphere sweep, every other scene through the typed sweep, whose media
-    draw their free flight from the bounce words ``bb``."""
+    and -1 for a miss or a dead lane).  A scene in BVH mode walks its
+    tree (K4); otherwise sphere-only scenes go through the sphere sweep
+    (K1), every other scene through the typed sweep (K1b).  Media draw
+    their free flight from the bounce words ``bb``."""
+    if scene.mode == "bvh":
+        return bvh_traverse(scene.bvh, state.o, state.d, state.time,
+                            state.alive, bb, T_MIN)
     if scene.sphere_only:
         return sphere_sweep(*scene.spheres, state.o, state.d, state.time,
                             state.alive, T_MIN)
@@ -276,11 +335,14 @@ def render_image(scene: Scene, settings: RenderSettings,
 
     Samples are traced in chunks of ``spp_per_chunk`` samples over every
     pixel (lane = sample * W * H + pixel) and summed per pixel on the
-    device.
+    device.  ``settings.intersector`` / ``leaf_size`` pick the trace's
+    mode (``prepare_scene``).
     """
     device = torch.device(device)
     W, H = settings.width, settings.height
-    scene_t = to_device(scene.arrays, scene.static, device)
+    arrays, bvh, _ = prepare_scene(scene, settings.intersector,
+                                   settings.leaf_size)
+    scene_t = to_device(arrays, scene.static, device, bvh)
     basis = make_basis(scene.camera, W, H)
     n_pix = W * H
     chunk = spp_per_chunk(settings)

@@ -5,6 +5,11 @@ port's tensors.  Its input can come from the port's own ``build_scene`` or
 from the JAX package's (``build_scene(name).arrays``): the two are equal
 array for array, which is how the tests feed both packages one scene.
 
+In BVH mode (``render.prepare_scene`` with ``intersector='bvh'``) the
+arrays come reordered into the tree's leaf order, and ``to_device`` also
+uploads the tree and the records K4 reads (``ops/bvh.bvh_scene``); the
+sweeps' records are not built then.
+
 A train step splits the result by what changes.  What stays fixed per
 scene: the sweep's plan (taken from the geometry as built, as the JAX
 package's host-side plan is), the int shade rows, the Perlin tables and
@@ -16,12 +21,13 @@ and the sweeps' packed records from their detached current values.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .models.scene import PT_SPHERE, GeometrySoA, SceneStatic
+from .ops.bvh import BVHScene, bvh_scene
 from .ops.intersect import pack_prim_shade
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
@@ -61,11 +67,18 @@ class SceneTensors(NamedTuple):
     static: SceneStatic
     sphere_only: bool  # traced by the sphere sweep, else the typed sweep
     spheres: SphereFields  # the first n_prims primitives
-    sweep: SweepScene  # the typed sweep's plan and primitive fields
+    sweep: Optional[SweepScene]  # the typed sweep's plan and primitive
+    # fields (None in BVH mode)
     fpack: torch.Tensor  # [P, F] float32 joined shade rows
     ipack: torch.Tensor  # [P, 7] int32
     tables: TextureTables  # images, Perlin keys and tables
     host_geom: GeometrySoA  # the geometry as built, NumPy (the plan's)
+    bvh: Optional[BVHScene] = None  # BVH mode's tree and records
+
+    @property
+    def mode(self) -> str:
+        """The intersector that traces the scene: 'bvh' or 'sweep'."""
+        return "sweep" if self.bvh is None else "bvh"
 
 
 def _tensor(x, device):
@@ -90,8 +103,10 @@ def sphere_only(static: SceneStatic, ptype) -> bool:
         and not static.has_ray_xform
 
 
-def to_device(arrays, static: SceneStatic, device) -> SceneTensors:
-    """SceneArrays of NumPy arrays -> SceneTensors on ``device``."""
+def to_device(arrays, static: SceneStatic, device, bvh=None) -> SceneTensors:
+    """SceneArrays of NumPy arrays -> SceneTensors on ``device``.  ``bvh``:
+    the tree (``models/bvh_build.BVHArrays``) of BVH mode, with ``arrays``
+    reordered by the same ``build_bvh``; None traces with the sweeps."""
     device = torch.device(device)
     t = _convert(arrays, device)
     g = t.geom
@@ -102,12 +117,14 @@ def to_device(arrays, static: SceneStatic, device) -> SceneTensors:
     tables = TextureTables(images=t.images, image_wh=t.image_wh,
                            perlin_keys=key_ints(arrays.perlin.keys),
                            perlin=t.perlin)
+    host = GeometrySoA(*(np.asarray(x) for x in arrays.geom))
     return SceneTensors(
         arrays=t, static=static,
         sphere_only=sphere_only(static, arrays.geom.ptype),
-        spheres=spheres, sweep=sweep_scene(arrays.geom, g, n),
-        fpack=fpack, ipack=ipack, tables=tables,
-        host_geom=GeometrySoA(*(np.asarray(x) for x in arrays.geom)))
+        spheres=spheres,
+        sweep=sweep_scene(host, g, n) if bvh is None else None,
+        fpack=fpack, ipack=ipack, tables=tables, host_geom=host,
+        bvh=None if bvh is None else bvh_scene(bvh, host, g, static))
 
 
 def extract_params(arrays) -> dict:
@@ -143,7 +160,12 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     values: their packed records are rebuilt from detached NumPy copies
     (equal to ``typed_records`` of those values by construction), on the
     plan of the scene as built.  The int rows, the plan and the Perlin
-    tables are ``scene_t``'s own."""
+    tables are ``scene_t``'s own.  A scene in BVH mode raises: training
+    through the BVH is not ported yet (ROADMAP)."""
+    if scene_t.bvh is not None:
+        raise NotImplementedError(
+            "bind_params: a train step through the BVH is not ported yet "
+            "(ROADMAP queue 1); train with intersector='sweep'")
     static = scene_t.static
     n = static.n_prims
     arrays = merge_params(scene_t.arrays, params)

@@ -1,9 +1,9 @@
-"""The CUDA kernels (the sphere sweep, the typed sweep, the noise
-texture's marble turbulence and its backward, the gathers' segmented
-sum) against their plain-PyTorch versions, and a train step on the card
-against the CPU's and against itself.  Every test here needs a CUDA
-device and nvcc and skips without them; on a GPU machine run
-``python -m pytest tests/test_torch_cuda.py``.
+"""The CUDA kernels (the sphere sweep, the typed sweep, the BVH
+traversal, the noise texture's marble turbulence and its backward, the
+gathers' segmented sum) against their plain-PyTorch versions, and a
+train step on the card against the CPU's and against itself.  Every
+test here needs a CUDA device and nvcc and skips without them; on a GPU
+machine run ``python -m pytest tests/test_torch_cuda.py``.
 
 Each forward kernel performs its plain version's IEEE operations in the
 same order, so the two must agree bit for bit, not only within the near-tie
@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from hyper_ray_tracer_tpu_torch import (  # noqa: E402
     RenderSettings,
     build_scene,
+    prepare_scene,
     render_image,
 )
 from hyper_ray_tracer_tpu_torch.camera import make_basis  # noqa: E402
@@ -29,6 +30,10 @@ from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
     SceneBuilder,
 )
 from hyper_ray_tracer_tpu_torch.ops import perlin  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.bvh import (  # noqa: E402
+    bvh_traverse,
+    bvh_traverse_plain,
+)
 from hyper_ray_tracer_tpu_torch.ops.gather import (  # noqa: E402
     CHUNK,
     gather_rows,
@@ -58,6 +63,7 @@ from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (  # noqa: E402
     typed_sweep_plain,
 )
 from hyper_ray_tracer_tpu_torch.render import (  # noqa: E402
+    T_MIN,
     bounce_step,
     init_state,
     trace,
@@ -619,3 +625,98 @@ def test_train_step_gradients_on_card_match_cpu(cuda, name):
     for k, ref in g_c.items():
         assert torch.isfinite(g_g[k]).all(), k
         assert (g_g[k] - ref).abs().max() <= share * ref.abs().max(), k
+
+
+def _bvh_scene(name, leaf, dev):
+    scene = build_scene(name)
+    arrays, bvh, _ = prepare_scene(scene, "bvh", leaf)
+    return scene, to_device(arrays, scene.static, dev, bvh)
+
+
+def _bvh_both(st, o, d, time, active, bits):
+    args = (o.contiguous(), d.contiguous(), time.contiguous(),
+            active.contiguous(), bits.contiguous())
+    t_k, b_k = bvh_traverse(st.bvh, *args, T_MIN)
+    torch.cuda.synchronize()
+    t_p, b_p = bvh_traverse_plain(st.bvh.tree, st.bvh.prims, *args, T_MIN,
+                                  st.bvh.static)
+    return t_k, b_k, t_p, b_p
+
+
+# chip_smoke.py phase 18's scenes and leaf sizes.
+BVH_CASES = [("random", 4), ("cornell", 4), ("cornell-smoke", 4),
+             ("final", 1), ("final", 4), ("final", 8),
+             ("sphereflake-small", 4)]
+
+
+@pytest.mark.parametrize("name,leaf", BVH_CASES,
+                         ids=[f"{n}-leaf{k}" for n, k in BVH_CASES])
+@pytest.mark.parametrize("bounces", [0, 1, 2])
+def test_bvh_traverse_equals_plain(cuda, name, leaf, bounces):
+    scene, st = _bvh_scene(name, leaf, cuda)
+    s = _rays(scene, st, 160, 90, cuda, bounces)
+    t_k, b_k, t_p, b_p = _bvh_both(st, s.o, s.d, s.time, s.alive,
+                                   prng.bounce_base(s.base, bounces))
+    assert torch.equal(b_k, b_p)
+    assert torch.equal(t_k, t_p)
+    assert (b_k >= 0).any()
+
+
+def test_bvh_traverse_sphereflake_equals_plain(cuda):
+    scene, st = _bvh_scene("sphereflake", 4, cuda)
+    s = _rays(scene, st, 96, 54, cuda, 1)
+    t_k, b_k, t_p, b_p = _bvh_both(st, s.o, s.d, s.time, s.alive,
+                                   prng.bounce_base(s.base, 1))
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+
+
+def test_bvh_traverse_nan_slab_rays(cuda):
+    from test_torch_bvh import flat_scene, slab_nan_rays
+
+    scene = flat_scene()
+    for leaf in (1, 4, 8):
+        arrays, bvh, _ = prepare_scene(scene, "bvh", leaf)
+        st = to_device(arrays, scene.static, cuda, bvh)
+        o, d, time, bits = (torch.from_numpy(np.array(x)).to(cuda) for x in
+                            slab_nan_rays(scene))
+        active = torch.ones(o.shape[0], dtype=torch.bool, device=cuda)
+        t_k, b_k, t_p, b_p = _bvh_both(st, o, d, time, active, bits.long())
+        assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 4097])
+def test_bvh_traverse_ragged_counts_and_inactive_rays(cuda, n):
+    scene, st = _bvh_scene("final", 4, cuda)
+    s = _rays(scene, st, 160, 90, cuda, 1)
+    idx = torch.randperm(160 * 90, device=cuda)[:n]
+    active = torch.rand(n, device=cuda) < 0.6
+    t_k, b_k, t_p, b_p = _bvh_both(
+        st, s.o[idx], s.d[idx], s.time[idx], active,
+        prng.bounce_base(s.base, 1)[idx])
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_k[~active] == -1).all()
+
+
+def test_bvh_traverse_counter_and_validation(cuda):
+    scene, st = _bvh_scene("cornell", 4, cuda)
+    s = _rays(scene, st, 16, 9, cuda)
+    bits = prng.bounce_base(s.base, 0)
+    before = bvh_traverse.launches
+    bvh_traverse(st.bvh, s.o, s.d, s.time, s.alive, bits)
+    assert bvh_traverse.launches == before + 1
+    with pytest.raises(TypeError):
+        bvh_traverse(st.bvh, s.o.double(), s.d, s.time, s.alive, bits)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bvh_traverse(st.bvh, s.o, s.d, s.time.cpu(), s.alive, bits)
+
+
+@pytest.mark.parametrize("name", ["random", "cornell", "sphereflake-small"])
+def test_bvh_render_on_card_equals_sweep(cuda, name):
+    scene = build_scene(name)
+    s = dict(width=64, height=36, samples=2, depth=4)
+    before = bvh_traverse.launches
+    bvh = render_image(scene, RenderSettings(**s, intersector="bvh"), cuda)
+    assert bvh_traverse.launches > before
+    sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
+                         cuda)
+    np.testing.assert_array_equal(bvh, sweep)
