@@ -17,10 +17,12 @@ state give bit-equal gradients on `random`, `final` and `earth`, and it
 times what K3 costs a train step against ``index_add_``.  BVH mode
 (phases 18-19): the traversal kernel K4 against its plain version on
 every scene kind, leaf size and bounce, and on rays built to meet the
-slab test's 0 * inf, timed beside the sweeps on the same rays; then
+slab test's 0 * inf, timed beside the sweeps on the same rays and on
+bounces 0-2 of a full chunk of `sphereflake`'s CLI default; then
 `sphereflake` (66,431 spheres) through the CLI at its defaults with
-``--intersector bvh``, the BVH's images against the sweeps', and the
-reference scenes still traced by the sweeps under auto.  Each
+``--intersector bvh``, its render profiled by layer (K4 by bounce), the
+BVH's images against the sweeps', and the reference scenes still traced
+by the sweeps under auto.  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -323,8 +325,8 @@ def sass_pair_ops(sass, kernel, rays):
 
 
 def ptxas_report(log):
-    """{kernel<template args>: (registers, shared bytes, spill bytes)} from
-    an nvcc -Xptxas -v log."""
+    """{kernel<template args>: (registers, shared bytes, spill bytes, stack
+    frame bytes)} from an nvcc -Xptxas -v log."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN?(\w+)'", line)
@@ -336,10 +338,13 @@ def ptxas_report(log):
                 base, rest = rest[k:k + n], rest[k + n:]
             targs = re.findall(r"L[ib](\d+)E", rest)
             name = f"{base}<{','.join(targs)}>" if targs else base
-            out[name] = [0, 0, 0]
+            out[name] = [0, 0, 0, 0]
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name:
             out[name][2] += int(m.group(1))
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m and name:
+            out[name][3] = int(m.group(1))
         m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
             out[name][0], out[name][1] = int(m.group(1)), int(m.group(2) or 0)
@@ -808,38 +813,51 @@ def deep_train_line(lanes, depth):
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
 # FP32 operations of K4's walk, counted from its contract (ops/bvh.py):
-# a node's slab test (ops/intersect.py aabb_hit) 25: 6 sub and 6 mul, the
-# min and max of each axis' pair (6), the reductions over the axes (4),
-# the t_min and t_max clamps (2) and the compare (1); the NaN checks are
-# not counted.  Per ray once, 8: the three slab reciprocals and |d|^2 (5).
-# A leaf test costs its type's pair count (SWEEP_PAIR_OPS, +6 for a
-# sphere that moves, +33 and the type's per-ray terms in a scene with ray
-# transforms), the branch taken only on a hit left out as for the sweeps.
-# The tests are those these rays need: bvh_traverse_plain counts them.
-BVH_NODE_OPS, BVH_RAY_OPS = 25, 8
+# a box's slab test (ops/intersect.py aabb_entry) 25: 6 sub and 6 mul,
+# the min and max of each axis' pair (6), the reductions over the axes
+# (4), the t_min and t_max clamps (2) and the compare (1); the NaN checks
+# and the nearer child's compare are not counted.  Per ray once, 8: the
+# three slab reciprocals and |d|^2 (5).  A leaf test costs its type's
+# pair count (SWEEP_PAIR_OPS, +6 for a sphere that moves, +33 and the
+# type's per-ray terms in a scene with ray transforms), the branch taken
+# only on a hit left out as for the sweeps.  The tests are those these
+# rays need: bvh_traverse_plain counts them (the root's box and two an
+# inner step), and bvh_traverse_dfs_plain those of the first design's
+# walk (one box a node).
+BVH_BOX_OPS, BVH_RAY_OPS = 25, 8
 # Bytes: a ray's o, d, time, active and bits read (37) and its t and
-# index written (8); a node's two records (32); a primitive's tag and two
-# records (36), and its transform (48) in a scene with ray transforms.
-BVH_RAY_BYTES, BVH_NODE_BYTES, BVH_PRIM_BYTES, BVH_XF_BYTES = 45, 32, 36, 48
+# index written (8); a node record (64; the first design's 32 a node); a
+# primitive's tag and two records (36), and its transform (48) in a scene
+# with ray transforms.
+BVH_RAY_BYTES, BVH_PRIM_BYTES, BVH_XF_BYTES = 45, 36, 48
+BVH_RECORD_BYTES, BVH_DFS_NODE_BYTES = 64, 32
 
 
-def bvh_fp_ops(bvh, stats, kinds):
-    """FP32 operations of the node and leaf tests that
-    ``bvh_traverse_plain`` counted (``stats``) on a BVHScene ``bvh``;
-    ``kinds`` maps each PT_* tag to "sphere", "rect" or "box"."""
+def k4_bound(bvh, stats, kinds, n):
+    """(bound, FP32 operations a ray) of the work that
+    ``bvh_traverse_plain`` (or, by its ``node_tests``,
+    ``bvh_traverse_dfs_plain``) counted in ``stats`` for n rays on a
+    BVHScene ``bvh``; ``kinds`` maps each PT_* tag to "sphere", "rect" or
+    "box"."""
     tests = stats["prim_tests"].cpu()
     tag = bvh.tag.cpu()
     slot = bvh.aux[:, 3].contiguous().view(torch.int32).cpu()
-    ops = stats["node_tests"] * BVH_NODE_OPS
+    dfs = "node_tests" in stats
+    ops = (stats["node_tests"] if dfs else stats["box_tests"]) * BVH_BOX_OPS
     for ptype, kind in kinds.items():
         sel = tag == ptype
-        n = int(tests[sel].sum())
-        ops += n * SWEEP_PAIR_OPS[kind]
+        k = int(tests[sel].sum())
+        ops += k * SWEEP_PAIR_OPS[kind]
         if bvh.static.has_ray_xform:
-            ops += n * (SWEEP_XFORM_OPS + SWEEP_RAY_OPS[kind])
+            ops += k * (SWEEP_XFORM_OPS + SWEEP_RAY_OPS[kind])
         if kind == "sphere":
             ops += SWEEP_MOTION_OPS * int(tests[sel & (slot >= 0)].sum())
-    return ops
+    ops += n * BVH_RAY_OPS
+    tree_bytes = (bvh.tree.skip.shape[0] * BVH_DFS_NODE_BYTES if dfs
+                  else bvh.nodes.shape[0] * BVH_RECORD_BYTES)
+    n_bytes = (n * BVH_RAY_BYTES + tree_bytes + bvh.geo.shape[0]
+               * (BVH_PRIM_BYTES + BVH_XF_BYTES * bvh.static.has_ray_xform))
+    return bound(n_bytes, ops), ops / n
 
 
 def flat_scene():
@@ -906,6 +924,7 @@ def k4_phase(dev, kinds, W=1280, H=720):
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
     from hyper_ray_tracer_tpu_torch.ops.bvh import (
         bvh_traverse,
+        bvh_traverse_dfs_plain,
         bvh_traverse_plain,
     )
     from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
@@ -986,21 +1005,24 @@ def k4_phase(dev, kinds, W=1280, H=720):
             b_k.clamp(min=0).long()].to(torch.int32), -1)
         same = (canon == b_s) & (t_k == t_s)
         ties = int((~same & (t_k == t_s)).sum())
-        n_nodes, n_prims = st.bvh.nodes.shape[0], st.bvh.geo.shape[0]
-        ops = bvh_fp_ops(st.bvh, stats, kinds) + n * BVH_RAY_OPS
-        n_bytes = (n * BVH_RAY_BYTES + n_nodes * BVH_NODE_BYTES
-                   + n_prims * (BVH_PRIM_BYTES + BVH_XF_BYTES
-                                * scene.static.has_ray_xform))
+        dfs = {}
+        t_d, b_d = bvh_traverse_dfs_plain(st.bvh.tree, st.bvh.prims, *args,
+                                          T_MIN, st.bvh.static, stats=dfs)
+        k4b, ops = k4_bound(st.bvh, stats, kinds, n)
         row = dict(
-            n=n, nodes=n_nodes, prims=scene.static.n_prims,
-            node_tests=stats["node_tests"] / n,
+            n=n, nodes=st.bvh.tree.skip.shape[0], prims=scene.static.n_prims,
+            box_tests=stats["box_tests"] / n,
+            steps=stats["inner_steps"] / n, stack=stats["max_stack"],
             leaf_tests=int(stats["prim_tests"].sum()) / n,
+            dfs_tests=dfs["node_tests"] / n,
+            dfs_leaf_tests=int(dfs["prim_tests"].sum()) / n,
+            bound=k4b, ops=ops, dfs_bound=k4_bound(st.bvh, dfs, kinds, n)[0],
+            dfs_differ=int(((t_d != t_k) | (b_d != b_k)).sum()),
             ms=device_ms(bvh_traverse, k4_args, 10),
             sweep=sweep_name,
             sweep_ms=device_ms(sweep, sweep_args,
                                2 if name == "sphereflake" else 10),
-            differ=int((~same).sum()), ties=ties,
-            bound=bound(n_bytes, ops), ops=ops / n)
+            differ=int((~same).sum()), ties=ties)
         if name == "sphereflake":
             row["call_ms"], row["plain_ms"] = in_turns(
                 lambda *a: plain(st, *a[1:-1]), bvh_traverse, k4_args, 1,
@@ -1009,19 +1031,94 @@ def k4_phase(dev, kinds, W=1280, H=720):
     return lines, timed, max(errs)
 
 
+def k4_chunk(dev, kinds, W=1280, H=720):
+    """K4 at the main path's real shape: the first chunk of `sphereflake`'s
+    CLI default (1280x720, render.spp_per_chunk's 9 spp: 8,294,400 lanes),
+    bounces 0-2, each bounce's lanes those the compaction kept, as
+    render.trace_paths runs them.  Per bounce: the lanes, K4's device time,
+    the tests the rays need and K4's bound, and K4 against the plain
+    version on those lanes, bit for bit."""
+    from hyper_ray_tracer_tpu_torch import RenderSettings, build_scene
+    from hyper_ray_tracer_tpu_torch import prepare_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.bvh import (
+        bvh_traverse,
+        bvh_traverse_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.render import (
+        WavefrontState,
+        bounce_step,
+        init_state,
+        spp_per_chunk,
+    )
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    spp = spp_per_chunk(RenderSettings(W, H, 100, 10))
+    scene = build_scene("sphereflake")
+    arrays, tree, _ = prepare_scene(scene, "bvh", 4)
+    st = to_device(arrays, scene.static, dev, tree)
+    pix = torch.arange(W * H, dtype=torch.int64, device=dev)
+    s = init_state(make_basis(scene.camera, W, H), W, H, pix.repeat(spp),
+                   torch.arange(spp, dtype=torch.int64,
+                                device=dev).repeat_interleave(W * H), 0)
+    rows, errs = [], []
+    for b in range(3):
+        args = tuple(x.contiguous() for x in (
+            s.o, s.d, s.time, s.alive, prng.bounce_base(s.base, b)))
+        n = args[0].shape[0]
+        t_k, b_k = bvh_traverse(st.bvh, *args, T_MIN)
+        torch.cuda.synchronize()
+        stats = {}
+        t_p, b_p = bvh_traverse_plain(st.bvh.tree, st.bvh.prims, *args,
+                                      T_MIN, st.bvh.static, stats=stats)
+        errs.append(sweep_rules(f"K4 sphereflake chunk bounce {b}", t_k,
+                                b_k, t_p, b_p, args[3])[2])
+        rows.append(dict(
+            bounce=b, lanes=n, hits=int((b_k >= 0).sum()),
+            ms=device_ms(bvh_traverse, (st.bvh, *args, T_MIN), 5),
+            box_tests=stats["box_tests"] / n,
+            steps=stats["inner_steps"] / n, stack=stats["max_stack"],
+            leaf_tests=int(stats["prim_tests"].sum()) / n,
+            bound=k4_bound(st.bvh, stats, kinds, n)[0]))
+        if b < 2:
+            s = bounce_step(st, scene.background, s, b)
+            keep = s.alive.nonzero().squeeze(1)
+            s = WavefrontState(*(x.index_select(0, keep) for x in s))
+    return rows, spp, max(errs)
+
+
+def k4_chunk_line(rows, spp):
+    return (f"K4 at the main path's shape, sphereflake's first CLI chunk "
+            f"(1280x720x{spp}, leaf 4), bit-equal to the plain version on "
+            "every bounce (asserted): " + "; ".join(
+                f"bounce {r['bounce']}: {r['lanes']} lanes ({r['hits']} "
+                f"hit), K4 {r['ms']:.4f} ms on the device, "
+                f"{r['box_tests']:.2f} box tests ({r['steps']:.2f} inner "
+                f"steps, stack up to {r['stack']}) and {r['leaf_tests']:.2f}"
+                f" leaf tests a ray, bound {r['bound'][0]:.6f} ms "
+                f"({r['bound'][1]}), {r['bound'][0] / r['ms']:.3f} of it"
+                for r in rows))
+
+
 def k4_line(lines, timed, ptxas_note):
     flake = timed["sphereflake"]
     return (
         "bvh_traverse (K4) vs bvh_traverse_plain, bit-equal on every case "
         "and inactive rays at (BIG, -1) (asserted): camera rays and bounces"
         " 1-2 at 320x180 of " + "; ".join(lines)
-        + f" | at the main path's shape (camera rays, 1280x720, leaf 4, "
+        + " | at the main path's shape (camera rays, 1280x720, leaf 4, "
         "bit-equal again): " + "; ".join(
             f"{name} ({v['prims']} primitives, {v['nodes']} nodes): "
-            f"{v['node_tests']:.2f} node and {v['leaf_tests']:.2f} leaf "
-            f"tests a ray, K4 {v['ms']:.4f} ms on the device, bound "
-            f"{v['bound'][0]:.6f} ms ({v['bound'][1]}, {v['ops']:.1f} FP32 "
-            f"operations a ray), {v['bound'][0] / v['ms']:.3f} of it; "
+            f"{v['box_tests']:.2f} box tests ({v['steps']:.2f} inner steps,"
+            f" stack up to {v['stack']}) and {v['leaf_tests']:.2f} leaf "
+            f"tests a ray (the JAX-order walk {v['dfs_tests']:.2f} and "
+            f"{v['dfs_leaf_tests']:.2f}, parting from it on "
+            f"{v['dfs_differ']} rays), K4 {v['ms']:.4f} ms on the device, "
+            f"bound {v['bound'][0]:.6f} ms ({v['bound'][1]}, "
+            f"{v['ops']:.1f} FP32 operations a ray), "
+            f"{v['bound'][0] / v['ms']:.3f} of it (the first design's "
+            f"bound {v['dfs_bound'][0]:.6f} ms, {v['dfs_bound'][1]}); "
             f"{v['sweep']} {v['sweep_ms']:.4f} ms on the same rays "
             f"({v['sweep_ms'] / v['ms']:.2f}x K4's), winner or t other than "
             f"the walk's on {v['differ']} rays ({v['ties']} of them ties "
@@ -1029,6 +1126,94 @@ def k4_line(lines, timed, ptxas_note):
             for name, v in timed.items())
         + f" | sphereflake: K4 {flake['call_ms']:.4f} ms a call back to "
         f"back, plain {flake['plain_ms']:.4f} ms; ptxas: {ptxas_note}")
+
+
+# The record_function ranges of render.trace_paths, and the hand kernels
+# of a render by a substring of their names.
+LAYERS = ("raygen", "trace", "shade", "compaction")
+HAND = {"K1": ("sphere_sweep_kernel", "trace"),
+        "K1b": ("typed_sweep_kernel", "trace"),
+        "K2": ("noise_texture_kernel", "shade"),
+        "K4": ("bvh_traverse_kernel", "trace")}
+
+
+def render_profile(dev, name, settings):
+    """Where the device time of ``render_image`` goes: one warm-up, one
+    unprofiled render timed, one under torch.profiler, its kernels' time
+    given to the layers by the record_function ranges of
+    render.trace_paths and to the hand kernels by name.  K4's time is
+    also split by bounce (its launches in order, ``settings.depth`` a
+    chunk), beside the lanes each compaction kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hyper_ray_tracer_tpu_torch import build_scene, render_image
+
+    scene = build_scene(name)
+    render_image(scene, settings, dev)  # warm-up
+    t0 = time.monotonic()
+    render_image(scene, settings, dev)  # ends with a copy to the host
+    wall = (time.monotonic() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        render_image(scene, settings, dev)
+    events = prof.events()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in LAYERS]
+    head = (f"{name} {settings.width}x{settings.height}x{settings.samples} "
+            f"d{settings.depth}: render_image {wall:.3f} ms")
+    if not kern:
+        return f"{head}; the profiler saw no device kernels"
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern)) / 1e3
+    by_layer = dict.fromkeys(LAYERS, 0.0)
+    lanes = []
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        if e.name in by_layer:
+            by_layer[e.name] += e.device_time_total / 1e3
+        if e.name == "aten::nonzero" and e.input_shapes:
+            up = e.cpu_parent
+            while up is not None and up.name != "compaction":
+                up = up.cpu_parent
+            if up is not None:
+                lanes.append(e.input_shapes[0][0])
+    by_kernel = {k: sum(e.time_range.elapsed_us() for e in kern
+                        if sub in e.name) / 1e3
+                 for k, (sub, _) in HAND.items()}
+    # The profiler links a kernel to the op that launched it; a hand
+    # kernel, launched through ctypes, may have none, and then goes to
+    # the range its wrapper runs in.
+    linked = dict.fromkeys(HAND, 0.0)
+    for e in events:
+        for k in getattr(e, "kernels", ()):
+            for h, (sub, _) in HAND.items():
+                linked[h] += k.duration / 1e3 if sub in k.name else 0.0
+    for h, (_, layer) in HAND.items():
+        by_layer[layer] += by_kernel[h] - linked[h]
+    text = (f"{head} unprofiled; profiled: {len(kern)} kernels busy "
+            f"{busy:.3f} ms in a {span:.3f} ms span (idle "
+            f"{1 - busy / span:.3f}; busy / unprofiled wall "
+            f"{busy / wall:.3f}); busy ms by layer "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by_layer.items())
+            + f" (layers hold {sum(by_layer.values()) / busy:.3f} of "
+            f"busy); hand kernels "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items() if v))
+    k4 = sorted((e for e in kern if HAND["K4"][0] in e.name),
+                key=lambda e: e.time_range.start)
+    depth = settings.depth
+    if k4 and len(k4) % depth == 0:
+        per = [sum(e.time_range.elapsed_us() for e in k4[b::depth]) / 1e3
+               for b in range(depth)]
+        text += (f"; K4 by bounce over {len(k4) // depth} chunks (ms) "
+                 + "/".join(f"{v:.3f}" for v in per))
+    elif k4:
+        text += (f"; K4 {len(k4)} launches, not {depth} a chunk: not "
+                 "split by bounce")
+    return text + f"; lanes per bounce (first chunk) {lanes[:depth]}"
 
 
 def main() -> int:
@@ -1106,12 +1291,16 @@ def main() -> int:
 
     def resources(report):
         return "; ".join(f"{k} {r} registers, {sm} B static smem, {sp} B "
-                         f"spilled" for k, (r, sm, sp) in report.items())
+                         f"spilled, {fr} B stack frame"
+                         for k, (r, sm, sp, fr) in report.items())
 
     notes = []
     for name in KERNELS:
         cuda_build.load(name)
         notes.append(f"{name}: {resources(ptxas[name])}")
+    # K4 walks a stack in local memory by design, and spills nothing.
+    assert all(r[2] == 0 for r in ptxas["bvh_traverse"].values()), \
+        f"bvh_traverse spills: {ptxas['bvh_traverse']}"
     # The sweeps' ray-packet size R (rays per thread), the header's kRays.
     packet = int(re.search(r"constexpr int kRays = (\d+);", (
         cuda_build.CSRC_DIR / "sweep_sphere.cuh").read_text()).group(1))
@@ -1452,78 +1641,14 @@ def main() -> int:
           "(asserted)")
 
     # Phase 8: where the device time of a render goes, on the path users
-    # run: render_image under torch.profiler, its kernels' time given to
-    # the layers by the record_function ranges of render.trace_paths and
-    # to the hand kernels by name.  The bench render (final 400x225x16,
-    # depth 10: one chunk) and one chunk of the CLI default (random
-    # 1280x720, 9 spp, depth 10).
-    layers = ("raygen", "trace", "shade", "compaction")
-    hand = {"K1": "sphere_sweep_kernel", "K1b": "typed_sweep_kernel",
-            "K2": "noise_texture_kernel"}
-
-    def breakdown(name, W, H, spp):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        scene = build_scene(name)
-        settings = RenderSettings(W, H, spp, 10)
-        render_image(scene, settings, dev)  # warm-up
-        t0 = time.monotonic()
-        render_image(scene, settings, dev)  # ends with a copy to the host
-        wall = (time.monotonic() - t0) * 1e3
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     record_shapes=True) as prof:
-            render_image(scene, settings, dev)
-        events = prof.events()
-        kern = [e for e in events if e.device_type == DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and e.name not in layers]
-        head = f"{name} {W}x{H}x{spp} d10: render_image {wall:.3f} ms"
-        if not kern:
-            return f"{head}; the profiler saw no device kernels"
-        busy = sum(e.time_range.elapsed_us() for e in kern) / 1e3
-        span = (max(e.time_range.end for e in kern)
-                - min(e.time_range.start for e in kern)) / 1e3
-        by_layer = dict.fromkeys(layers, 0.0)
-        lanes = []
-        for e in events:
-            if e.device_type != DeviceType.CPU:
-                continue
-            if e.name in by_layer:
-                by_layer[e.name] += e.device_time_total / 1e3
-            if e.name == "aten::nonzero" and e.input_shapes:
-                up = e.cpu_parent
-                while up is not None and up.name != "compaction":
-                    up = up.cpu_parent
-                if up is not None:
-                    lanes.append(e.input_shapes[0][0])
-        by_kernel = {k: sum(e.time_range.elapsed_us() for e in kern
-                            if sub in e.name) / 1e3
-                     for k, sub in hand.items()}
-        # The profiler links a kernel to the op that launched it; a hand
-        # kernel, launched through ctypes, may have none, and then goes to
-        # the range its wrapper runs in.
-        linked = dict.fromkeys(hand, 0.0)
-        for e in events:
-            for k in getattr(e, "kernels", ()):
-                for h, sub in hand.items():
-                    linked[h] += k.duration / 1e3 if sub in k.name else 0.0
-        for h, layer in (("K1", "trace"), ("K1b", "trace"), ("K2", "shade")):
-            by_layer[layer] += by_kernel[h] - linked[h]
-        return (f"{head} unprofiled; profiled: {len(kern)} kernels busy "
-                f"{busy:.3f} ms in a {span:.3f} ms span (idle "
-                f"{1 - busy / span:.3f}; busy / unprofiled wall "
-                f"{busy / wall:.3f}); busy ms by layer "
-                + ", ".join(f"{k} {v:.3f}" for k, v in by_layer.items())
-                + f" (layers hold {sum(by_layer.values()) / busy:.3f} of "
-                f"busy); hand kernels "
-                + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items()
-                            if v)
-                + f"; lanes per bounce {lanes}")
-
+    # run (render_profile).  The bench render (final 400x225x16, depth
+    # 10: one chunk) and one chunk of the CLI default (random 1280x720, 9
+    # spp, depth 10).
     phase(8, "device time of the real render path: "
-          + " | ".join((breakdown("final", BW, BH, BSPP),
-                        breakdown("random", 1280, 720, 9))))
+          + " | ".join((render_profile(dev, "final",
+                                       RenderSettings(BW, BH, BSPP, 10)),
+                        render_profile(dev, "random",
+                                       RenderSettings(1280, 720, 9, 10)))))
 
     # Phase 9: the bench workload (final, 400x225, 16 spp, depth 10)
     # through the CLI.
@@ -1643,7 +1768,10 @@ def main() -> int:
 
     # Phase 18: K4 against its plain version, and the sweeps beside it.
     k4_lines, k4, k4_err = k4_phase(dev, kinds)
-    phase(18, k4_line(k4_lines, k4, resources(ptxas["bvh_traverse"])))
+    k4_rows, k4_spp, k4_chunk_err = k4_chunk(dev, kinds)
+    k4_err = max(k4_err, k4_chunk_err)
+    phase(18, k4_line(k4_lines, k4, resources(ptxas["bvh_traverse"]))
+          + " | " + k4_chunk_line(k4_rows, k4_spp))
 
     # Phase 19: BVH mode end to end.  The CLI at its defaults on
     # `sphereflake` (1280x720, 100 spp, depth 10) with --intersector bvh.
@@ -1670,8 +1798,17 @@ def main() -> int:
     flake_lum = png.astype(np.float64).mean()
     flake = build_scene("sphereflake")
     t0 = time.monotonic()
-    prepare_scene(flake, "bvh")
+    flake_arrays, flake_tree, _ = prepare_scene(flake, "bvh")
     flake_prep = time.monotonic() - t0
+    t0 = time.monotonic()
+    to_device(flake_arrays, flake.static, dev, flake_tree)
+    torch.cuda.synchronize()
+    flake_upload = time.monotonic() - t0
+    # The CLI default's render by layer, as phase 8's; K4 by bounce.
+    reset_counts()
+    flake_profile = render_profile(dev, "sphereflake", RenderSettings(
+        1280, 720, 100, 10, intersector="bvh"))
+    flake_profile_k4 = counts()["bvh_traverse"]
     # `sphereflake` through the sweep and through the BVH at one reduced
     # shape, through the CLI, and the two PNGs held to the goldens' bounds.
     RW, RH, RSPP = 640, 360, 4
@@ -1719,7 +1856,9 @@ def main() -> int:
           f"{flake_rays / flake_wall / 1e6:.3f} camera Mrays/s, launches "
           f"{flake_launches}, peak device memory {flake_peak:.2f} GB, PNG "
           f"mean {flake_lum:.1f}; its BVH's host build (prepare_scene) "
-          f"{flake_prep:.3f} s | sphereflake {RW}x{RH} {RSPP}spp d10 "
+          f"{flake_prep:.3f} s, its upload (to_device) {flake_upload:.3f} s"
+          f" | by layer: {flake_profile} (K4 launches over the three "
+          f"renders {flake_profile_k4}) | sphereflake {RW}x{RH} {RSPP}spp d10 "
           f"through the CLI: --intersector sweep {walls['sweep']:.3f} s, "
           f"bvh {walls['bvh']:.3f} s ({walls['sweep'] / walls['bvh']:.2f}x);"
           f" PNGs: {same_px:.6f} of pixels equal, median / mean err / "
@@ -1784,7 +1923,10 @@ def main() -> int:
          "max_abs_err": k4_err, "ms": k4["sphereflake"]["ms"],
          "plain_ms": k4["sphereflake"]["plain_ms"],
          "bound_ms": k4["sphereflake"]["bound"][0],
-         "bound_by": k4["sphereflake"]["bound"][1], "library_ms": None},
+         "bound_by": k4["sphereflake"]["bound"][1], "library_ms": None,
+         # the first design's walk on the same rays (bvh_traverse_dfs_plain)
+         "old_bound_ms": k4["sphereflake"]["dfs_bound"][0],
+         "old_bound_by": k4["sphereflake"]["dfs_bound"][1]},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

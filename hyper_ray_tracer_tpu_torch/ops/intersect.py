@@ -400,13 +400,20 @@ def aabb_hit(box_min, box_max, o, inv_d, t_min, t_max):
     axis-parallel ray's ±inf meets a bound plane through its origin as
     0 * inf = NaN, and every min and max here propagates it, so such a
     node is missed, as with ``jnp``'s."""
+    return aabb_entry(box_min, box_max, o, inv_d, t_min, t_max)[0]
+
+
+def aabb_entry(box_min, box_max, o, inv_d, t_min, t_max):
+    """``aabb_hit`` and the entry distance it compares: (hit, t_lo), t_lo
+    the slab interval's start clamped to ``t_min`` (NaN where a slab
+    distance is; then hit is False)."""
     t0 = (box_min - o) * inv_d
     t1 = (box_max - o) * inv_d
     lo = torch.minimum(t0, t1)
     hi = torch.maximum(t0, t1)
     tmin_all = torch.clamp(lo.amax(-1), min=t_min)
     tmax_all = torch.minimum(hi.amin(-1), t_max)
-    return tmax_all > tmin_all
+    return tmax_all > tmin_all, tmin_all
 
 
 def _sphere_uv(outward):

@@ -1,9 +1,11 @@
 """BVH mode of the port against the JAX package: the builder, the slab
-test, the plain traversal (``bvh_traverse_plain``) against
-``make_bvh_traverser`` and against the port's typed sweep, the render
-through the BVH against the sweep's and the JAX package's, the mode's
+test, the JAX-order walk (``bvh_traverse_dfs_plain``) against
+``make_bvh_traverser``, the nearer-first walk K4 follows
+(``bvh_traverse_plain``) against the JAX-order walk and the port's typed
+sweep, K4's two-child node records and stack bound, the render through
+the BVH against the sweep's and the JAX package's, the mode's
 resolution, the CLI flags and the kernel wrapper on the CPU.  K4 itself
-is held to the plain traversal in tests/test_torch_cuda.py."""
+is held to ``bvh_traverse_plain`` in tests/test_torch_cuda.py."""
 
 import dataclasses
 
@@ -38,12 +40,24 @@ from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
     SceneBuilder,
 )
 from hyper_ray_tracer_tpu_torch.ops import rng as prng  # noqa: E402
+from hyper_ray_tracer_tpu_torch.models.scene import (  # noqa: E402
+    PLANE_XY,
+)
+from hyper_ray_tracer_tpu_torch.ops import bvh as bvh_ops  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.bvh import (  # noqa: E402
     LEAF_SHIFT,
+    STACK_SIZE,
     bvh_traverse,
+    bvh_traverse_dfs_plain,
     bvh_traverse_plain,
+    tree_depth,
 )
-from hyper_ray_tracer_tpu_torch.ops.intersect import aabb_hit  # noqa: E402
+from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
+    PrimFields,
+    aabb_entry,
+    aabb_hit,
+    prim_hit_t_lanes,
+)
 from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (  # noqa: E402
     sphere_sweep_plain,
 )
@@ -132,22 +146,86 @@ def test_build_equals_jax_numpy_builder(name, leaf):
         assert a.dtype == b.dtype and np.array_equal(a, b), field
 
 
-def test_node_records_carry_the_tree():
-    scene = build_scene("final")
-    st, tree, _ = _bvh_tensors(scene, 8)
-    rec = st.bvh.nodes.numpy()
+def _decode_records(rec):
+    """K4's node records back into a tree in DFS order: per node, its
+    bounds, leaf slots (first, count; -1, 0 for an inner node) and, for an
+    inner node, its two children."""
     bits = rec.view(np.int32)
-    np.testing.assert_array_equal(rec[:, :3], tree.bounds_min)
-    np.testing.assert_array_equal(rec[:, 4:7], tree.bounds_max)
-    np.testing.assert_array_equal(bits[:, 3], tree.skip)
-    leaf = bits[:, 7]
+    bmin, bmax, first, count, kids = [], [], [], [], []
+
+    def visit(lo, hi, word):
+        node = len(bmin)
+        bmin.append(lo)
+        bmax.append(hi)
+        kids.append(None)
+        if word < 0:
+            first.append(~word >> LEAF_SHIFT)
+            count.append(~word & ((1 << LEAF_SHIFT) - 1))
+            return node
+        first.append(-1)
+        count.append(0)
+        r, b = rec[word], bits[word]
+        kids[node] = (visit(r[0:3], r[4:7], b[3]),
+                      visit(r[8:11], r[12:15], b[7]))
+        return node
+
+    visit(rec[0, 0:3], rec[0, 4:7], bits[0, 3])
+    return (np.array(bmin), np.array(bmax), np.array(first),
+            np.array(count), kids)
+
+
+def _check_records(name, leaf):
+    """The two-child records round-trip the tree: decoded from the root
+    row, they give every node's bounds and leaf slots in DFS order, and
+    each inner node n's children are n + 1 and skip[n + 1]."""
+    scene = build_scene(name)
+    st, tree, _ = _bvh_tensors(scene, leaf)
+    rec = st.bvh.nodes.numpy()
     inner = tree.leaf_first < 0
-    assert (leaf[inner] == -1).all()
-    np.testing.assert_array_equal(leaf[~inner] >> LEAF_SHIFT,
-                                  tree.leaf_first[~inner])
-    np.testing.assert_array_equal(leaf[~inner] & ((1 << LEAF_SHIFT) - 1),
-                                  tree.leaf_count[~inner])
+    assert rec.shape == (1 + inner.sum(), 16)
+    assert (rec.view(np.int32)[1:, [11, 15]] == 0).all()
+    bmin, bmax, first, count, kids = _decode_records(rec)
+    np.testing.assert_array_equal(bmin, tree.bounds_min)
+    np.testing.assert_array_equal(bmax, tree.bounds_max)
+    np.testing.assert_array_equal(first, tree.leaf_first)
+    np.testing.assert_array_equal(count, np.where(inner, 0,
+                                                  tree.leaf_count))
+    for n in np.flatnonzero(inner):
+        assert kids[n] == (n + 1, tree.skip[n + 1])
+    assert st.bvh.depth == tree_depth(tree) <= STACK_SIZE
     assert st.bvh.tag.tolist() == st.arrays.geom.ptype.tolist()
+
+
+def test_node_records_carry_the_tree():
+    _check_records("final", 8)
+
+
+@pytest.mark.parametrize("name,leaf", [("final", 1), ("cornell", 8),
+                                       ("random", 4),
+                                       ("sphereflake-small", 2)])
+def test_node_records_round_trip(name, leaf):
+    _check_records(name, leaf)
+
+
+def test_stack_size_is_the_kernel_stack():
+    from hyper_ray_tracer_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    src = (CSRC_DIR / "bvh_traverse.cu").read_text()
+    assert f"constexpr int kStack = {STACK_SIZE};" in src
+    assert f"constexpr int kLeafShift = {LEAF_SHIFT};" in src
+
+
+def test_too_deep_tree_raises(monkeypatch):
+    """A tree deeper than K4's stack is refused where it is uploaded."""
+    scene = build_scene("final")
+    arrays, tree, _ = prepare_scene(scene, "bvh", 1)
+    depth = tree_depth(tree)
+    assert depth == 11
+    monkeypatch.setattr(bvh_ops, "STACK_SIZE", depth - 1)
+    with pytest.raises(ValueError, match="deeper than K4's stack"):
+        to_device(arrays, scene.static, "cpu", tree)
+    monkeypatch.setattr(bvh_ops, "STACK_SIZE", depth)
+    assert to_device(arrays, scene.static, "cpu", tree).bvh.depth == depth
 
 
 def test_aabb_hit_equals_jax_with_nan_slabs():
@@ -199,9 +277,11 @@ def _jax_traverse(scene, leaf, o, d, time, bits, active):
 
 
 def _plain(st, o, d, time, bits, active):
+    """The JAX package's walk order (bvh_traverse_dfs_plain)."""
     bvh = st.bvh
-    return bvh_traverse_plain(bvh.tree, bvh.prims, _t(o), _t(d), _t(time),
-                              _t(active), _t(bits), T_MIN, bvh.static)
+    return bvh_traverse_dfs_plain(bvh.tree, bvh.prims, _t(o), _t(d),
+                                  _t(time), _t(active), _t(bits), T_MIN,
+                                  bvh.static)
 
 
 @pytest.mark.parametrize("leaf", [1, 4])
@@ -250,6 +330,109 @@ def test_plain_matches_jax_traverser_on_nan_slab_rays():
     # The walk misses nearly all: only a leaf that also holds an ordinary
     # sphere is not flat.
     assert (best == -1).float().mean() > 0.9
+
+
+# The nearer-first walk against the JAX-order walk, camera rays and
+# bounces 1-2 (32x18, 2 spp), on every scene and leaf sizes 1, 4 and 8.
+# Rule, measured: winners and t equal on every ray.  Ties go to the
+# lowest index in both walks, and each finds the closest hit in its own
+# order; two things can still part them, where a hit is decided by the
+# bound the running best sets when it is tested: a medium's free flight
+# (a scattering distance at the bound itself), and a float32 hit outside
+# its own leaf's box, which one walk's best culls and the other's does
+# not (`sphereflake`: one camera ray in 921,600 at 1280x720,
+# test_nearer_first_parts_from_dfs_only_on_a_float32_graze).  On none of
+# these rays does either.
+ORDER_CASES = ([(name, 4) for name in (
+    "random", "two-spheres", "two-perlin-spheres", "earth", "simple-light",
+    "cornell", "cornell-smoke", "final", "sphereflake", "sphereflake-small",
+    "one-sphere", "three-spheres")]
+    + [("final", 1), ("final", 8), ("sphereflake", 1), ("cornell", 8)])
+
+
+@pytest.mark.parametrize("name,leaf", ORDER_CASES,
+                         ids=[f"{n}-leaf{k}" for n, k in ORDER_CASES])
+def test_nearer_first_equals_dfs_walk(name, leaf):
+    scene = build_scene(name)
+    st, tree, _ = _bvh_tensors(scene, leaf)
+    bvh = st.bvh
+    hits, box, dfs_nodes = 0, 0, 0
+    for state, bb in _waves(scene, st):
+        args = (state.o, state.d, state.time, state.alive, bb, T_MIN,
+                bvh.static)
+        near, dfs = {}, {}
+        t_n, b_n = bvh_traverse_plain(bvh.tree, bvh.prims, *args,
+                                      stats=near)
+        t_d, b_d = bvh_traverse_dfs_plain(bvh.tree, bvh.prims, *args,
+                                          stats=dfs)
+        assert torch.equal(b_n, b_d) and torch.equal(t_n, t_d)
+        assert near["max_stack"] <= bvh.depth
+        assert near["box_tests"] == (int(state.alive.sum())
+                                     + 2 * near["inner_steps"])
+        hits += int((b_n >= 0).sum())
+        box += near["box_tests"]
+        dfs_nodes += dfs["node_tests"]
+    assert hits > 50
+    # Two boxes a step: fewer steps than the JAX-order walk's nodes
+    # wherever the tree has more than one level.
+    assert box <= 2 * dfs_nodes
+
+
+def tie_scene():
+    """Two rects in the plane z = 0: A (x in [0, 1]) and a wider B (x in
+    [-2, 20]) that sorts after it, so A is the left leaf (index 0) and B
+    the right (index 1)."""
+    b = SceneBuilder()
+    mat = b.lambertian(b.solid((0.5, 0.5, 0.5)))
+    b.rect(PLANE_XY, 0.0, 1.0, 0.0, 1.0, 0.0, mat)
+    b.rect(PLANE_XY, -2.0, 20.0, -2.0, 3.0, 0.0, mat)
+    return b.finalize(CameraConfig((0, 0, -5), (0, 0, 0), 40.0, 0.0),
+                      (0, 0, 0), "tie")
+
+
+def tie_rays():
+    """Rays grazing the plane (d = (1, 0, 0.01)) that meet it at x = 0.001
+    + 0.001 k inside A: both rects hit at one t, and A's box is entered
+    later than B's (its x slab opens after the plane's z slab)."""
+    k = np.arange(8, dtype=np.float32)
+    n = len(k)
+    d = np.tile(np.float32([1.0, 0.0, 0.01]), (n, 1))
+    p = np.stack([0.001 + 0.001 * k, 0.1 + 0.1 * k, np.zeros(n)], 1)
+    o = (p - 10.0 * d).astype(np.float32)
+    return (o, d, np.zeros(n, np.float32), np.ones(n, bool),
+            np.arange(n, dtype=np.int64))
+
+
+def test_tie_goes_to_the_lowest_index_when_the_higher_comes_first():
+    scene = tie_scene()
+    st, tree, geom = _bvh_tensors(scene, 1)
+    bvh = st.bvh
+    assert np.asarray(geom.p1)[:2, 0].tolist() == [1.0, 20.0]  # A, then B
+    o, d, time, active, bits = (_t(x) for x in tie_rays())
+    # The nearer-first order visits B (the right child) first ...
+    inv_d = 1.0 / d
+    far = torch.full((o.shape[0],), 3.0e38)
+    left, right = 1, int(tree.skip[1])
+    h_l, t_l = aabb_entry(bvh.tree.bounds_min[left],
+                          bvh.tree.bounds_max[left], o, inv_d, T_MIN, far)
+    h_r, t_r = aabb_entry(bvh.tree.bounds_min[right],
+                          bvh.tree.bounds_max[right], o, inv_d, T_MIN, far)
+    assert (h_l & h_r & (t_r < t_l)).all()
+    # ... and both rects hit at one t, so A wins by its index alone.
+    stats = {}
+    t, best = bvh_traverse_plain(bvh.tree, bvh.prims, o, d, time, active,
+                                 bits, T_MIN, bvh.static, stats=stats)
+    assert (best == 0).all() and (t < 3.0e38).all()
+    assert int(stats["prim_tests"].sum()) == 2 * o.shape[0]
+    t_d, best_d = bvh_traverse_dfs_plain(bvh.tree, bvh.prims, o, d, time,
+                                         active, bits, T_MIN, bvh.static)
+    assert torch.equal(best_d, best) and torch.equal(t_d, t)
+    for pid in (0, 1):
+        pf = PrimFields(*(x[pid].expand(o.shape[0], *x.shape[1:])
+                          for x in bvh.prims))
+        t_one = prim_hit_t_lanes(pf, o, d, time, T_MIN, far, bits,
+                                 bvh.static)
+        assert torch.equal(t_one, t)
 
 
 def _waves(scene, st, W=32, H=18, bounces=3):
@@ -320,6 +503,53 @@ def test_sweep_hits_the_smallest_spheres_in_float32_only():
         oc = o - np.asarray(g.p0[k], np.float64)
         miss = np.linalg.norm(np.cross(oc, d)) / np.linalg.norm(d)
         assert r < miss < 1.5 * r
+
+
+# The camera ray (1280x720, 1 spp, seed 0) of `sphereflake`, leaf 4, on
+# which the nearer-first walk and the JAX-order walk part: the only one of
+# the 921,600 (found on the CPU, and counted again on the card).
+FLAKE_PART_RAY = 675315
+
+
+def _miss_over_r(o, d, center, r):
+    """The ray's distance from the sphere's center, in float64, over r."""
+    oc = o.double().numpy() - np.asarray(center, np.float64)
+    d = d.double().numpy()
+    return np.linalg.norm(np.cross(oc, d)) / np.linalg.norm(d) / r
+
+
+def test_nearer_first_parts_from_dfs_only_on_a_float32_graze():
+    """The JAX-order walk enters the leaf of one of the smallest spheres
+    (r = 1/243) first and takes its float32 hit, which lies before that
+    leaf box's own entry: in float64 the ray misses the sphere by 1.07 r
+    (c = |oc|^2 - r^2 cancels, as where the sweep parts from the walk).
+    By then the nearer-first walk has taken a true hit in the leaf it
+    entered first, nearer than that box's entry, and the slab test culls
+    the box."""
+    scene = build_scene("sphereflake")
+    st, tree, _ = _bvh_tensors(scene, 4)
+    bvh = st.bvh
+    W, H = 1280, 720
+    ids = torch.tensor([FLAKE_PART_RAY])
+    s = init_state(make_basis(scene.camera, W, H), W, H, ids,
+                   torch.zeros_like(ids), 0)
+    args = (s.o, s.d, s.time, s.alive, prng.bounce_base(s.base, 0), T_MIN,
+            bvh.static)
+    t_n, b_n = bvh_traverse_plain(bvh.tree, bvh.prims, *args)
+    t_d, b_d = bvh_traverse_dfs_plain(bvh.tree, bvh.prims, *args)
+    k_n, k_d = int(b_n[0]), int(b_d[0])
+    assert k_n != k_d and t_d[0] < t_n[0]
+    g = st.arrays.geom
+    r = float(g.radius[k_d])
+    assert r == float(np.float32(1.0 / 243))
+    assert 1.0 < _miss_over_r(s.o[0], s.d[0], g.p0[k_d], r) < 1.5
+    assert _miss_over_r(s.o[0], s.d[0], g.p0[k_n], float(g.radius[k_n])) < 1
+    leaf = int(np.flatnonzero((tree.leaf_first <= k_d) & (
+        tree.leaf_first + tree.leaf_count > k_d) & (tree.leaf_first >= 0))[0])
+    hit, t_lo = aabb_entry(bvh.tree.bounds_min[leaf],
+                           bvh.tree.bounds_max[leaf], s.o, 1.0 / s.d, T_MIN,
+                           torch.full((1,), 3.0e38))
+    assert bool(hit[0]) and t_d[0] < t_n[0] < t_lo[0]
 
 
 # Bit-equal on every scene listed: each compared lane takes the same

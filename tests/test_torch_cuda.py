@@ -684,6 +684,35 @@ def test_bvh_traverse_nan_slab_rays(cuda):
         assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
 
 
+def test_bvh_traverse_two_launches_in_a_row_agree(cuda):
+    """A second launch straight after the first, on the same stream,
+    walks every ray again to the same result."""
+    scene, st = _bvh_scene("sphereflake", 4, cuda)
+    s = _rays(scene, st, 320, 180, cuda)
+    args = (s.o, s.d, s.time, s.alive, prng.bounce_base(s.base, 0))
+    t1, b1 = bvh_traverse(st.bvh, *args, T_MIN)
+    t2, b2 = bvh_traverse(st.bvh, *args, T_MIN)
+    torch.cuda.synchronize()
+    t_p, b_p = bvh_traverse_plain(st.bvh.tree, st.bvh.prims, *args, T_MIN,
+                                  st.bvh.static)
+    for t_k, b_k in ((t1, b1), (t2, b2)):
+        assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_p >= 0).float().mean() > 0.5
+
+
+def test_bvh_traverse_tie_goes_to_the_lowest_index(cuda):
+    from test_torch_bvh import tie_rays, tie_scene
+
+    scene = tie_scene()
+    arrays, bvh, _ = prepare_scene(scene, "bvh", 1)
+    st = to_device(arrays, scene.static, cuda, bvh)
+    o, d, time, active, bits = (torch.from_numpy(np.array(x)).to(cuda)
+                                for x in tie_rays())
+    t_k, b_k, t_p, b_p = _bvh_both(st, o, d, time, active, bits)
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_k == 0).all()
+
+
 @pytest.mark.parametrize("n", [1, 127, 128, 129, 4097])
 def test_bvh_traverse_ragged_counts_and_inactive_rays(cuda, n):
     scene, st = _bvh_scene("final", 4, cuda)
