@@ -28,6 +28,12 @@ The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
 ``{"ok": true, "device": {...}}``.
 
+``--parent DIR`` (a checkout of an earlier commit, e.g. a ``git
+archive`` of the parent) makes phase 15 build that checkout's K3 design
+(``csrc/segment_sum.cu`` with torch.sort around it) and time it in turns
+with this one on the same inputs; the kernels line's ``parent_ms`` is
+then that time, else null.
+
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
 """
@@ -237,6 +243,47 @@ def device_ms(fn, args, reps, only=None):
         end.record()
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+def kernel_split(fn, args, reps):
+    """What one call of ``fn`` runs on the device: {name: (launches a
+    call, device ms a call)} for every kernel and memset in a
+    torch.profiler trace of ``reps`` calls, the names as the profiler
+    gives them.  A trace whose counts are not whole multiples of ``reps``
+    (the profiler dropped events) is taken again, up to three times;
+    after that the counts are rounded and that is printed."""
+    from collections import defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn(*args)
+            torch.cuda.synchronize()
+        got = defaultdict(lambda: [0, 0.0])
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                got[e.name][0] += 1
+                got[e.name][1] += e.time_range.elapsed_us()
+        if got and all(c % reps == 0 for c, _ in got.values()):
+            break
+    else:
+        print(f"kernel_split: event counts {dict(got)} are not multiples "
+              f"of {reps} calls three times; rounded", flush=True)
+    return {name: (round(c / reps), us / reps / 1e3)
+            for name, (c, us) in got.items()}
+
+
+def split_text(split):
+    """``kernel_split``'s result on one line, each name cut to 60
+    characters: launches a call and device ms a call."""
+    return ", ".join(f"{name[:60]} x{k} {ms:.4f} ms"
+                     for name, (k, ms) in sorted(split.items(),
+                                                 key=lambda kv: -kv[1][1]))
 
 
 def in_turns(plain, kernel, args, plain_reps, kernel_reps):
@@ -470,12 +517,92 @@ def k2b_line(k2b, n, ptxas_note, sass):
             f"branches; ptxas: {ptxas_note}")
 
 
-def k3_phase(dev, cases):
+def k3_cases(dev, shape):
+    """Phase 15's inputs, the gathers of a train step at ``shape`` (W, H,
+    spp) on its first bounce: the winner's rows on `random` and `final`,
+    and `final`'s texels (rows of 3, one for every texel of its images).
+    Returns {label: (the gathered table's rows, its width, the lanes'
+    rows)}."""
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.intersect import (
+        gather_prim_shade_packed,
+        hit_detail,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.textures import texel_rows
+    from hyper_ray_tracer_tpu_torch.render import init_state, trace
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    W, H, spp = shape
+    pix = torch.arange(W * H, dtype=torch.int64, device=dev).repeat(spp)
+    sample = torch.arange(spp, dtype=torch.int64,
+                          device=dev).repeat_interleave(W * H)
+    cases = {}
+    for name in ("random", "final"):
+        scene = build_scene(name)
+        st = to_device(scene.arrays, scene.static, dev)
+        cam = init_state(make_basis(scene.camera, W, H), W, H, pix, sample,
+                         0)
+        t_hit, prim = trace(st, cam, prng.bounce_base(cam.base, 0))
+        pidx = torch.clamp(prim, min=0).long()
+        cases[name] = (st.fpack.shape[0], st.fpack.shape[1], pidx)
+    pf, sf = gather_prim_shade_packed(st.fpack, st.ipack, pidx,
+                                      scene.static)
+    det = hit_detail(pf, cam.o, cam.d, cam.time,
+                     torch.where(prim >= 0, t_hit, 1.0), scene.static)
+    ni, ih, iw, _ = st.tables.images.shape
+    cases["final texels"] = (ni * ih * iw, 3,
+                             texel_rows(sf, det, st.tables))
+    return cases
+
+
+def parent_k3(dev, parent):
+    """The parent design of K3, from a checkout of it at ``parent`` (its
+    csrc/segment_sum.cu: torch.sort, then chunk_pieces and row_totals,
+    each chunk's pieces and each row's chunk sums added in order), built
+    with the port's nvcc flags into build/kernels/parent/ and wrapped as
+    its own wrapper did.  Timed beside the shipped K3, never shipped."""
+    import ctypes
+
+    from hyper_ray_tracer_tpu_torch.utils import cuda_build
+
+    src_cu = (Path(parent) / "hyper_ray_tracer_tpu_torch" / "csrc"
+              / "segment_sum.cu")
+    lib = cuda_build.BUILD_DIR / "parent" / "libsegment_sum.so"
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    str(lib), str(src_cu)], check=True, capture_output=True,
+                   timeout=600)
+    fn = ctypes.CDLL(str(lib)).hrt_segment_sum
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [ptr, ptr, ptr, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
+    fn.restype = c_int
+
+    def segment_sum_parent(src, idx, n_rows):
+        n, f = src.shape
+        out = torch.empty((n_rows, f), device=dev)
+        rows, order = torch.sort(idx.to(torch.int32), stable=True)
+        heads = torch.empty((-(-n // 256), f), device=dev)
+        bounds = torch.zeros((2, n_rows), dtype=torch.int32, device=dev)
+        cuda_build.launch("segment_sum (parent)", fn, dev, order.data_ptr(),
+                          rows.data_ptr(), src.data_ptr(), n, f, n_rows,
+                          heads.data_ptr(), bounds.data_ptr(),
+                          out.data_ptr())
+        return out
+
+    return segment_sum_parent
+
+
+def k3_phase(dev, cases, parent=None):
     """K3 (``segment_sum``) against its plain version, bit for bit, and
     against ``index_add_``, the PyTorch call it replaces, at the gathers
-    of a train step: ``cases`` maps a label to (the gathered table's rows
-    and width, the lanes' rows).  Cotangents from a seed.
-    Returns {label: measurements}."""
+    of a train step (``k3_cases``).  Cotangents from a seed.  What a call
+    runs on the device, kernel by kernel (asserted: at most 4 launches,
+    none of them a sort).  With ``parent`` (``parent_k3``), the parent
+    design on the same inputs, in turns parent, K3, K3, parent, device
+    time by the profiler; its sums held to the float64 sum's rounding
+    bound.  Returns {label: measurements}."""
     from hyper_ray_tracer_tpu_torch.ops.gather import (
         segment_sum,
         segment_sum_plain,
@@ -496,41 +623,75 @@ def k3_phase(dev, cases):
         assert torch.equal(segment_sum(*args), got), f"K3 twice ({label})"
         adds = [index_add(*args) for _ in range(5)]
         ms, plain_ms = in_turns(segment_sum_plain, segment_sum, args, 2, 20)
+        split = kernel_split(segment_sum, args, 20)
+        launches = sum(k for k, _ in split.values())
+        assert launches <= 4, f"K3 ({label}): {launches} launches a call"
+        # K3's own kernels and the wrapper's fill, nothing of torch.sort
+        assert all(any(k in name for k in ("sort_lanes", "reduce_rows",
+                                           "combine_levels", "FillFunctor"))
+                   for name in split), split
         n = idx.numel()
-        out[label] = dict(
+        v = out[label] = dict(
             n=n, rows=n_rows, f=f, top=int(torch.bincount(idx).max()),
             differ=sum(not torch.equal(a, adds[0]) for a in adds[1:]),
             add_err=max((a - got).abs().max().item() for a in adds),
-            ms=device_ms(segment_sum, args, 20),
-            pieces_ms=device_ms(segment_sum, args, 20,
-                                only=("chunk_pieces",)),
-            totals_ms=device_ms(segment_sum, args, 20,
-                                only=("row_totals",)),
-            call_ms=ms, plain_ms=plain_ms,
+            ms=device_ms(segment_sum, args, 20), split=split,
+            launches=launches, call_ms=ms, plain_ms=plain_ms,
             library_ms=device_ms(index_add, args, 20),
             library_call_ms=time_ms(index_add, args, 20),
             # The cotangent rows read once, the int64 lane rows read once,
             # the gradient written once; one addition an element.
             bound=bound(n * f * 4 + n * 8 + n_rows * f * 4, n * f))
+        if parent is not None:
+            ref = torch.zeros((n_rows, f), dtype=torch.float64,
+                              device=dev).index_add_(0, idx, src.double())
+            mag = torch.zeros((n_rows, f), dtype=torch.float64,
+                              device=dev).index_add_(0, idx,
+                                                     src.double().abs())
+            count = torch.bincount(idx, minlength=n_rows).double()[:, None]
+            eps = float(np.finfo(np.float32).eps)
+            for fn in (parent, segment_sum):
+                assert ((fn(*args).double() - ref).abs()
+                        <= count * eps * mag).all(), (label, fn)
+            p1 = device_ms(parent, args, 20)
+            k1 = device_ms(segment_sum, args, 20)
+            k2 = device_ms(segment_sum, args, 20)
+            p2 = device_ms(parent, args, 20)
+            v.update(turns=(p1, k1, k2, p2), parent_ms=(p1 + p2) / 2,
+                     turn_ms=(k1 + k2) / 2,
+                     parent_split=kernel_split(parent, args, 20))
     return out
 
 
 def k3_line(k3, ptxas_note):
+    def parent(v):
+        if "turns" not in v:
+            return "parent design not given (--parent)"
+        p1, k1, k2, p2 = v["turns"]
+        return (f"in turns with the parent design on the same inputs "
+                f"(parent, K3, K3, parent): {p1:.4f}, {k1:.4f}, {k2:.4f}, "
+                f"{p2:.4f} ms, K3 {v['parent_ms'] / v['turn_ms']:.2f}x "
+                f"faster; the parent's call: "
+                f"{sum(k for k, _ in v['parent_split'].values())} launches: "
+                f"{split_text(v['parent_split'])}")
+
     return ("segment_sum (K3) vs its plain version at the gathers of a "
             "train step (bench_grad.py's 400x225x8, first bounce), "
             "bit-equal and equal to itself twice (asserted): " + "; ".join(
                 f"{label} ({v['n']} lanes into {v['rows']} rows of "
                 f"{v['f']}, the largest row {v['top']} lanes): K3 "
-                f"{v['ms']:.4f} ms on the device with its sort "
-                f"(its kernels chunk_pieces {v['pieces_ms']:.4f} ms, "
-                f"row_totals {v['totals_ms']:.4f} ms; {v['call_ms']:.4f} ms "
-                f"a call back to back), plain {v['plain_ms']:.4f} ms, "
+                f"{v['ms']:.4f} ms on the device "
+                f"({v['call_ms']:.4f} ms a call back to back; "
+                f"{v['launches']} launches a call (asserted <= 4, K3's own "
+                f"and a fill): "
+                f"{split_text(v['split'])}), plain {v['plain_ms']:.4f} ms, "
                 f"index_add_ {v['library_ms']:.4f} ms on the device "
                 f"({v['library_call_ms']:.4f} ms a call); 4 more index_add_ "
                 f"calls on the same inputs: {v['differ']} differ from the "
                 f"first in some bit, max |index_add_ - K3| "
                 f"{v['add_err']:.3e}; bound {v['bound'][0]:.6f} ms "
-                f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it"
+                f"({v['bound'][1]}), {v['bound'][0] / v['ms']:.3f} of it; "
+                + parent(v)
                 for label, v in k3.items())
             + f"; ptxas: {ptxas_note}")
 
@@ -1216,7 +1377,14 @@ def render_profile(dev, name, settings):
     return text + f"; lanes per bounce (first chunk) {lanes[:depth]}"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: phase 15 then "
+                         "times its K3 design in turns with this one")
+    parent = ap.parse_args(argv).parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1244,7 +1412,6 @@ def main() -> int:
         sphere_sweep,
         sphere_sweep_plain,
     )
-    from hyper_ray_tracer_tpu_torch.ops.textures import texel_rows
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
         noise_texture,
         noise_texture_grad,
@@ -1298,9 +1465,11 @@ def main() -> int:
     for name in KERNELS:
         cuda_build.load(name)
         notes.append(f"{name}: {resources(ptxas[name])}")
-    # K4 walks a stack in local memory by design, and spills nothing.
-    assert all(r[2] == 0 for r in ptxas["bvh_traverse"].values()), \
-        f"bvh_traverse spills: {ptxas['bvh_traverse']}"
+    # K4 walks a stack in local memory by design, and spills nothing; nor
+    # does K3.
+    for name in ("bvh_traverse", "segment_sum"):
+        assert all(r[2] == 0 for r in ptxas[name].values()), \
+            f"{name} spills: {ptxas[name]}"
     # The sweeps' ray-packet size R (rays per thread), the header's kRays.
     packet = int(re.search(r"constexpr int kRays = (\d+);", (
         cuda_build.CSRC_DIR / "sweep_sphere.cuh").read_text()).group(1))
@@ -1730,25 +1899,11 @@ def main() -> int:
     phase(14, deep_train_line(TRAIN_SHAPE[:3], 50))
 
     # Phase 15: K3 against its plain version and index_add_ at the
-    # gathers of the train steps above (their first bounce): the winner's
-    # rows on `random` and `final`, and `final`'s texels (rows of 3, one
-    # for every texel of its images).
+    # gathers of the train steps above (their first bounce), and against
+    # the parent design when one is given.
     TW, TH, TSPP = TRAIN_SHAPE[:3]
-    gathers = {}
-    for name, st in (("random", random_t), ("final", final_t)):
-        scene = build_scene(name)
-        cam = camera(scene, TW, TH, *lanes(TW, TH, TSPP))
-        t_hit, prim = trace(st, cam, prng.bounce_base(cam.base, 0))
-        pidx = torch.clamp(prim, min=0).long()
-        gathers[name] = (st.fpack.shape[0], st.fpack.shape[1], pidx)
-    pf, sf = gather_prim_shade_packed(final_t.fpack, final_t.ipack, pidx,
-                                      final.static)
-    det = hit_detail(pf, cam.o, cam.d, cam.time,
-                     torch.where(prim >= 0, t_hit, 1.0), final.static)
-    ni, ih, iw, _ = final_t.tables.images.shape
-    gathers["final texels"] = (ni * ih * iw, 3,
-                               texel_rows(sf, det, final_t.tables))
-    k3 = k3_phase(dev, gathers)
+    k3 = k3_phase(dev, k3_cases(dev, (TW, TH, TSPP)),
+                  parent_k3(dev, parent) if parent else None)
     phase(15, k3_line(k3, resources(ptxas["segment_sum"])))
 
     # Phase 16: two train steps from one state, bit-equal gradients.
@@ -1915,7 +2070,9 @@ def main() -> int:
          "plain_ms": k3["random"]["plain_ms"],
          "bound_ms": k3["random"]["bound"][0],
          "bound_by": k3["random"]["bound"][1],
-         "library_ms": k3["random"]["library_ms"]},
+         "library_ms": k3["random"]["library_ms"],
+         # the parent design on the same inputs, in turns (--parent)
+         "parent_ms": k3["random"].get("parent_ms")},
         {"name": "bvh_traverse", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/bvh_traverse.cu",
          "replaces": "hyper_ray_tracer_tpu/ops/bvh.py:408",

@@ -11,24 +11,38 @@ bits from one run to the next.  The winner's row gather
 the scene's few hundred primitives) and the texel gather
 (``ops/textures.texture_value``) go through it.
 
-The order, ``segment_sum``'s contract: the lanes are sorted by row,
-stably (``torch.sort(..., stable=True)``: a sort of integers has one
-answer), and cut into chunks of ``CHUNK`` sorted lanes.  A row's lanes
-in one chunk form a piece; each piece is summed left to right, and each
-row's pieces are then summed left to right, in chunk order.  A row no
-lane took gets 0.
+The order, ``segment_sum``'s contract:
+
+1. the lanes are sorted by row, stably (a sort of integers has one
+   answer): position ``p`` holds lane ``order[p]`` of row ``rows[p]``,
+   and row ``r``'s lanes take the positions ``[S_r, S_r + m_r)`` in lane
+   order;
+2. a pairwise tree over the positions, aligned at position 0: for
+   ``h = 1, 2, 4, ...``, every node ``[a, a + 2h)`` (``a`` a multiple of
+   ``2h``) whose middle ``a + h`` falls inside a row (positions
+   ``a + h - 1`` and ``a + h`` both of row ``r``) adds the partial sum of
+   ``r``'s lanes in its right half, held at position ``a + h``, to the
+   partial sum of ``r``'s lanes in its left half, held at position
+   ``max(a, S_r)``;
+3. row ``r``'s sum is then the value held at ``S_r``; a row no lane took
+   gets 0.
+
+Every addition is one float32 addition with one writer, so the sums do
+not depend on the scheduling.  Nothing in the order depends on how a
+kernel cuts the positions: K3 runs the steps below ``CHUNK`` inside one
+block and the steps above it in levels of ``FAN_OUT`` units, and the tests
+place rows across those edges to hold it there.
 
 Two implementations of that contract, equal bit for bit (they perform
-the same IEEE additions in the same order):
+the same IEEE additions):
 
 * ``segment_sum``: the wrapper of the hand-written Hopper kernel K3
-  (``csrc/segment_sum.cu``; not a TPU kernel: it replaces ``index_add_``
-  in the backward).  A CPU tensor takes the plain version; a CUDA tensor
-  launches the kernel or raises.
-* ``segment_sum_plain``: the same sums in plain torch, a loop over the
-  positions of a chunk and then over the pieces of a row, each step
-  vectorised over the chunks or the rows; memory in proportion to the
-  lanes.
+  (``csrc/segment_sum.cu``, which sorts the lanes itself; not a TPU
+  kernel: it replaces ``index_add_`` in the backward).  A CPU tensor
+  takes the plain version; a CUDA tensor launches the kernel or raises.
+* ``segment_sum_plain``: the same sums in plain torch, ``torch.sort``
+  and then one vectorised step per ``h``, over the nodes whose middle
+  falls inside a row; memory in proportion to the lanes.
 """
 
 from __future__ import annotations
@@ -39,8 +53,10 @@ import torch
 
 from ..utils import cuda_build
 
-CHUNK = 256  # sorted lanes a piece spans at most: csrc/segment_sum.cu kChunk
-MAX_WIDTH = 256  # the widest row K3 takes: csrc/segment_sum.cu kThreads
+CHUNK = 256  # positions a K3 block sums alone: csrc/segment_sum.cu kChunk
+FAN_OUT = 32  # units a level of K3 combines: csrc/segment_sum.cu kFanOut
+ONE_PASS_ROWS = 2048  # rows K3 sorts in one pass: csrc/segment_sum.cu kMaxBins
+MAX_WIDTH = 256  # the widest row K3 takes
 
 
 def segment_sum_plain(src, idx, n_rows: int):
@@ -50,57 +66,42 @@ def segment_sum_plain(src, idx, n_rows: int):
     out = torch.zeros((n_rows, f), dtype=src.dtype, device=src.device)
     if n == 0:
         return out
-    # The rows sorted stably; order[i] is the lane at sorted position i.
     rows, order = torch.sort(idx, stable=True)
     vals = src[order]
-    n_chunks = -(-n // CHUNK)
-    pad = n_chunks * CHUNK - n
-    vals = torch.cat([vals, vals.new_zeros((pad, f))]).view(
-        n_chunks, CHUNK, f)
-    rows_c = torch.cat([rows, rows.new_full((pad,), -1)]).view(
-        n_chunks, CHUNK)
-    # Each piece left to right: acc[:, j] is the sum of its piece up to
-    # position j of the chunk.
-    acc = vals.clone()
-    for j in range(1, min(CHUNK, n)):
-        same = (rows_c[:, j] == rows_c[:, j - 1])[:, None]
-        acc[:, j] = torch.where(same, acc[:, j - 1] + vals[:, j],
-                                vals[:, j])
-    # A piece ends at a chunk's last position or where the row changes.
     pos = torch.arange(n, device=src.device)
-    nxt = torch.cat([rows[1:], rows.new_full((1,), -1)])
-    ends = ((pos % CHUNK == CHUNK - 1) | (nxt != rows)).nonzero().squeeze(1)
-    part = acc.view(-1, f)[ends]
-    part_row = rows[ends]
-    # Each row's pieces left to right, vectorised over the rows: step k
-    # adds the k-th piece of each row that has more than k, so the work
-    # and memory are those of the pieces, however long the longest row.
-    first = torch.ones_like(part_row, dtype=torch.bool)
-    first[1:] = part_row[1:] != part_row[:-1]
-    starts = first.nonzero().squeeze(1)
-    counts = torch.diff(starts, append=starts.new_full((1,), len(part_row)))
-    total = part[starts]
-    live = torch.arange(len(starts), device=src.device)
-    for k in range(1, int(counts.max())):
-        live = live[counts[live] > k]
-        total[live] = total[live] + part[starts[live] + k]
-    out[part_row[starts]] = total
+    first = torch.ones(n, dtype=torch.bool, device=src.device)
+    first[1:] = rows[1:] != rows[:-1]
+    # start[p]: S_r of the row at position p.
+    start = torch.where(first, pos, 0).cummax(0).values
+    h = 1
+    while h < n:
+        mid = torch.arange(h, n, 2 * h, device=src.device)
+        mid = mid[rows[mid - 1] == rows[mid]]
+        left = torch.maximum(mid - h, start[mid])  # one per node
+        vals[left] = vals[left] + vals[mid]
+        h *= 2
+    out[rows[first]] = vals[first]
     return out
 
 
 def _bind(lib):
-    fn = lib.hrt_segment_sum
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [ptr, ptr, ptr, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
+    size = lib.hrt_segment_sum_workspace
+    size.argtypes = [c_int, c_int, c_int, ctypes.POINTER(ctypes.c_longlong)]
+    size.restype = c_int
+    fn = lib.hrt_segment_sum
+    fn.argtypes = [ptr, c_int, ptr, c_int, c_int, c_int, ptr, ptr, ptr, ptr]
     fn.restype = c_int
-    return fn
+    return size, fn
 
 
 def segment_sum(src, idx, n_rows: int):
     """``segment_sum_plain``'s sums of ``src`` [N, F] float32 by ``idx``
-    [N] (integers in [0, n_rows)).  A CPU tensor takes the plain version;
-    a CUDA tensor launches K3 (building it on first use) or raises.
-    Counts its kernel launches in ``segment_sum.launches``."""
+    [N] (integers in [0, n_rows); on the card one outside traps the
+    kernel).  A CPU tensor takes the plain version; a CUDA tensor
+    launches K3 (building it on first use: a fill and three kernels, no
+    ``torch.sort``) or raises.  Counts its launches of K3, one a call, in
+    ``segment_sum.launches``."""
     device = src.device
     if device.type == "cpu":
         return segment_sum_plain(src, idx, n_rows)
@@ -126,14 +127,20 @@ def segment_sum(src, idx, n_rows: int):
     out = torch.empty((n_rows, f), dtype=torch.float32, device=device)
     if n == 0 or f == 0 or n_rows == 0:
         return out.zero_()
-    rows, order = torch.sort(idx.to(torch.int32), stable=True)
-    heads = torch.empty((-(-n // CHUNK), f), dtype=torch.float32,
-                        device=device)
-    bounds = torch.zeros((2, n_rows), dtype=torch.int32, device=device)
-    fn = _bind(cuda_build.load("segment_sum"))
-    cuda_build.launch("segment_sum", fn, device, order.data_ptr(),
-                      rows.data_ptr(), src.data_ptr(), n, f, n_rows,
-                      heads.data_ptr(), bounds.data_ptr(), out.data_ptr())
+    size, fn = _bind(cuda_build.load("segment_sum"))
+    nbytes = (ctypes.c_longlong * 2)()
+    if size(n, f, n_rows, nbytes) != 0:
+        raise ValueError(f"segment_sum: no workspace for {n} lanes into "
+                         f"{n_rows} rows of {f}")
+    # The kernel's counters, histograms and look-back words start at 0;
+    # the sorted lanes and the partial sums go to `work`.
+    zeroed = torch.zeros(nbytes[0], dtype=torch.uint8, device=device)
+    work = torch.empty(nbytes[1], dtype=torch.uint8, device=device)
+    idx = idx.contiguous()
+    cuda_build.launch("segment_sum", fn, device, idx.data_ptr(),
+                      int(idx.dtype == torch.int64), src.data_ptr(), n, f,
+                      n_rows, zeroed.data_ptr(), work.data_ptr(),
+                      out.data_ptr())
     segment_sum.launches += 1
     return out
 

@@ -36,6 +36,8 @@ from hyper_ray_tracer_tpu_torch.ops.bvh import (  # noqa: E402
 )
 from hyper_ray_tracer_tpu_torch.ops.gather import (  # noqa: E402
     CHUNK,
+    FAN_OUT,
+    ONE_PASS_ROWS,
     gather_rows,
     segment_sum,
     segment_sum_plain,
@@ -576,13 +578,23 @@ def _segment_case(n, n_rows, f, kind, dev):
     (CHUNK, 9, 20, "one row"), (CHUNK + 1, 486, 20, "sparse"),
     (100_003, 486, 20, "skew"), (100_003, 7, 19, "one row"),
     (70_001, 524_288, 3, "sparse"), (720_000, 486, 20, "skew"),
-    (720_000, 524_288, 3, "skew")])
+    (720_000, 524_288, 3, "skew"),
+    (50_000, ONE_PASS_ROWS, 20, "sparse"), (50_000, ONE_PASS_ROWS, 20, "skew"),
+    (50_000, ONE_PASS_ROWS + 1, 20, "sparse"),
+    (50_000, ONE_PASS_ROWS + 1, 3, "skew"),
+    (300_001, 2**20, 3, "sparse"), (300_001, 2**20, 3, "skew"),
+    (3 * 8192 + 17, 486, 20, "skew"), (8192 * 5 - 1, 1409, 19, "sparse"),
+    (200_000, 486, 40, "skew")])
 def test_segment_sum_equals_plain(cuda, n, n_rows, f, kind):
     """K3 against its plain version, bit for bit, on ragged shapes: one
     row taking every lane, empty rows, no lanes, chunk edges, the winner
     gather of a `random` step (720,000 lanes into 486 rows of 20) and
     texel gathers (into 524,288 rows of 3; with one texel taking seven
-    lanes in ten, the long-row walk at rows of 3)."""
+    lanes in ten, a row over more chunks than two levels of K3 combine).
+    The sort: rows at its one-pass limit (ONE_PASS_ROWS) and one above
+    (two passes of 6 bits), 2^20 rows (two passes of 10 bits), lane
+    counts that are not a multiple of its 8,192-lane tile; rows wider
+    than one of the reduction's column slices (40 > 31)."""
     src, idx = _segment_case(n, n_rows, f, kind, cuda)
     before = segment_sum.launches
     got = segment_sum(src, idx, n_rows)
@@ -591,6 +603,45 @@ def test_segment_sum_equals_plain(cuda, n, n_rows, f, kind):
     ref = segment_sum_plain(src, idx, n_rows)
     assert torch.equal(got, ref)
     assert torch.equal(segment_sum(src, idx, n_rows), got)
+
+
+@pytest.mark.parametrize("offset", [
+    0, 1, 2, 3, CHUNK - 3, CHUNK - 2, CHUNK * FAN_OUT - 3,
+    CHUNK * FAN_OUT - 1, CHUNK * FAN_OUT * FAN_OUT - 2])
+def test_segment_sum_tree_across_kernel_edges(cuda, offset):
+    """1e8, 1, -1e8, 1 into one row after ``offset`` lanes of another
+    (tests/test_torch_gather.py: their sum is 0.0 or 1.0 by where the
+    tree's nodes fall): K3 equals its plain version where the four lanes
+    straddle a chunk's edge, a level's unit edge and a second level's,
+    and so where K3 hands a row's partial sums on."""
+    src = torch.cat([torch.zeros((offset, 2), device=cuda),
+                     torch.tensor([[1e8, 1.0], [1.0, 1e8], [-1e8, 1.0],
+                                   [1.0, -1e8]], device=cuda)])
+    idx = torch.cat([torch.zeros(offset, dtype=torch.int64, device=cuda),
+                     torch.ones(4, dtype=torch.int64, device=cuda)])
+    got = segment_sum(src, idx, 2)
+    assert torch.equal(got, segment_sum_plain(src, idx, 2))
+    assert got[1, 0].item() in (0.0, 1.0)
+
+
+def test_segment_sum_counts_one_launch_and_sorts_itself(cuda, monkeypatch):
+    """One call adds exactly one to ``segment_sum.launches``, and the card
+    path orders the lanes itself: ``torch.sort`` (and ``Tensor.sort``)
+    raise for the duration of the call."""
+    src, idx = _segment_case(100_003, 486, 20, "skew", cuda)
+    ref = segment_sum_plain(src, idx, 486)
+
+    def no_sort(*args, **kwargs):
+        raise AssertionError("segment_sum called a sort on the card")
+
+    monkeypatch.setattr(torch, "sort", no_sort)
+    monkeypatch.setattr(torch.Tensor, "sort", no_sort)
+    before = segment_sum.launches
+    got = segment_sum(src, idx, 486)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 1
+    monkeypatch.undo()
+    assert torch.equal(got, ref)
 
 
 def test_gather_rows_backward_runs_k3(cuda):

@@ -1,8 +1,10 @@
 """The reproducible row gather (``ops/gather.py``) on the CPU: the fixed
-order of ``segment_sum_plain`` against a float64 ``index_add_``, a case
-where the order decides the sum, ``gather_rows``' gradient against
-``index_select``'s, and the compaction gather whose ``index_select``
-backward is exact because its indices are unique.  K3, the kernel, is
+order of ``segment_sum_plain`` (a pairwise tree over the sorted
+positions) against a float64 ``index_add_`` and against the contract
+written out row by row, cases where the order decides the sum,
+``gather_rows``' gradient against ``index_select``'s, and the compaction
+gather whose ``index_select`` backward is exact because its indices are
+unique.  K3, the kernel, is
 held to ``segment_sum_plain`` bit for bit in ``tests/test_torch_cuda.py``.
 """
 
@@ -16,6 +18,7 @@ torch.set_num_threads(1)
 
 from hyper_ray_tracer_tpu_torch.ops.gather import (  # noqa: E402
     CHUNK,
+    FAN_OUT,
     gather_rows,
     segment_sum,
     segment_sum_plain,
@@ -56,48 +59,92 @@ def test_segment_sum_plain_against_float64_index_add(n, n_rows, f, skew):
     assert (got[count[:, 0] == 0] == 0).all()
 
 
-def test_the_order_decides_the_sum():
-    """1e8, 1, -1e8, 1 into one row: summed left to right in float32
-    ((1e8 + 1) rounds to 1e8), 1.0, where float64 gives 2.0; the sorted
-    order is the lanes' order, since the sort is stable.  Across a chunk
-    boundary the pieces are summed in chunk order too."""
-    src = torch.tensor([[1e8], [1.0], [-1e8], [1.0]])
-    idx = torch.zeros(4, dtype=torch.int64)
-    assert segment_sum_plain(src, idx, 1).item() == 1.0
-    assert float(src.double().sum()) == 2.0
-    # Row 1's lanes at sorted positions CHUNK - 2 .. CHUNK + 1 form two
-    # pieces, (1e8 + 1) and (-1e8 + 1), which round to 1e8 and -1e8: the
-    # row sums to 0.
-    pad = CHUNK - 2
-    src = torch.cat([torch.zeros((pad, 1)), src])
-    idx = torch.cat([torch.zeros(pad, dtype=torch.int64),
+def _pattern(offset):
+    """Row 1's lanes 1e8, 1, -1e8, 1 at sorted positions offset..offset+3,
+    after ``offset`` lanes of row 0 (all 0.0)."""
+    src = torch.cat([torch.zeros((offset, 1)),
+                     torch.tensor([[1e8], [1.0], [-1e8], [1.0]])])
+    idx = torch.cat([torch.zeros(offset, dtype=torch.int64),
                      torch.ones(4, dtype=torch.int64)])
-    assert segment_sum_plain(src, idx, 2)[1].item() == 0.0
+    return src, idx
+
+
+def test_the_order_decides_the_sum():
+    """1e8, 1, -1e8, 1 into one row: in float32 (1e8 + 1) rounds to 1e8
+    and (1 - 1e8) to -1e8, so the sum is the tree's.  With the row at
+    positions 0-3 the tree adds the pairs first, 1e8 + -1e8: 0.0, where
+    left to right gives 1.0 and float64 2.0.  Across the edge of one of
+    K3's chunks (positions CHUNK - 2 .. CHUNK + 1) the pairs are the same
+    and so is the sum."""
+    for offset in (0, CHUNK - 2):
+        src, idx = _pattern(offset)
+        assert segment_sum_plain(src, idx, 2)[1].item() == 0.0
+        assert float(src.double().sum()) == 2.0
+
+
+@pytest.mark.parametrize("offset,want", [
+    (1, 1.0), (2, 0.0), (3, 0.0), (CHUNK - 3, 1.0),
+    (CHUNK * FAN_OUT - 3, 1.0), (CHUNK * FAN_OUT - 1, 0.0)])
+def test_the_tree_is_aligned_at_position_zero(offset, want):
+    """The tree's nodes are aligned at position 0, not at the row: after
+    one lane of another row the same four lanes make the nodes
+    (1 + -1e8), then 1e8 + that, then + 1: 1.0.  Likewise where they
+    straddle the edge of one of K3's chunks (CHUNK) or of a unit of its
+    level above (CHUNK * FAN_OUT), where the kernel hands a row's
+    partial sums on."""
+    src, idx = _pattern(offset)
+    assert segment_sum_plain(src, idx, 2)[1].item() == want
+
+
+def _contract_sums(src, idx, n_rows):
+    """The contract written out row by row in float32 numpy: each row's
+    lanes at their stably sorted positions, summed node by node from the
+    root of the pairwise tree aligned at position 0, a node adding its
+    halves' sums when both hold lanes of the row."""
+    x = src.numpy()[np.argsort(idx.numpy(), kind="stable")]
+    rows = np.sort(idx.numpy(), kind="stable")
+    top = 1
+    while top < len(rows):
+        top *= 2
+    want = np.zeros((n_rows, src.shape[1]), np.float32)
+    for r in np.unique(rows):
+        lo, hi = np.searchsorted(rows, [r, r + 1])
+
+        def node(a, size):
+            if a + size <= lo or a >= hi:
+                return None
+            if size == 1:
+                return x[a]
+            left = node(a, size // 2)
+            right = node(a + size // 2, size // 2)
+            if left is None or right is None:
+                return right if left is None else left
+            return left + right
+
+        want[r] = node(0, top)
+    return torch.from_numpy(want)
 
 
 def test_segment_sum_plain_follows_its_order_bit_for_bit():
     """Against the contract written out lane by lane in float32: a texel
     gather's shape (rows of 3, most rows one lane, row 0 spread over a
-    dozen chunks), each row's lanes in their sorted positions, summed
-    left to right within a chunk, the chunks' pieces then left to right."""
+    dozen of K3's chunks)."""
     src, idx = _case(12 * CHUNK + 5, 5_000, 3, True, seed=7)
-    got = segment_sum_plain(src, idx, 5_000)
-    x = src.numpy()
-    want = np.zeros((5_000, 3), np.float32)
-    for r in np.unique(idx.numpy()):
-        pos = np.flatnonzero(np.sort(idx.numpy(), kind="stable") == r)
-        lanes = np.flatnonzero(idx.numpy() == r)  # stable: in lane order
-        pieces = []
-        for chunk in np.unique(pos // CHUNK):
-            acc = None
-            for lane in lanes[pos // CHUNK == chunk]:
-                acc = x[lane] if acc is None else acc + x[lane]
-            pieces.append(acc)
-        total = pieces[0]
-        for p in pieces[1:]:
-            total = total + p
-        want[r] = total
-    assert torch.equal(got, torch.from_numpy(want))
+    assert torch.equal(segment_sum_plain(src, idx, 5_000),
+                       _contract_sums(src, idx, 5_000))
+
+
+@pytest.mark.parametrize("n,n_rows,f", [
+    (3 * CHUNK * FAN_OUT + 77, 5, 2),
+    (CHUNK * FAN_OUT * FAN_OUT + 1_001, 3, 1)])
+def test_segment_sum_plain_follows_its_order_on_long_rows(n, n_rows, f):
+    """The same on rows whose lanes span more of K3's chunks than one of
+    its levels combines (FAN_OUT): row 0 takes seven lanes in ten, so its
+    chunks' partial sums are combined one and two levels above the
+    chunks."""
+    src, idx = _case(n, n_rows, f, True, seed=n)
+    assert torch.equal(segment_sum_plain(src, idx, n_rows),
+                       _contract_sums(src, idx, n_rows))
 
 
 def test_segment_sum_on_cpu_takes_the_plain_version():
