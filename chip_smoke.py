@@ -22,7 +22,17 @@ bounces 0-2 of a full chunk of `sphereflake`'s CLI default; then
 `sphereflake` (66,431 spheres) through the CLI at its defaults with
 ``--intersector bvh``, its render profiled by layer (K4 by bounce), the
 BVH's images against the sweeps', and the reference scenes still traced
-by the sweeps under auto.  Each
+by the sweeps under auto.  Training through the BVH (phase 20):
+`sphereflake`'s train step at bench_grad.py's shape through K4, K4 bit-
+equal to its plain walk on the leaf records of the stepped parameters
+(and on `three-spheres`, whose geometry the steps move), two steps from
+one state bit-equal, card against CPU gradients on `sphereflake-small`.
+The silhouette term (phase 21): a train step with the edge-sampled
+correction on `cornell` at examples/inverse_geometry.py's shape (K1b)
+and on `random` at bench_grad.py's (K1), with and without it, its probe
+rays by family, K1 and K1b bit-equal to their plain versions on the
+probes, two silhouette steps from one state bit-equal, and card against
+CPU correction gradients on `cornell` and `three-spheres`.  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -757,12 +767,21 @@ def k3_cost_line(name, turns):
             + f" s, K3 over index_add_ {k3 / add:.4f} (means)")
 
 
-def determinism_line(scene, dev, shape):
+def upload(scene, dev, intersector="sweep"):
+    """(scene tensors on ``dev`` in ``intersector``'s mode, the mode)."""
+    from hyper_ray_tracer_tpu_torch import prepare_scene
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    arrays, bvh, mode = prepare_scene(scene, intersector)
+    return to_device(arrays, scene.static, dev, bvh), mode
+
+
+def determinism_line(scene, dev, shape, intersector="sweep",
+                     silhouette=False):
     """Two adam train steps from one state (``train.snapshot`` and
     ``train.restore`` around each): the losses and every parameter's
     gradient bit-equal (asserted)."""
     from hyper_ray_tracer_tpu_torch.camera import make_basis
-    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
     from hyper_ray_tracer_tpu_torch.train import (
         make_train_step,
         pixel_lanes,
@@ -771,8 +790,9 @@ def determinism_line(scene, dev, shape):
     )
 
     W, H, spp, depth = shape
-    st = to_device(scene.arrays, scene.static, dev)
-    init, step = make_train_step(scene, W, H, depth)
+    st, mode = upload(scene, dev, intersector)
+    init, step = make_train_step(scene, W, H, depth, mode,
+                                 silhouette=silhouette)
     state = init(st)
     start = snapshot(state)
     args = (st, make_basis(scene.camera, W, H), *pixel_lanes(W, H, spp, dev),
@@ -792,35 +812,35 @@ def determinism_line(scene, dev, shape):
             f"{', '.join(nonzero)})")
 
 
-def loss_and_grads(scene, device, W, H, spp, depth):
+def loss_and_grads(scene, device, W, H, spp, depth, intersector="sweep"):
     """The port's loss and every parameter's gradient (zeros where the
     render never reads it), on the CPU, of ``make_loss_fn`` on
     ``device`` against a constant target."""
     from hyper_ray_tracer_tpu_torch.camera import make_basis
-    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
     from hyper_ray_tracer_tpu_torch.train import (
         extract_params,
         make_loss_fn,
         pixel_lanes,
     )
 
-    st = to_device(scene.arrays, scene.static, device)
+    st, mode = upload(scene, device, intersector)
     params = {k: v.detach().clone().requires_grad_()
               for k, v in extract_params(st.arrays).items()}
     pix, sam = pixel_lanes(W, H, spp, device)
     target = torch.full((W * H, 3), 0.25, device=device)
-    loss = make_loss_fn(scene, W, H, depth)(
+    loss = make_loss_fn(scene, W, H, depth, mode)(
         params, st, make_basis(scene.camera, W, H), pix, sam, 0, target)
     loss.backward()
     return loss.item(), {k: (torch.zeros_like(p) if p.grad is None
                              else p.grad).cpu() for k, p in params.items()}
 
 
-def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
+def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4),
+                    intersector="sweep", test_rule=True):
     """Every gradient key and the loss on ``dev`` against the CPU's within
     ``share`` (CARD_GRAD_SHARE's rule); returns the phase's text."""
-    loss_c, g_c = loss_and_grads(scene, "cpu", *shape)
-    loss_g, g_g = loss_and_grads(scene, dev, *shape)
+    loss_c, g_c = loss_and_grads(scene, "cpu", *shape, intersector)
+    loss_g, g_g = loss_and_grads(scene, dev, *shape, intersector)
     worst = {}
     for k, ref in g_c.items():
         assert torch.isfinite(g_g[k]).all(), (scene.name, k)
@@ -829,6 +849,13 @@ def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
         worst[k] = err / norm if norm else err
         assert err <= share * norm, (scene.name, k, err, norm)
     assert abs(loss_g - loss_c) <= share * abs(loss_c), (loss_g, loss_c)
+    text = (f"{scene.name} ({intersector}): loss card {loss_g:.6f} cpu "
+            f"{loss_c:.6f}; |card - cpu| / |cpu| by key "
+            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
+                        if g_c[k].abs().max() > 0)
+            + f" (bound {share}; the other keys' gradients are 0 on both)")
+    if not test_rule:
+        return text
     # The rule of tests/test_torch_cuda.py
     # test_train_step_gradients_on_card_match_cpu, at its shape: max
     # |card - cpu| over max |cpu|, by key.
@@ -836,12 +863,8 @@ def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
     _, t_g = loss_and_grads(scene, dev, 32, 18, 2, 3)
     test_rule = {k: ((t_g[k] - ref).abs().max() / ref.abs().max()).item()
                  for k, ref in t_c.items() if ref.abs().max() > 0}
-    return (f"{scene.name}: loss card {loss_g:.6f} cpu {loss_c:.6f}; "
-            "|card - cpu| / |cpu| by key "
-            + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
-                        if g_c[k].abs().max() > 0)
-            + f" (bound {share}; the other keys' gradients are 0 on both); "
-            "the card test's rule at 32x18 2spp d3, max |card - cpu| / max "
+    return (text + "; the card test's rule at 32x18 2spp d3, max "
+            "|card - cpu| / max "
             "|cpu| by key " + ", ".join(f"{k} {v:.2e}"
                                         for k, v in test_rule.items()))
 
@@ -849,25 +872,26 @@ def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4)):
 # bench_grad.py's workload: 400x225, 8 spp, depth 8.
 TRAIN_SHAPE = (400, 225, 8, 8)
 HAND_FWD = ("sphere_sweep_kernel", "typed_sweep_kernel",
-            "noise_texture_kernel")
+            "noise_texture_kernel", "bvh_traverse_kernel")
 
 
-def train_run(scene, dev, shape, steps, reset_counts, counts):
+def train_run(scene, dev, shape, steps, reset_counts, counts,
+              intersector="sweep", silhouette=False):
     """Adam train steps through ``make_train_step``: one warm-up, ``steps``
     timed (the launch counts set to 0 before them and read after), then
     one profiled.  Asserts every gradient finite; returns the times, the
-    losses, peak memory, launches, the largest |grad| of each key and the
-    profiled step's device time by range."""
+    losses, peak memory, launches, the largest |grad| of each key, the
+    profiled step's device time by range, and the state and scene."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hyper_ray_tracer_tpu_torch.camera import make_basis
-    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
     from hyper_ray_tracer_tpu_torch.train import make_train_step, pixel_lanes
 
     W, H, spp, depth = shape
-    st = to_device(scene.arrays, scene.static, dev)
-    init, step = make_train_step(scene, W, H, depth)
+    st, mode = upload(scene, dev, intersector)
+    init, step = make_train_step(scene, W, H, depth, mode,
+                                 silhouette=silhouette)
     state = init(st)
     basis = make_basis(scene.camera, W, H)
     pix, sam = pixel_lanes(W, H, spp, dev)
@@ -905,7 +929,10 @@ def train_run(scene, dev, shape, steps, reset_counts, counts):
             - min(e.time_range.start for e in kern)) / 1e3 if kern else 0.0
     by_range = {r: sum(e.device_time_total for e in events
                        if e.device_type == DeviceType.CPU and e.name == r)
-                / 1e3 for r in ("forward", "optimizer")}
+                / 1e3 for r in ("forward", "optimizer", "silhouette")}
+    host_ms = {r: sum(e.cpu_time_total for e in events
+                      if e.device_type == DeviceType.CPU and e.name == r)
+               / 1e3 for r in ("forward", "silhouette")}
     # The backward runs on autograd's device thread, outside the range on
     # the calling thread: it is the busy time the other two leave.  The
     # ctypes-launched forward kernels have no op to link them to their
@@ -925,7 +952,9 @@ def train_run(scene, dev, shape, steps, reset_counts, counts):
                 mrays=W * H * spp / min(secs) / 1e6, peak=peak_gb,
                 launched=launched, gmax=gmax, busy=busy, span=span,
                 wall=wall, fwd=fwd, bwd=busy - fwd - opt, opt=opt,
-                kernels=len(kern), top=top)
+                sil=by_range["silhouette"], host_ms=host_ms,
+                kernels=len(kern), top=top, state=state, scene_t=st,
+                mode=mode)
 
 
 def train_line(name, shape, r):
@@ -945,7 +974,333 @@ def train_line(name, shape, r):
                 f"{name[:90]} x{n} {ms:.3f} ms" for name, (ms, n) in r["top"])
             + "; max |grad| "
             "by key " + ", ".join(f"{k} {v:.3e}" for k, v in
-                                  r["gmax"].items()))
+                                  r["gmax"].items())
+            + (f"; the silhouette range: {r['sil']:.3f} ms busy (the "
+               "kernels linked to it; its probes' hand kernels count in "
+               f"the forward), {r['host_ms']['silhouette']:.1f} ms on the "
+               f"host of the forward's {r['host_ms']['forward']:.1f}"
+               if r["host_ms"]["silhouette"] else ""))
+
+
+# Phases 20-21.  Card against CPU gradients of a silhouette correction,
+# at a small shape: 32x18, depth 2, the correction's defaults, d sum(w *
+# correction) for weights from a seed, the rule of CARD_GRAD_SHARE (the
+# norm of the difference over the norm of the CPU's gradient, by key).
+# `cornell`'s segments are closed forms: float32 rounding alone
+# separates the devices, as in phase 11 (bound 2e-4).  `three-spheres`'
+# hollow shell brings ``_edge_blocked``'s gate (ROADMAP F4): on the
+# samples of the shell's own rim the discriminant is ~0, so rounding
+# decides which the gate drops, and the devices drop different ones (5
+# of 320 on an H100, named in the phase's line); each moves a whole
+# sample's weight.  So `three-spheres` is held twice: without its hollow shell
+# (``glass_shells=[]``: no gate and no shell family; the ground sphere
+# stays a source of every bender), every other family at phase 11's
+# 2e-4; with it, 0.2, the 1-2-5 step at least 3x the 5.11e-2 measured
+# (H100, PERF.md).
+SIL_CARD_SHAPE = (32, 18, 2)
+SIL_CARD_SHARE = {"cornell": 2e-4, "three-spheres": 0.2}
+SIL_NO_SHELL_SHARE = 2e-4
+# Card against CPU train-step gradients on `sphereflake-small`, phase 11's
+# shape, in BVH and sweep mode: the pixels none of whose lanes part
+# between the devices (``kept_loss_grads``) at phase 11's 2e-4; the whole
+# frame at 2e-2, the 1-2-5 step at least 3x the 4.22e-3 measured (H100,
+# PERF.md), as `final`'s flips are in CARD_GRAD_SHARE (ROADMAP F5).
+FLAKE_SMALL_SHARE = 2e-2
+FLAKE_KEPT_SHARE = 2e-4
+# A lane parts between the devices when its radiance differs by more
+# than this (tests/test_torch_render.py's per-lane tolerance).
+PART_RAD = 1e-4
+# examples/inverse_geometry.py's defaults: cornell, 96x96, 4 spp, depth 4.
+SIL_CORNELL_SHAPE = (96, 96, 4, 4)
+
+
+def correction_grads(scene, device, shape, stats=None, **ids):
+    """(image, every parameter's gradient on the CPU) of d sum(w *
+    correction) on ``device``, the correction at its defaults (``ids``:
+    its id selectors, e.g. ``sphere_ids``)."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops.edges import (
+        make_silhouette_correction,
+    )
+    from hyper_ray_tracer_tpu_torch.scene_tensors import (
+        bind_params,
+        extract_params,
+    )
+
+    W, H, depth = shape
+    st, _ = upload(scene, device)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    corr = make_silhouette_correction(scene, W, H, depth, st.host_geom,
+                                      **ids)
+    img = corr(bind_params(st, params), make_basis(scene.camera, W, H), 7,
+               stats)
+    wts = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (W * H, 3)).astype(np.float32)).to(device)
+    (img * wts).sum().backward()
+    return img, {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                 .cpu() for k, p in params.items()}
+
+
+def grad_gaps(name, g_c, g_g, share):
+    """|card - cpu| / |cpu| by key (the norms), each within ``share``
+    (asserted); a key whose CPU gradient is 0 must be 0 on the card."""
+    worst = {}
+    for k, ref in g_c.items():
+        assert torch.isfinite(g_g[k]).all(), (name, k)
+        norm = ref.norm().item()
+        if norm == 0:
+            assert not g_g[k].any(), (name, k)
+            continue
+        worst[k] = (g_g[k] - ref).norm().item() / norm
+        assert worst[k] <= share, (name, k, worst[k])
+    return ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+
+
+def sil_card_check(scene, dev, share):
+    """The correction's gradients on the card against the CPU's within
+    ``share`` (SIL_CARD_SHARE's rule); on a scene with hollow shells,
+    also without them (no ``_edge_blocked`` gate, no shell family)
+    within SIL_NO_SHELL_SHARE; the shell rim samples the gate drops on
+    each device, and those it drops on one only (ROADMAP F4)."""
+    stats_c, stats_g = {}, {}
+    _, g_c = correction_grads(scene, "cpu", SIL_CARD_SHAPE, stats_c)
+    img, g_g = correction_grads(scene, dev, SIL_CARD_SHAPE, stats_g)
+    assert torch.equal(img, torch.zeros_like(img)), scene.name
+    text = (f"{scene.name}: |card - cpu| / |cpu| by key "
+            + grad_gaps(scene.name, g_c, g_g, share) + f" (bound {share})")
+    if "edge_blocked_own_rim" in stats_c:
+        rim_c = set(stats_c["edge_blocked_own_rim"])
+        rim_g = set(stats_g["edge_blocked_own_rim"])
+        text += (f"; the shell's own rim samples _edge_blocked drops (F4): "
+                 f"card {len(rim_g)}, cpu {len(rim_c)} of "
+                 f"{stats_c['spheres']['samples']} direct samples; on one "
+                 f"device only, as (sphere id, sample): card "
+                 f"{sorted(rim_g - rim_c)}, cpu {sorted(rim_c - rim_g)}")
+        _, n_c = correction_grads(scene, "cpu", SIL_CARD_SHAPE,
+                                  glass_shells=[])
+        _, n_g = correction_grads(scene, dev, SIL_CARD_SHAPE,
+                                  glass_shells=[])
+        text += ("; without the shells |card - cpu| / |cpu| by key "
+                 + grad_gaps(scene.name, n_c, n_g, SIL_NO_SHELL_SHARE)
+                 + f" (bound {SIL_NO_SHELL_SHARE})")
+    return text
+
+
+def kept_loss_grads(scene, shape, intersector, devs):
+    """``loss_and_grads``' loss (a constant 0.25 target) on each of
+    ``devs``, over the pixels none of whose lanes part between them: a
+    lane parts when its radiance (the differentiable forward's) differs
+    by more than PART_RAD.  Returns (every parameter's gradient by
+    device, on the CPU; the parting lanes as (pixel, sample, max |card -
+    cpu|))."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.render import render_radiance
+    from hyper_ray_tracer_tpu_torch.scene_tensors import (
+        bind_params,
+        extract_params,
+    )
+    from hyper_ray_tracer_tpu_torch.train import pixel_lanes
+
+    W, H, spp, depth = shape
+    runs = {}
+    for d in devs:
+        st, _ = upload(scene, d, intersector)
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in extract_params(st.arrays).items()}
+        pix, sam = pixel_lanes(W, H, spp, d)
+        rad = render_radiance(bind_params(st, params), scene.background,
+                              make_basis(scene.camera, W, H), W, H,
+                              pix.reshape(-1), sam.reshape(-1), 0, depth)
+        runs[d] = params, rad
+    diff = (runs[devs[0]][1].detach().cpu()
+            - runs[devs[1]][1].detach().cpu()).abs().amax(-1)
+    lanes = torch.nonzero(diff > PART_RAD).flatten().tolist()
+    rows = [(i % (W * H), i // (W * H), float(diff[i])) for i in lanes]
+    keep = torch.ones(W * H, dtype=torch.bool)
+    keep[[r[0] for r in rows]] = False
+    grads = {}
+    for d, (params, rad) in runs.items():
+        w = keep.to(device=d, dtype=torch.float32)[:, None]
+        loss = (((rad.reshape(spp, W * H, 3).mean(0) - 0.25) ** 2)
+                * w).sum() / (3 * w.sum())
+        loss.backward()
+        grads[d] = {k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                    .cpu() for k, p in params.items()}
+    return grads, rows
+
+
+def flip_split_check(scene, dev, intersector, shape=(64, 36, 2, 4)):
+    """Card against CPU gradients by FLAKE_SMALL_SHARE's rule over the
+    whole frame, and by FLAKE_KEPT_SHARE's over the pixels whose lanes
+    do not part (``kept_loss_grads``, which names the others)."""
+    text = card_grad_check(scene, dev, FLAKE_SMALL_SHARE, shape,
+                           intersector, test_rule=False)
+    grads, rows = kept_loss_grads(scene, shape, intersector, (dev, "cpu"))
+    W, H, spp, _ = shape
+    whole = sum(r[2] > 1e-2 for r in rows)
+    return (text + f"; lanes whose radiance parts card vs CPU by more than "
+            f"{PART_RAD}: {len(rows)} of {W * H * spp} ({whole} by more "
+            f"than 1e-2) in {len({r[0] for r in rows})} pixels, as (pixel, "
+            "sample, max |card - cpu|): "
+            + ", ".join(f"({p}, {s_}, {x:.3g})" for p, s_, x in rows[:12])
+            + (" ..." if len(rows) > 12 else "")
+            + "; the other pixels' loss |card - cpu| / |cpu| by key "
+            + grad_gaps(scene.name, grads["cpu"], grads[dev],
+                        FLAKE_KEPT_SHARE)
+            + f" (bound {FLAKE_KEPT_SHARE})")
+
+
+def k4_after_steps(r, scene, dev, shape):
+    """K4 against its plain walk on the leaf records ``bind_params`` builds
+    from a train run's final parameters (``r``: ``train_run``'s), on
+    the camera rays and first bounce of the run's shape: bit-equal
+    (asserted).  Returns the rays compared."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.bvh import (
+        bvh_traverse,
+        bvh_traverse_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.render import bounce_step, init_state
+    from hyper_ray_tracer_tpu_torch.scene_tensors import bind_params
+    from hyper_ray_tracer_tpu_torch.train import pixel_lanes
+
+    W, H, spp, _ = shape
+    with torch.no_grad():
+        bound = bind_params(r["scene_t"], r["state"].params)
+        pix, sam = pixel_lanes(W, H, spp, dev)
+        wave = init_state(make_basis(scene.camera, W, H), W, H,
+                          pix.reshape(-1), sam.reshape(-1), 0)
+        rays = 0
+        for bounce in range(2):
+            bb = prng.bounce_base(wave.base, bounce)
+            args = (wave.o, wave.d, wave.time, wave.alive, bb)
+            t_k, b_k = bvh_traverse(bound.bvh, *args, T_MIN)
+            t_p, b_p = bvh_traverse_plain(bound.bvh.tree, bound.bvh.prims,
+                                          *args, T_MIN, bound.bvh.static)
+            assert torch.equal(t_k, t_p) and torch.equal(b_k, b_p), \
+                (scene.name, bounce)
+            rays += int(wave.alive.sum())
+            wave = bounce_step(bound, scene.background, wave, bounce)
+    return rays
+
+
+def probes_on_plain(scene, dev, shape, kernel, plain, waves_of):
+    """The first probe wavefront of a correction on ``dev`` and its
+    second bounce, traced by ``kernel`` and by ``plain``: bit-equal
+    (asserted).  Returns (probe rays by family, rays compared)."""
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.render import bounce_step
+
+    stats = {}
+    correction_grads(scene, dev, shape, stats)
+    wave = stats["probe_waves"][0]
+    st, _ = upload(scene, dev)
+    rays = 0
+    with torch.no_grad():
+        for bounce in range(2):
+            bb = prng.bounce_base(wave.base, bounce)
+            args = waves_of(st, wave, bb)
+            t_k, b_k = kernel(*args)
+            t_p, b_p = plain(*args)
+            assert torch.equal(t_k, t_p) and torch.equal(b_k, b_p), \
+                (scene.name, bounce)
+            rays += int(wave.alive.sum())
+            wave = bounce_step(st, scene.background, wave, bounce)
+    fams = {k: v["probe_rays"] for k, v in stats.items()
+            if isinstance(v, dict)}
+    return fams, rays
+
+
+def train_phases(dev, reset_counts, counts, flake, random_train):
+    """Phases 20 (a train step through the BVH) and 21 (a silhouette train
+    step); returns phase 20's ``train_run``."""
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (
+        sphere_sweep,
+        sphere_sweep_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        typed_sweep,
+        typed_sweep_plain,
+    )
+
+    # Phase 20: a train step through the BVH: `sphereflake` at
+    # bench_grad.py's shape through K4, the counts set to 0 just before
+    # its timed steps and read just after.
+    flake_train = train_run(flake, dev, TRAIN_SHAPE, 3, reset_counts,
+                            counts, intersector="bvh")
+    for kname in ("bvh_traverse", "segment_sum"):
+        assert flake_train["launched"][kname] > 0, \
+            f"the sphereflake train step missed {kname}"
+    assert flake_train["launched"]["sphere_sweep"] == 0, \
+        flake_train["launched"]
+    assert flake_train["mode"] == "bvh"
+    flake_k4_rays = k4_after_steps(flake_train, flake, dev, TRAIN_SHAPE)
+    # `sphereflake`'s flat sky leaves its geometry where it is; on
+    # `three-spheres` the adam steps move it, and K4 follows.
+    moved_shape = (64, 36, 2, 4)
+    moved = train_run(build_scene("three-spheres"), dev, moved_shape, 1,
+                      reset_counts, counts, intersector="bvh")
+    assert moved["gmax"]["geom.p0"] > 0
+    moved_k4_rays = k4_after_steps(moved, build_scene("three-spheres"), dev,
+                                   moved_shape)
+    phase(20, "train step through the BVH " + train_line(
+        "sphereflake", TRAIN_SHAPE, flake_train)
+        + f" | K4 bit-equal to bvh_traverse_plain on the leaf records of "
+        f"the parameters after the steps (asserted): sphereflake "
+        f"{flake_k4_rays} rays (camera and first bounce), three-spheres "
+        f"64x36x2 d4 after adam steps that moved its geometry "
+        f"{moved_k4_rays} rays | two steps from one restored state: "
+        + determinism_line(flake, dev, TRAIN_SHAPE, intersector="bvh")
+        + " | card vs CPU gradients at 64x36 2spp d4 (asserted): "
+        + "; ".join(flip_split_check(build_scene("sphereflake-small"), dev,
+                                     mode) for mode in ("bvh", "sweep")))
+
+    # Phase 21: a silhouette train step.  `cornell` at
+    # examples/inverse_geometry.py's shape (K1b), with and without the
+    # correction; `random` at bench_grad.py's (K1) with it, the step
+    # without it being phase 12's.
+    cornell = build_scene("cornell")
+    sil_cornell = train_run(cornell, dev, SIL_CORNELL_SHAPE, 3,
+                            reset_counts, counts, silhouette=True)
+    assert sil_cornell["launched"]["typed_sweep"] > 0
+    plain_cornell = train_run(cornell, dev, SIL_CORNELL_SHAPE, 3,
+                              reset_counts, counts)
+    sil_random = train_run(build_scene("random"), dev, TRAIN_SHAPE, 2,
+                           reset_counts, counts, silhouette=True)
+    for kname in ("sphere_sweep", "segment_sum"):
+        assert sil_random["launched"][kname] > 0, kname
+    assert sil_cornell["gmax"]["geom.p0"] > 0
+    k1_fams, k1_rays = probes_on_plain(
+        build_scene("random"), dev, TRAIN_SHAPE[:2] + TRAIN_SHAPE[3:],
+        lambda *a: sphere_sweep(*a), lambda *a: sphere_sweep_plain(*a),
+        lambda st, w, bb: (*st.spheres, w.o, w.d, w.time, w.alive, T_MIN))
+    k1b_fams, k1b_rays = probes_on_plain(
+        cornell, dev, SIL_CORNELL_SHAPE[:2] + SIL_CORNELL_SHAPE[3:],
+        lambda *a: typed_sweep(*a), lambda *a: typed_sweep_plain(*a),
+        lambda st, w, bb: (st.sweep, w.o, w.d, w.time, w.alive, bb, T_MIN))
+    phase(21, "silhouette train step " + train_line(
+        "cornell", SIL_CORNELL_SHAPE, sil_cornell)
+        + f" | without the correction {plain_cornell['s']:.4f} s/step, "
+        f"peak {plain_cornell['peak']:.2f} GB | " + train_line(
+            "random", TRAIN_SHAPE, sil_random)
+        + f" | without it (phase 12) {random_train['s']:.4f} s/step | "
+        f"probe rays by family (both sides, all probes): random {k1_fams}, "
+        f"cornell {k1b_fams} | K1 bit-equal to sphere_sweep_plain on "
+        f"random's first probe wavefront and its next bounce ({k1_rays} "
+        f"rays), K1b to typed_sweep_plain on cornell's ({k1b_rays}) "
+        "(asserted) | two silhouette steps from one restored state: "
+        + determinism_line(cornell, dev, SIL_CORNELL_SHAPE, silhouette=True)
+        + "; " + determinism_line(build_scene("random"), dev, TRAIN_SHAPE,
+                                  silhouette=True)
+        + f" | correction gradients card vs CPU at {SIL_CARD_SHAPE[0]}x"
+        f"{SIL_CARD_SHAPE[1]} d{SIL_CARD_SHAPE[2]} (asserted): " + "; ".join(
+            sil_card_check(build_scene(name), dev, share)
+            for name, share in SIL_CARD_SHARE.items()))
+
+    return flake_train
 
 
 def deep_train_line(lanes, depth):
@@ -2024,6 +2379,10 @@ def main(argv=None) -> int:
           f"BVH images equal to the sweeps' at 160x90 2spp d8 (asserted): "
           f"{', '.join(equal)} | under auto (asserted: the sweeps, not K4): "
           + "; ".join(f"{k} {v}" for k, v in auto.items()))
+
+    # Phases 20-21: training through the BVH, and with the silhouette.
+    flake_train = train_phases(dev, reset_counts, counts, flake,
+                               random_train)
 
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",

@@ -52,7 +52,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..models.scene import PT_SPHERE, SceneStatic
+from ..models.scene import PT_NONE, PT_SPHERE, SceneStatic
 from ..utils import cuda_build
 from .intersect import BIG, PrimFields, aabb_entry, aabb_hit, prim_hit_t_lanes
 from .typed_sweep import prim_records
@@ -88,6 +88,7 @@ class BVHScene(NamedTuple):
     xf: torch.Tensor  # [P, 12] float32 (R row-major, t), [1, 12] without
     shutter: torch.Tensor  # [S, 2] float32 (time0, time1 - time0)
     depth: int  # edges from the root to the deepest leaf (tree_depth)
+    leaf_size: int  # the build's: build_bvh appends that many empty slots
 
 
 def node_records(bvh) -> np.ndarray:
@@ -151,6 +152,28 @@ def bvh_scene(bvh, geom_np, geom, static: SceneStatic) -> BVHScene:
     tree = BVHTree(dev(bvh.bounds_min), dev(bvh.bounds_max),
                    *(dev(x, np.int64) for x in (bvh.leaf_first,
                                                 bvh.leaf_count, bvh.skip)))
+    return bvh_leaf_records(
+        BVHScene(tree=tree, prims=None, static=static,
+                 nodes=dev(node_records(bvh)), geo=None, aux=None,
+                 tag=None, xf=None, shutter=None, depth=depth,
+                 leaf_size=int((np.asarray(geom_np.ptype) == PT_NONE)
+                               .sum())),
+        geom_np, geom)
+
+
+def bvh_leaf_records(scene: BVHScene, geom_np, geom) -> BVHScene:
+    """``scene`` with the primitives its leaves hold (``prims`` and K4's
+    ``geo``, ``aux``, ``tag``, ``xf``, ``shutter``) taken from the
+    reordered geometry ``geom_np`` (NumPy) and ``geom`` (the same as
+    tensors).  The tree and its node records stay as they are: a train
+    step moves the primitives, not the boxes, as the JAX package's walk
+    reads the merged parameters inside the tree built once."""
+    static = scene.static
+    device = geom.p0.device
+
+    def dev(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
     n = np.asarray(geom_np.ptype).shape[0]
     pt = np.asarray(geom_np.ptype)
     # prim_hit_t_lanes lerps every sphere of a scene with motion.
@@ -167,11 +190,10 @@ def bvh_scene(bvh, geom_np, geom, static: SceneStatic) -> BVHScene:
         time1=geom.time1, ptype=geom.ptype, stable_id=geom.stable_id,
         axis=geom.axis, neg_inv_density=geom.neg_inv_density, rot=geom.rot,
         trans=geom.trans)
-    return BVHScene(tree=tree, prims=PrimFields(*(x.contiguous()
-                                                  for x in prims)),
-                    static=static, nodes=dev(node_records(bvh)),
-                    geo=dev(geo), aux=dev(aux), tag=dev(pt, np.int32),
-                    xf=dev(xf), shutter=dev(shutter), depth=depth)
+    return scene._replace(prims=PrimFields(*(x.contiguous()
+                                             for x in prims)),
+                          geo=dev(geo), aux=dev(aux), tag=dev(pt, np.int32),
+                          xf=dev(xf), shutter=dev(shutter))
 
 
 def _test_leaves(tree, prims, sel, node, o, d, time, bits, t_min, static,

@@ -44,19 +44,39 @@ class _SqrtCappedGrad(torch.autograd.Function):
     only the VJP is clipped: ``g * min(0.5 / max(y, 1e-30), 1e5)``.  On
     the card that root is ``torch.sqrt`` (one launch); on the CPU, whose
     vectorised sqrt is not correctly rounded, it is ``sqrt_rn``, so the
-    CPU's roots are the card's and the JAX package's."""
+    CPU's roots are the card's and the JAX package's.
+
+    It also runs under ``torch.func`` (``vmap``, ``jacfwd``): the vmap
+    rule is generated, and the JVP takes the VJP's capped slope.  (The
+    JAX package's is a ``custom_vjp``, which forward mode refuses; its
+    silhouette sampler differentiates forward only along curve
+    parameters that never reach the root, ``ops/edges.py``.)"""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x):
-        y = sqrt_rn(x) if x.device.type == "cpu" else torch.sqrt(x)
-        ctx.save_for_backward(y)
-        return y
+    def forward(x):
+        return sqrt_rn(x) if x.device.type == "cpu" else torch.sqrt(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def _slope(y):
+        return torch.clamp(0.5 / torch.clamp(y, min=1e-30),
+                           max=SQRT_GRAD_CAP)
 
     @staticmethod
     def backward(ctx, g):
         (y,) = ctx.saved_tensors
-        return g * torch.clamp(0.5 / torch.clamp(y, min=1e-30),
-                               max=SQRT_GRAD_CAP)
+        return g * _SqrtCappedGrad._slope(y)
+
+    @staticmethod
+    def jvp(ctx, x_t):
+        (y,) = ctx.saved_tensors
+        return x_t * _SqrtCappedGrad._slope(y)
 
 
 def sqrt_capped_grad(x):

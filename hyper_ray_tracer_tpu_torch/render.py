@@ -268,8 +268,22 @@ def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
     with record_function("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
-        out = torch.zeros_like(state.o)
-        slot = torch.arange(pixel_ids.shape[0], device=pixel_ids.device)
+    return bounce_paths(scene, background, state, depth, differentiable,
+                        remat)
+
+
+def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
+                 depth: int, differentiable: bool = False,
+                 remat: bool = False):
+    """Per-lane radiance [N,3] of the wavefront ``state`` after ``depth``
+    bounces numbered from 0, in ``state``'s lane order: the JAX package's
+    ``bounce_scan(arrays, bvh, state, 0, depth)``, for a wavefront built
+    from any rays (the silhouette correction's probes start at film
+    points, lens points and shutter times of their own).  Dead lanes are
+    compacted out after every bounce; each lane carries its own RNG base
+    and time, so this equals the fixed-width loop bit for bit."""
+    out = state.radiance.clone()
+    slot = torch.arange(state.o.shape[0], device=state.o.device)
     for bounce in range(depth):
         if remat:
             state = checkpoint(bounce_step, scene, background, state, bounce,

@@ -16,7 +16,9 @@ package's host-side plan is), the int shade rows, the Perlin tables and
 the image sizes.  What follows the parameters (``PARAM_PATHS``) is
 rebuilt by ``bind_params`` once per forward: the joined float shade rows
 inside the autograd graph, the sphere fields as views of the parameters,
-and the sweeps' packed records from their detached current values.
+and the sweeps' packed records, or in BVH mode K4's leaf records, from
+their detached current values.  A BVH's tree (its node boxes) stays as
+built, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 
 from .models.scene import PT_SPHERE, GeometrySoA, SceneStatic
-from .ops.bvh import BVHScene, bvh_scene
+from .ops.bvh import BVHScene, bvh_leaf_records, bvh_scene
 from .ops.intersect import pack_prim_shade
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
@@ -159,18 +161,28 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     without motion).  The sweeps trace the parameters' current
     values: their packed records are rebuilt from detached NumPy copies
     (equal to ``typed_records`` of those values by construction), on the
-    plan of the scene as built.  The int rows, the plan and the Perlin
-    tables are ``scene_t``'s own.  A scene in BVH mode raises: training
-    through the BVH is not ported yet (ROADMAP)."""
-    if scene_t.bvh is not None:
-        raise NotImplementedError(
-            "bind_params: a train step through the BVH is not ported yet "
-            "(ROADMAP queue 1); train with intersector='sweep'")
+    plan of the scene as built.  In BVH mode K4's leaf records are rebuilt
+    the same way (``ops/bvh.bvh_leaf_records``) and the tree stays as
+    built: neither refit nor rebuilt, as in the JAX package, whose walk
+    reads the merged parameters inside the boxes of the tree it was given.
+    The int rows, the plan and the Perlin tables are ``scene_t``'s own."""
     static = scene_t.static
     n = static.n_prims
     arrays = merge_params(scene_t.arrays, params)
     g = arrays.geom
     fpack, _ = pack_prim_shade(arrays, static)
+    moved = {k: params[f"geom.{k}"].detach() for k in ("p0", "p1",
+                                                        "radius")}
+    host = scene_t.host_geom._replace(
+        **{k: v.cpu().numpy() for k, v in moved.items()})
+    tables = scene_t.tables._replace(images=params["images.None"])
+    if scene_t.bvh is not None:
+        spheres = SphereFields(g.p0[:n], g.p1[:n], g.time0[:n],
+                               g.time1[:n], g.radius[:n])
+        bvh = bvh_leaf_records(scene_t.bvh, host,
+                               scene_t.arrays.geom._replace(**moved))
+        return scene_t._replace(arrays=arrays, spheres=spheres, bvh=bvh,
+                                fpack=fpack, tables=tables)
     # The sphere sweep lerps every sphere whose p1 differs from p0; a
     # sphere of a tile planned without motion traces at p0 however its
     # p1 has moved, as the typed sweep's plan has it.
@@ -182,12 +194,7 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
                     g.p1[:n], g.p0[:n])
     spheres = SphereFields(g.p0[:n], p1, g.time0[:n], g.time1[:n],
                            g.radius[:n])
-    moved = {k: params[f"geom.{k}"].detach() for k in ("p0", "p1",
-                                                        "radius")}
-    host = scene_t.host_geom._replace(
-        **{k: v.cpu().numpy() for k, v in moved.items()})
     sweep = sweep_scene(host, scene_t.arrays.geom._replace(**moved), n,
                         plan=scene_t.sweep.plan)
-    tables = scene_t.tables._replace(images=params["images.None"])
     return scene_t._replace(arrays=arrays, spheres=spheres, sweep=sweep,
                             fpack=fpack, tables=tables)

@@ -15,7 +15,8 @@ attenuations), not through decision boundaries.
 
 Run a train step's timing (one JSON line) with
 ``python -m hyper_ray_tracer_tpu_torch.train [scene] [W] [H] [SPP]
-[DEPTH]``; on the CPU add ``--cpu`` and a small shape.
+[DEPTH] [--intersector auto|sweep|bvh] [--silhouette]``; on the CPU add
+``--cpu`` and a small shape.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ from torch.profiler import record_function
 
 from .camera import make_basis
 from .models.scene import Scene
-from .render import render_radiance
+from .ops.edges import make_silhouette_correction
+from .render import prepare_scene, render_radiance, resolve_intersector
 from .scene_tensors import (  # noqa: F401  (PARAM_PATHS is re-exported)
     PARAM_PATHS,
     bind_params,
@@ -71,30 +73,55 @@ def pixel_lanes(W: int, H: int, spp: int, device):
 
 
 def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
-                 remat: bool = False, silhouette: bool = False):
+                 intersector=None, leaf_size: int = 4, remat: bool = False,
+                 silhouette: bool = False):
     """loss(params, scene_t, basis, pixel_ids, sample_ids, seed, target):
     the mean squared error between each pixel's mean radiance over the
     [S, W*H] launch and ``target`` ([W*H, 3], linear radiance, bottom-up
-    rows)."""
-    if silhouette:
-        raise NotImplementedError(
-            "the edge-sampled silhouette term is not ported yet (ROADMAP "
-            "queue 1 item 6)")
+    rows).
+
+    ``intersector`` / ``leaf_size``: the trace's mode, as
+    ``render.prepare_scene`` resolves them; ``scene_t`` must be uploaded
+    in that mode and, in BVH mode, at that leaf size (the parameters are
+    then in the tree's leaf order), or the loss raises.
+    ``silhouette=True`` adds the edge-sampled boundary term
+    (``ops/edges.py``, with the JAX package's defaults, built at the
+    first call from the geometry ``scene_t`` was uploaded from), so that
+    geometry gradients also see occlusion boundaries move; it needs
+    ``pixel_ids`` to cover the whole frame."""
+    mode = resolve_intersector(scene, intersector)
+    correction = None
 
     def loss_fn(params, scene_t, basis, pixel_ids, sample_ids, seed,
                 target):
+        nonlocal correction
+        if scene_t.mode != mode:
+            raise ValueError(f"make_loss_fn: the scene is uploaded in "
+                             f"{scene_t.mode} mode, the loss traces in "
+                             f"{mode} mode")
+        if mode == "bvh" and scene_t.bvh.leaf_size != leaf_size:
+            raise ValueError(f"make_loss_fn: the scene is uploaded at leaf "
+                             f"size {scene_t.bvh.leaf_size}, the loss's is "
+                             f"{leaf_size}")
         bound = bind_params(scene_t, params)
         s_blk = pixel_ids.shape[0]
         rad = render_radiance(bound, scene.background, basis, W, H,
                               pixel_ids.reshape(-1), sample_ids.reshape(-1),
                               seed, depth, remat=remat)
         mean_rad = rad.reshape(s_blk, W * H, 3).mean(0)
+        if silhouette:
+            if correction is None:
+                correction = make_silhouette_correction(
+                    scene, W, H, depth, scene_t.host_geom)
+            with record_function("silhouette"):
+                mean_rad = mean_rad + correction(bound, basis, seed)
         return ((mean_rad - target) ** 2).mean()
 
     return loss_fn
 
 
 def make_train_step(scene: Scene, W: int, H: int, depth: int,
+                    intersector=None, leaf_size: int = 4,
                     learning_rate: float = 1e-2, remat: bool = False,
                     silhouette: bool = False):
     """(init, step): ``init(scene_t)`` copies the scene's parameters into
@@ -102,10 +129,10 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
     pixel_ids, sample_ids, seed, target)`` runs the forward render, the
     backward pass and one adam update in place, and returns (state, the
     loss before the update).  The step's parts run in the
-    ``record_function`` ranges ``forward``, ``backward`` and
-    ``optimizer``."""
-    loss_fn = make_loss_fn(scene, W, H, depth, remat=remat,
-                           silhouette=silhouette)
+    ``record_function`` ranges ``forward`` (the correction inside it in
+    ``silhouette``), ``backward`` and ``optimizer``."""
+    loss_fn = make_loss_fn(scene, W, H, depth, intersector, leaf_size,
+                           remat=remat, silhouette=silhouette)
 
     def init(scene_t) -> TrainState:
         params = {k: v.detach().clone().requires_grad_()
@@ -173,6 +200,15 @@ def main(argv=None) -> int:
     ap.add_argument("--remat", action="store_true",
                     help="force per-bounce remat (auto for depth > 16): "
                          "trades recompute for backward memory")
+    ap.add_argument("--intersector", default="auto",
+                    choices=("auto", "sweep", "bvh"),
+                    help="the trace's mode, as the render CLI's: auto "
+                         "takes the BVH from 30,000 primitives")
+    ap.add_argument("--leaf-size", type=int, default=4,
+                    help="primitives per BVH leaf (1-8)")
+    ap.add_argument("--silhouette", action="store_true",
+                    help="add the edge-sampled silhouette term to the "
+                         "loss")
     ap.add_argument("--steps", type=int, default=5,
                     help="timed steps after one warm-up step")
     ap.add_argument("--cpu", action="store_true",
@@ -189,11 +225,13 @@ def main(argv=None) -> int:
     W, H, spp, depth = a.width, a.height, a.spp, a.depth
     remat = a.remat or depth >= REMAT_MIN_DEPTH
     scene = build_scene(a.scene)
-    scene_t = to_device(scene.arrays, scene.static, device)
+    arrays, bvh, mode = prepare_scene(scene, a.intersector, a.leaf_size)
+    scene_t = to_device(arrays, scene.static, device, bvh)
     basis = make_basis(scene.camera, W, H)
     pix, sam = pixel_lanes(W, H, spp, device)
     target = torch.zeros((W * H, 3), dtype=torch.float32, device=device)
-    init, step = make_train_step(scene, W, H, depth, remat=remat)
+    init, step = make_train_step(scene, W, H, depth, mode, a.leaf_size,
+                                 remat=remat, silhouette=a.silhouette)
     state = init(scene_t)
     start = snapshot(state)
     best = float("inf")
@@ -215,6 +253,8 @@ def main(argv=None) -> int:
         "seconds_per_step": best,
         "loss": first_loss,
         "remat": remat,
+        "intersector": mode,
+        "silhouette": a.silhouette,
         "device": str(device),
     }))
     return 0

@@ -615,8 +615,10 @@ def test_prepare_scene_modes():
         prepare_scene(scene, "bvh", 9)
     st = to_device(arrays, scene.static, "cpu", bvh)
     assert st.mode == "bvh" and st.sweep is None
-    with pytest.raises(NotImplementedError, match="BVH"):
-        bind_params(st, extract_params(st.arrays))
+    # A train step binds the parameters in BVH mode too: the leaves'
+    # records follow them, the tree stays as built.
+    bound = bind_params(st, extract_params(st.arrays))
+    assert bound.mode == "bvh" and bound.bvh.nodes is st.bvh.nodes
 
 
 def test_wrapper_takes_plain_on_cpu_and_refuses_other_devices():

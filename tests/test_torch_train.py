@@ -33,6 +33,9 @@ from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (  # noqa: E402
     sphere_records,
 )
 from hyper_ray_tracer_tpu_torch.ops.typed_sweep import typed_records  # noqa: E402
+from hyper_ray_tracer_tpu_torch.render import (  # noqa: E402
+    prepare_scene as port_prepare_scene,
+)
 from hyper_ray_tracer_tpu_torch.scene_tensors import (  # noqa: E402
     bind_params,
     to_device,
@@ -73,6 +76,50 @@ def _moving_spheres():
     return s
 
 
+def _two_steps_against_jax(scene, intersector, w, h, spp, depth):
+    """Two adam steps of the port and of ``make_train_step`` from the
+    scene's parameters in ``intersector``'s mode: (the port's losses,
+    the JAX package's, the port's state, the JAX package's, the port's
+    starting parameters)."""
+    target = np.random.default_rng(1).uniform(0, 1, (w * h, 3)).astype(
+        np.float32)
+    arrays, bvh, mode = prepare_scene(scene, intersector)
+    init_j, step_j = j_make_train_step(scene, w, h, depth, mode)
+    state_j = init_j(arrays)
+    step_j = jax.jit(step_j)
+    pix_j = jnp.broadcast_to(jnp.arange(w * h, dtype=jnp.int32),
+                             (spp, w * h))
+    sam_j = jnp.broadcast_to(jnp.arange(spp, dtype=jnp.int32)[:, None],
+                             (spp, w * h))
+    losses_j = []
+    for _ in range(2):
+        state_j, loss = step_j(state_j, arrays, bvh,
+                               j_make_basis(scene.camera, w, h), pix_j,
+                               sam_j, np.uint32(0), jnp.asarray(target))
+        losses_j.append(float(loss))
+
+    arrays_t, bvh_t, _ = port_prepare_scene(scene, intersector)
+    st = to_device(arrays_t, scene.static, "cpu", bvh_t)
+    init, step = make_train_step(scene, w, h, depth, mode)
+    state = init(st)
+    start = {k: v.detach().clone() for k, v in state.params.items()}
+    pix, sam = pixel_lanes(w, h, spp, "cpu")
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, st, make_basis(scene.camera, w, h), pix,
+                           sam, 0, torch.from_numpy(target))
+        losses.append(float(loss))
+    return losses, losses_j, state, state_j, start
+
+
+def _assert_steps_match(losses, losses_j, state, state_j):
+    np.testing.assert_allclose(losses, losses_j, rtol=1e-5)
+    for k, ref in state_j.params.items():
+        np.testing.assert_allclose(state.params[k].detach().numpy(),
+                                   np.asarray(ref), rtol=0, atol=1e-4,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("name", ["three-spheres", "moving-spheres"])
 def test_two_adam_steps_match_jax(name):
     """Two steps of the port's adam (torch.optim.Adam, optax.adam's
@@ -84,40 +131,59 @@ def test_two_adam_steps_match_jax(name):
     moved (spheres' p1 too, in the scene with motion)."""
     scene = _moving_spheres() if name == "moving-spheres" \
         else j_build_scene(name)
-    target = np.random.default_rng(1).uniform(0, 1, (W * H, 3)).astype(
-        np.float32)
-    arrays, bvh, mode = prepare_scene(scene, "sweep")
-    init_j, step_j = j_make_train_step(scene, W, H, DEPTH, mode)
-    state_j = init_j(arrays)
-    step_j = jax.jit(step_j)
-    pix_j = jnp.broadcast_to(jnp.arange(W * H, dtype=jnp.int32),
-                             (SPP, W * H))
-    sam_j = jnp.zeros((SPP, W * H), jnp.int32)
-    losses_j = []
-    for _ in range(2):
-        state_j, loss = step_j(state_j, arrays, bvh,
-                               j_make_basis(scene.camera, W, H), pix_j,
-                               sam_j, np.uint32(0), jnp.asarray(target))
-        losses_j.append(float(loss))
-
-    st = to_device(scene.arrays, scene.static, "cpu")
-    init, step = make_train_step(scene, W, H, DEPTH)
-    state = init(st)
-    start = {k: v.detach().clone() for k, v in state.params.items()}
-    pix, sam = pixel_lanes(W, H, SPP, "cpu")
-    losses = []
-    for _ in range(2):
-        state, loss = step(state, st, make_basis(scene.camera, W, H), pix,
-                           sam, 0, torch.from_numpy(target))
-        losses.append(float(loss))
-    np.testing.assert_allclose(losses, losses_j, rtol=1e-5)
-    for k, ref in state_j.params.items():
-        np.testing.assert_allclose(state.params[k].detach().numpy(),
-                                   np.asarray(ref), rtol=0, atol=1e-4,
-                                   err_msg=k)
+    losses, losses_j, state, state_j, start = _two_steps_against_jax(
+        scene, "sweep", W, H, SPP, DEPTH)
+    _assert_steps_match(losses, losses_j, state, state_j)
     assert not torch.equal(state.params["geom.p0"], start["geom.p0"])
     moved_p1 = not torch.equal(state.params["geom.p1"], start["geom.p1"])
     assert moved_p1 == (name == "moving-spheres")
+
+
+@pytest.mark.parametrize("name", ["three-spheres", "sphereflake-small"])
+def test_two_adam_steps_match_jax_through_the_bvh(name):
+    """The same two steps in BVH mode, at tests/test_torch_grad.py's
+    16x9x2 d4: the second step's loss traces the geometry the first step
+    moved, so it holds K4's leaf records to the parameters (records left
+    at the build's values pass the first step and fail the second).
+    `sphereflake-small`'s flat sky leaves its geometry where it is."""
+    scene = j_build_scene(name)
+    losses, losses_j, state, state_j, start = _two_steps_against_jax(
+        scene, "bvh", 16, 9, 2, 4)
+    _assert_steps_match(losses, losses_j, state, state_j)
+    moved = not torch.equal(state.params["geom.p0"], start["geom.p0"])
+    assert moved == (name == "three-spheres")
+
+
+def test_bind_params_rebuilds_the_bvh_leaves_not_the_tree():
+    """After an in-place adam step, ``bind_params`` in BVH mode equals a
+    ``to_device`` of the moved geometry record for record (K4's leaf
+    records and the plain walk's fields), and the tree, its node records
+    and depth are the ones built."""
+    scene = build_scene("three-spheres")
+    arrays, bvh, _ = port_prepare_scene(scene, "bvh", 2)
+    st = to_device(arrays, scene.static, "cpu", bvh)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+    for p in params.values():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    bound = bind_params(st, params)
+    moved = arrays._replace(geom=arrays.geom._replace(
+        **{k: params[f"geom.{k}"].detach().numpy() for k in ("p0", "p1",
+                                                            "radius")}))
+    want = to_device(moved, scene.static, "cpu", bvh).bvh
+    for field in ("geo", "aux", "tag", "xf", "shutter"):
+        # Bit for bit: a record's slots hold ints (and NaN words) too.
+        got, ref = getattr(bound.bvh, field), getattr(want, field)
+        assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), \
+            field
+    for got, ref in zip(bound.bvh.prims, want.prims):
+        assert torch.equal(got, ref)
+    assert not torch.equal(bound.bvh.geo, st.bvh.geo)
+    assert bound.bvh.nodes is st.bvh.nodes and bound.bvh.tree is st.bvh.tree
+    assert bound.bvh.depth == st.bvh.depth and bound.sweep is None
+    assert bound.fpack.requires_grad
 
 
 def test_records_follow_an_in_place_adam_step():
@@ -190,9 +256,25 @@ def test_params_carry_the_jax_package_keys():
 
 
 def test_silhouette_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_loss_fn(build_scene("one-sphere"), W, H, DEPTH,
-                     silhouette=True)
+    """The name is this test's history: ``silhouette=True`` raised until
+    the edge term was ported (ROADMAP queue 1 item 6).  It now builds the
+    correction, which adds exactly 0 to the loss's forward value
+    (tests/test_torch_edges.py holds its gradients to the JAX
+    package's); a scene uploaded in another mode than the loss's is
+    refused."""
+    scene = build_scene("one-sphere")
+    st = to_device(scene.arrays, scene.static, "cpu")
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    pix, sam = pixel_lanes(8, 6, 1, "cpu")
+    args = (params, st, make_basis(scene.camera, 8, 6), pix, sam, 0,
+            torch.full((48, 3), 0.25))
+    with_edges = make_loss_fn(scene, 8, 6, 2, silhouette=True)(*args)
+    assert torch.equal(with_edges, make_loss_fn(scene, 8, 6, 2)(*args))
+    arrays, bvh, _ = port_prepare_scene(scene, "bvh")
+    with pytest.raises(ValueError, match="bvh mode"):
+        make_loss_fn(scene, 8, 6, 2)(params, to_device(
+            arrays, scene.static, "cpu", bvh), *args[2:])
 
 
 def test_train_main_on_cpu(capsys):
@@ -208,6 +290,21 @@ def test_train_main_on_cpu(capsys):
                  "--steps", "1"]) == 0
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["remat"] is True and np.isfinite(line["loss"])
+
+
+def test_train_main_through_the_bvh_with_the_silhouette(capsys):
+    """``--intersector bvh --silhouette``: the scene uploaded in BVH mode
+    through ``prepare_scene``, the correction in the loss; auto still
+    takes the sweeps below 30,000 primitives."""
+    assert main(["--cpu", "one-sphere", "8", "6", "1", "2", "--steps",
+                 "1", "--intersector", "bvh", "--silhouette"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["intersector"] == "bvh" and line["silhouette"] is True
+    assert np.isfinite(line["loss"]) and line["value"] > 0
+    assert main(["--cpu", "one-sphere", "4", "3", "1", "2", "--steps",
+                 "1"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["intersector"] == "sweep" and line["silhouette"] is False
 
 
 def test_train_main_times_every_step_from_the_initial_state(capsys):
