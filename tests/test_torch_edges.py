@@ -501,6 +501,51 @@ def test_edge_blocked_matches_jax_on_the_hollow_rig():
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=str(s))
 
 
+def test_shell_gate_on_its_own_rim_is_jax_op_by_op(monkeypatch):
+    """ROADMAP F4: on `three-spheres` at 32x18 d2 with the correction's
+    defaults, the gate decides the hollow shell's own rim samples as the
+    JAX package does op by op, decision for decision on the same inputs
+    (the port's CPU drops 8 of the outer's 64 rim samples), while the JAX
+    package's jitted gate decides 39 of the 320 differently (measured: it
+    drops 47): on its own rim the discriminant is ~0 and the compiler's
+    rounding picks the side.  The gate stays the JAX package's."""
+    captured = {}
+    real = P._map_samples
+
+    def capture(fn, *args):
+        out = real(fn, *args)
+        if "_edge_blocked" in fn.__code__.co_names:
+            cells = dict(zip(fn.__code__.co_freevars,
+                             (c.cell_contents for c in fn.__closure__)))
+            captured.update(args=[a.numpy() for a in args],
+                            gs=cells["gs"].numpy(), Rs=cells["Rs"].numpy(),
+                            blocked=out.numpy())
+        return out
+
+    monkeypatch.setattr(P, "_map_samples", capture)
+    js, ps = _scenes("three-spheres")
+    Wg, Hg = 32, 18
+    st = to_device(ps.arrays, ps.static, "cpu")
+    stats = {}
+    P.make_silhouette_correction(ps, Wg, Hg, 2, st.host_geom)(
+        bind_params(st, extract_params(st.arrays)),
+        make_basis(ps.camera, Wg, Hg), 7, stats)
+    gate = jax.vmap(jax.vmap(J._edge_blocked,
+                             in_axes=(0, 0, 0, 0, None, None, None)),
+                    in_axes=(0, 0, 0, 0, None, None, None))
+    args = (*captured["args"], j_make_basis(js.camera, Wg, Hg),
+            captured["gs"], captured["Rs"])
+    with jax.disable_jit():
+        op = np.asarray(gate(*args))
+    jitted = np.asarray(jax.jit(gate)(*args))
+    np.testing.assert_array_equal(captured["blocked"], op)
+    print(f"F4: the port's gate drops {stats['edge_blocked_own_rim']}; the "
+          f"JAX package's jitted gate decides {int((jitted != op).sum())} "
+          f"of {op.size} samples otherwise than op by op")
+    assert len(stats["edge_blocked_own_rim"]) > 0
+    assert (jitted != op).any()
+
+
 def test_sqrt_capped_grad_under_torch_func():
     """The capped root under ``vmap``, ``jacfwd`` and ``grad``: the
     forward-mode slope is the VJP's, capped at 1e5."""
