@@ -39,7 +39,16 @@ after its first snapshot and resumed byte-equal to the uninterrupted
 PNG, ``--preview``'s writes, one ``--watch`` re-render and one
 ``--profile`` trace naming K1.  The four fits of
 ``hyper_ray_tracer_tpu_torch.examples`` at their own defaults (phase
-23), each passing its own exit criterion.  Each
+23), each passing its own exit criterion.  Cluster mode (phase 24):
+the cluster sweep K5 bit-equal to its plain version on `sphereflake`'s
+camera rays (timed beside K4 and K1), on bounces 0-2 of a full chunk
+of its CLI default, and on `final`, `random` and sphereflake(3);
+`sphereflake` through the CLI at its defaults with ``--intersector
+cluster`` (its PNG against phase 19's BVH-mode PNG, the native and the
+NumPy BVH build and ``build_clusters`` timed), two goldens, the bench
+workload on `final` in cluster mode against phase 9's PNG, and a
+cluster-mode train step on `final` (two steps bit-equal, card against
+CPU gradients with the pads excluded).  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -73,7 +82,7 @@ ROOT = Path(__file__).resolve().parent
 BIG = float(np.float32(3.0e38))
 T_MIN = 1.0e-3
 KERNELS = ("sphere_sweep", "typed_sweep", "turbulence", "segment_sum",
-           "bvh_traverse")
+           "bvh_traverse", "cluster_sweep")
 PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
@@ -879,7 +888,8 @@ def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4),
 # bench_grad.py's workload: 400x225, 8 spp, depth 8.
 TRAIN_SHAPE = (400, 225, 8, 8)
 HAND_FWD = ("sphere_sweep_kernel", "typed_sweep_kernel",
-            "noise_texture_kernel", "bvh_traverse_kernel")
+            "noise_texture_kernel", "bvh_traverse_kernel",
+            "cluster_sweep_kernel")
 
 
 def train_run(scene, dev, shape, steps, reset_counts, counts,
@@ -1871,13 +1881,351 @@ def k4_line(lines, timed, ptxas_note):
         f"back, plain {flake['plain_ms']:.4f} ms; ptxas: {ptxas_note}")
 
 
+# K5's work, counted from its contract (ops/cluster_sweep.py) as K4's: a
+# box test BVH_BOX_OPS (its slab distances and the compare against the
+# running best), per ray BVH_RAY_OPS, a slot test its type's pair count
+# (+6 for a sphere that moves, +33 and the type's per-ray terms in a
+# transformed group); a pad's test is a tag load and no operation.
+# Bytes: a ray's BVH_RAY_BYTES, a cluster's box (32), a slot's tag and
+# two records (BVH_PRIM_BYTES), and its transform (BVH_XF_BYTES) in a
+# transformed group.
+CLUSTER_BOX_BYTES = 32
+
+
+def k5_bound(cs, stats, kinds, n):
+    """(bound, FP32 operations a ray) of the tests that
+    ``cluster_sweep_plain`` counted in ``stats`` for n rays on a
+    ClusterScene ``cs``."""
+    tests = stats["prim_tests"].cpu()
+    tag = cs.tag.cpu()
+    slot = cs.aux[:, 3].contiguous().view(torch.int32).cpu()
+    xf = torch.zeros_like(tag, dtype=torch.bool)
+    for g in cs.tail:
+        xf[g.start:g.start + g.width] = g.xform
+    for g, r in zip(cs.runs, cs.layout.runs):
+        xf[r.base:r.base + r.n_clusters * r.width] = g.xform
+    ops = stats["box_tests"] * BVH_BOX_OPS + n * BVH_RAY_OPS
+    for ptype, kind in kinds.items():
+        sel = tag == ptype
+        ops += int(tests[sel].sum()) * SWEEP_PAIR_OPS[kind]
+        ops += int(tests[sel & xf].sum()) * (SWEEP_XFORM_OPS
+                                             + SWEEP_RAY_OPS[kind])
+        if kind == "sphere":
+            ops += SWEEP_MOTION_OPS * int(tests[sel & (slot >= 0)].sum())
+    n_bytes = (n * BVH_RAY_BYTES + cs.boxes.shape[0] * CLUSTER_BOX_BYTES
+               + tag.shape[0] * BVH_PRIM_BYTES
+               + int(xf.sum()) * BVH_XF_BYTES)
+    return bound(n_bytes, ops), ops / n
+
+
+def k5_cases(dev, kinds):
+    """K5 (``cluster_sweep``) against ``cluster_sweep_plain``, bit for bit,
+    t and slot: `sphereflake`'s camera rays at 1280x720 (timed beside K4
+    and K1 on the same rays, with the tests the rays need and K5's
+    bound); bounces 0-2 of one full chunk of its CLI default; bounces 0-2
+    of `final` at the bench workload's 400x225x16, of `random` at
+    1280x720 and of sphereflake(3) at 320x180.  Returns (case lines, the
+    camera rays' row, the chunk's rows, the largest |t| gap)."""
+    from hyper_ray_tracer_tpu_torch import (
+        RenderSettings,
+        build_scene,
+        prepare_scene,
+    )
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.models.builders import sphereflake
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
+    from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import (
+        cluster_sweep,
+        cluster_sweep_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
+    from hyper_ray_tracer_tpu_torch.render import (
+        WavefrontState,
+        bounce_step,
+        init_state,
+        spp_per_chunk,
+    )
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    errs = []
+
+    def upload(scene, mode):
+        arrays, structure, _ = prepare_scene(scene, mode)
+        return to_device(arrays, scene.static, dev, structure)
+
+    def camera(scene, w, h, spp=1):
+        pix = torch.arange(w * h, dtype=torch.int64, device=dev)
+        return init_state(make_basis(scene.camera, w, h), w, h,
+                          pix.repeat(spp), torch.arange(
+                              spp, dtype=torch.int64,
+                              device=dev).repeat_interleave(w * h), 0)
+
+    def check(label, st, s, b, stats=None):
+        args = tuple(x.contiguous() for x in (
+            s.o, s.d, s.time, s.alive, prng.bounce_base(s.base, b)))
+        t_k, b_k = cluster_sweep(st.cluster, *args, T_MIN)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        t_p, b_p = cluster_sweep_plain(st.cluster, *args, T_MIN,
+                                       stats=stats)
+        torch.cuda.synchronize()
+        plain_s = time.monotonic() - t0
+        errs.append(sweep_rules(f"K5 {label}", t_k, b_k, t_p, b_p,
+                                args[3])[2])
+        return args, b_k, plain_s
+
+    def waves(label, scene, st, s):
+        share = []
+        for b in range(3):
+            _, b_k, _ = check(f"{label} bounce {b}", st, s, b)
+            share.append(f"{(b_k >= 0).float().mean().item():.3f}")
+            if b < 2:
+                s = bounce_step(st, scene.background, s, b)
+                keep = s.alive.nonzero().squeeze(1)
+                s = WavefrontState(*(x.index_select(0, keep) for x in s))
+        return f"{label} (hit share by bounce {'/'.join(share)})"
+
+    lines = []
+    final = build_scene("final")
+    lines.append(waves("final 400x225x16", final, upload(final, "cluster"),
+                       camera(final, 400, 225, 16)))
+    rnd = build_scene("random")
+    lines.append(waves("random 1280x720", rnd, upload(rnd, "cluster"),
+                       camera(rnd, 1280, 720)))
+    sf3 = sphereflake(3, "sphereflake-3")
+    lines.append(waves("sphereflake(3) 320x180", sf3, upload(sf3, "cluster"),
+                       camera(sf3, 320, 180)))
+
+    # sphereflake's camera rays: K5 timed beside K4 and K1.
+    flake = build_scene("sphereflake")
+    st = upload(flake, "cluster")
+    cam = camera(flake, 1280, 720)
+    stats = {}
+    args, b_k, _ = check("sphereflake camera 1280x720", st, cam, 0, stats)
+    n = args[0].shape[0]
+    k5_args = (st.cluster, *args, T_MIN)
+    bvh_t = upload(flake, "bvh")
+    sweep_t = to_device(flake.arrays, flake.static, dev)
+    k5b, ops = k5_bound(st.cluster, stats, kinds, n)
+    cam_row = dict(
+        n=n, hits=int((b_k >= 0).sum()), box_tests=stats["box_tests"] / n,
+        slot_tests=int(stats["prim_tests"].sum()) / n, bound=k5b, ops=ops,
+        ms=device_ms(cluster_sweep, k5_args, 10),
+        k4_ms=device_ms(bvh_traverse, (bvh_t.bvh, *args, T_MIN), 10),
+        k1_ms=device_ms(sphere_sweep, (*sweep_t.spheres, *args[:4], T_MIN),
+                        2))
+    cam_row["call_ms"], cam_row["plain_ms"] = in_turns(
+        lambda *a: cluster_sweep_plain(*a), cluster_sweep, k5_args, 1, 10)
+
+    # One full chunk of the CLI default, bounces 0-2, as trace_paths runs
+    # them (coherence order is a permutation: launch order here).
+    spp = spp_per_chunk(RenderSettings(1280, 720, 100, 10))
+    s = camera(flake, 1280, 720, spp)
+    chunk = []
+    for b in range(3):
+        stats = {}
+        args, b_k, plain_s = check(f"sphereflake chunk bounce {b}", st, s,
+                                   b, stats)
+        n_b = args[0].shape[0]
+        chunk.append(dict(
+            bounce=b, lanes=n_b, hits=int((b_k >= 0).sum()),
+            ms=device_ms(cluster_sweep, (st.cluster, *args, T_MIN), 3),
+            slot_tests=int(stats["prim_tests"].sum()) / n_b,
+            bound=k5_bound(st.cluster, stats, kinds, n_b)[0],
+            plain_s=plain_s))
+        if b < 2:
+            s = bounce_step(st, flake.background, s, b)
+            keep = s.alive.nonzero().squeeze(1)
+            s = WavefrontState(*(x.index_select(0, keep) for x in s))
+    return lines, cam_row, chunk, spp, max(errs)
+
+
+def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
+                  final_sweep_png, ptxas_note):
+    """Phase 24: cluster mode (K5) end to end.  K5 against its plain
+    version (``k5_cases``); `sphereflake` through the CLI at its defaults
+    with ``--intersector cluster`` (the host builds timed: the native BVH
+    build against NumPy's, ``build_clusters``), its PNG against BVH
+    mode's; two goldens in cluster mode; the bench workload on `final` in
+    cluster mode, its PNG against sweep mode's; a cluster-mode train step
+    on `final` at bench_grad.py's shape, two steps from one state
+    bit-equal, card against CPU gradients with the pads excluded.
+    Returns (the phase's line, K5's record)."""
+    from hyper_ray_tracer_tpu_torch import (
+        RenderSettings,
+        build_scene,
+        render_image,
+    )
+    from hyper_ray_tracer_tpu_torch.__main__ import main as cli_main
+    from hyper_ray_tracer_tpu_torch.models.bvh_build import build_bvh
+    from hyper_ray_tracer_tpu_torch.models.clusters import build_clusters
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.utils.image import read_png
+
+    t_phase = time.monotonic()
+    lines, cam, chunk, spp, err = k5_cases(dev, kinds)
+    cases_s = time.monotonic() - t_phase
+
+    # The host builds of `sphereflake` (each once, after phase 19's).
+    flake = build_scene("sphereflake")
+    n = flake.static.n_prims
+    builds = {}
+    for label, fn in (
+            ("native BVH", lambda: build_bvh(flake.arrays.geom, 4)),
+            ("NumPy BVH", lambda: build_bvh(flake.arrays.geom, 4,
+                                            use_native=False)),
+            ("build_clusters", lambda: build_clusters(flake.arrays.geom,
+                                                      n))):
+        t0 = time.monotonic()
+        out = fn()
+        builds[label] = time.monotonic() - t0
+    padded, layout = out
+    t0 = time.monotonic()
+    to_device(flake.arrays._replace(geom=padded), flake.static, dev, layout)
+    torch.cuda.synchronize()
+    upload_s = time.monotonic() - t0
+
+    # The CLI default on sphereflake in cluster mode.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sphereflake.png"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.monotonic()
+        rc = cli_main(["--scene", "sphereflake", "--intersector", "cluster",
+                       "--output", str(out)])
+        wall = time.monotonic() - t0
+        launched = counts()
+        assert rc == 0, f"CLI exit code {rc}"
+        assert launched["cluster_sweep"] > 0, \
+            "the cluster path never launched cluster_sweep"
+        assert launched["bvh_traverse"] == 0 and \
+            launched["sphere_sweep"] == 0, launched
+        png = read_png(out)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    assert png.shape == (720, 1280, 3), png.shape
+    rays = 1280 * 720 * 100
+    parts = (png != flake_bvh_png).any(-1)
+    flake_err = golden_errors(png.astype(np.float64) / 255.0,
+                              flake_bvh_png.astype(np.float64) / 255.0)
+    assert parts.mean() <= 1e-3, int(parts.sum())
+
+    # Two goldens rendered in cluster mode.
+    goldens = []
+    for name, shape in (("random", (160, 90, 2, 8)),
+                        ("final", (160, 90, 1, 5))):
+        golden = np.load(ROOT / "tests" / "golden" /
+                         f"{name}_{shape[0]}x{shape[1]}_{shape[2]}spp_"
+                         f"d{shape[3]}.npy")
+        reset_counts()
+        img = render_image(build_scene(name), RenderSettings(
+            *shape, intersector="cluster"), dev)
+        assert counts()["cluster_sweep"] > 0, f"{name}: golden missed K5"
+        med, mean, outl = golden_errors(img, golden)
+        goldens.append(f"{name} median {med:.3e} mean {mean:.3e} outliers "
+                       f"{outl:.4f}")
+
+    # The bench workload on final in cluster mode, through the CLI.
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "final.png"
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.monotonic()
+        rc = cli_main(["--scene", "final", "--intersector", "cluster",
+                       "--width", "400", "--height", "225", "--samples",
+                       "16", "--depth", "10", "--output", str(out)])
+        bench_wall = time.monotonic() - t0
+        bench_launched = counts()
+        assert rc == 0, f"CLI exit code {rc}"
+        assert bench_launched["cluster_sweep"] > 0 and \
+            bench_launched["turbulence"] > 0, bench_launched
+        assert bench_launched["typed_sweep"] == 0, bench_launched
+        bench_png = read_png(out)
+    bench_parts = (bench_png != final_sweep_png).any(-1)
+    bench_err = golden_errors(bench_png.astype(np.float64) / 255.0,
+                              final_sweep_png.astype(np.float64) / 255.0)
+
+    # A cluster-mode train step on final.
+    final = build_scene("final")
+    train = train_run(final, dev, TRAIN_SHAPE, 3, reset_counts, counts,
+                      intersector="cluster")
+    assert train["launched"]["cluster_sweep"] > 0, train["launched"]
+    assert train["launched"]["typed_sweep"] == 0, train["launched"]
+    repeat = determinism_line(final, dev, TRAIN_SHAPE, "cluster")
+    _, lay = build_clusters(final.arrays.geom, final.static.n_prims)
+    pads = torch.from_numpy(lay.src < 0)
+    shape = (64, 36, 2, 4)
+    loss_c, g_c = loss_and_grads(final, "cpu", *shape, "cluster")
+    loss_g, g_g = loss_and_grads(final, dev, *shape, "cluster")
+    share = CARD_GRAD_SHARE["final"]
+    for g in (g_c, g_g):
+        for k in ("geom.p0", "geom.p1", "geom.radius"):
+            assert not g[k][pads].any(), k  # a pad never takes a gradient
+            g[k] = g[k][~pads]
+    gaps = grad_gaps("final cluster", g_c, g_g, share)
+    assert abs(loss_g - loss_c) <= share * abs(loss_c), (loss_g, loss_c)
+
+    total_s = time.monotonic() - t_phase
+    line = (
+        "cluster_sweep (K5) vs cluster_sweep_plain, bit-equal t and slot on "
+        "every case and inactive rays at (BIG, -1) (asserted): "
+        + "; ".join(lines)
+        + f" | sphereflake's {cam['n']} camera rays (1280x720, bit-equal): "
+        f"{cam['hits']} hit, {cam['box_tests']:.1f} box and "
+        f"{cam['slot_tests']:.1f} slot tests a ray, K5 {cam['ms']:.4f} ms "
+        f"on the device (a call back to back {cam['call_ms']:.4f}, plain "
+        f"{cam['plain_ms']:.4f}), bound {cam['bound'][0]:.6f} ms "
+        f"({cam['bound'][1]}, {cam['ops']:.1f} FP32 operations a ray), "
+        f"{cam['bound'][0] / cam['ms']:.3f} of it; K4 {cam['k4_ms']:.4f} "
+        f"ms and K1 {cam['k1_ms']:.4f} ms on the same rays (K5 "
+        f"{cam['ms'] / cam['k4_ms']:.2f}x K4's) | its first CLI chunk "
+        f"(1280x720x{spp}), every lane, bit-equal: " + "; ".join(
+            f"bounce {r['bounce']}: {r['lanes']} lanes ({r['hits']} hit), "
+            f"K5 {r['ms']:.4f} ms, {r['slot_tests']:.1f} slot tests a ray, "
+            f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}), plain "
+            f"{r['plain_s']:.2f} s" for r in chunk)
+        + f" | CLI sphereflake --intersector cluster 1280x720 100spp d10 "
+        f"({rays} camera rays): wall {wall:.3f} s, "
+        f"{rays / wall / 1e6:.3f} camera Mrays/s, launches {launched}, "
+        f"peak device memory {peak:.2f} GB; its PNG against BVH mode's "
+        f"(phase 19): {int(parts.sum())} pixels differ ({parts.mean():.2e}"
+        f", bound 1e-3, asserted), median / mean err / outliers "
+        f"{flake_err[0]:.3e} / {flake_err[1]:.3e} / {flake_err[2]:.4f} "
+        "(golden bounds, asserted) | host builds of sphereflake: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in builds.items())
+        + f", the cluster-mode upload (to_device) {upload_s:.3f} s | "
+        "goldens in cluster mode (asserted): " + "; ".join(goldens)
+        + f" | CLI final --intersector cluster 400x225 16spp d10: wall "
+        f"{bench_wall:.3f} s, launches {bench_launched}, PNG against "
+        f"phase 9's sweep-mode PNG: {int(bench_parts.sum())} pixels differ,"
+        f" median / mean err / outliers {bench_err[0]:.3e} / "
+        f"{bench_err[1]:.3e} / {bench_err[2]:.4f} (asserted) | train step "
+        + train_line("final (cluster)", TRAIN_SHAPE, train)
+        + f" | two steps from one state: {repeat} | card vs CPU gradients "
+        f"at {shape[0]}x{shape[1]}x{shape[2]} d{shape[3]}, pads excluded "
+        f"(each 0 on both, asserted): loss card {loss_g:.6f} cpu "
+        f"{loss_c:.6f}; |card - cpu| / |cpu| by key {gaps} (bound {share})"
+        f" | ptxas: {ptxas_note} | phase {total_s:.1f} s (its K5 cases "
+        f"{cases_s:.1f} s)")
+    record = {"name": "cluster_sweep", "route": "cuda",
+              "source": "hyper_ray_tracer_tpu_torch/csrc/cluster_sweep.cu",
+              "replaces": "hyper_ray_tracer_tpu/ops/cluster_sweep.py:245",
+              "launches": launched["cluster_sweep"], "max_abs_err": err,
+              "ms": cam["ms"], "plain_ms": cam["plain_ms"],
+              "bound_ms": cam["bound"][0], "bound_by": cam["bound"][1],
+              "library_ms": None}
+    return line, record
+
+
 # The record_function ranges of render.trace_paths, and the hand kernels
 # of a render by a substring of their names.
 LAYERS = ("raygen", "trace", "shade", "compaction")
 HAND = {"K1": ("sphere_sweep_kernel", "trace"),
         "K1b": ("typed_sweep_kernel", "trace"),
         "K2": ("noise_texture_kernel", "shade"),
-        "K4": ("bvh_traverse_kernel", "trace")}
+        "K4": ("bvh_traverse_kernel", "trace"),
+        "K5": ("cluster_sweep_kernel", "trace")}
 
 
 def render_profile(dev, name, settings):
@@ -1974,6 +2322,7 @@ def main(argv=None) -> int:
     from hyper_ray_tracer_tpu_torch import prepare_scene, render_image
     from hyper_ray_tracer_tpu_torch.__main__ import main as cli_main
     from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.models.bvh_build import build_bvh
     from hyper_ray_tracer_tpu_torch.models.scene import (
         PT_BOX,
         PT_MEDIUM_BOX,
@@ -1985,6 +2334,7 @@ def main(argv=None) -> int:
     )
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
     from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
+    from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import cluster_sweep
     from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
     from hyper_ray_tracer_tpu_torch.ops.intersect import (
         gather_prim_shade_packed,
@@ -2020,7 +2370,8 @@ def main(argv=None) -> int:
     wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
                 "turbulence": noise_texture,
                 "turbulence_bwd": noise_texture_grad,
-                "segment_sum": segment_sum, "bvh_traverse": bvh_traverse}
+                "segment_sum": segment_sum, "bvh_traverse": bvh_traverse,
+                "cluster_sweep": cluster_sweep}
 
     def reset_counts():
         for w in wrappers.values():
@@ -2048,8 +2399,8 @@ def main(argv=None) -> int:
         cuda_build.load(name)
         notes.append(f"{name}: {resources(ptxas[name])}")
     # K4 walks a stack in local memory by design, and spills nothing; nor
-    # does K3.
-    for name in ("bvh_traverse", "segment_sum"):
+    # do K3 and K5.
+    for name in ("bvh_traverse", "segment_sum", "cluster_sweep"):
         assert all(r[2] == 0 for r in ptxas[name].values()), \
             f"{name} spills: {ptxas[name]}"
     # The sweeps' ray-packet size R (rays per thread), the header's kRays.
@@ -2418,6 +2769,7 @@ def main(argv=None) -> int:
         assert final_launches["typed_sweep"] > 0, "the bench path missed K1b"
         assert final_launches["turbulence"] > 0, "the bench path missed K2"
         png = read_png(out)
+        final_sweep_png = png
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert png.shape == (BH, BW, 3), png.shape
     lum = png.astype(np.float64).mean()
@@ -2528,6 +2880,7 @@ def main(argv=None) -> int:
             "the BVH path never launched bvh_traverse"
         assert flake_launches["sphere_sweep"] == 0, flake_launches
         png = read_png(out)
+        flake_bvh_png = png
     flake_peak = torch.cuda.max_memory_allocated() / 1e9
     assert png.shape == (720, 1280, 3), png.shape
     assert len(np.unique(png.reshape(-1, 3), axis=0)) > 1000, \
@@ -2537,6 +2890,9 @@ def main(argv=None) -> int:
     t0 = time.monotonic()
     flake_arrays, flake_tree, _ = prepare_scene(flake, "bvh")
     flake_prep = time.monotonic() - t0
+    t0 = time.monotonic()
+    build_bvh(flake.arrays.geom, 4, use_native=False)
+    flake_numpy_build = time.monotonic() - t0
     t0 = time.monotonic()
     to_device(flake_arrays, flake.static, dev, flake_tree)
     torch.cuda.synchronize()
@@ -2592,8 +2948,10 @@ def main(argv=None) -> int:
           f"({flake_rays} camera rays): wall {flake_wall:.3f} s, "
           f"{flake_rays / flake_wall / 1e6:.3f} camera Mrays/s, launches "
           f"{flake_launches}, peak device memory {flake_peak:.2f} GB, PNG "
-          f"mean {flake_lum:.1f}; its BVH's host build (prepare_scene) "
-          f"{flake_prep:.3f} s, its upload (to_device) {flake_upload:.3f} s"
+          f"mean {flake_lum:.1f}; its BVH's host build (prepare_scene, the "
+          f"native builder) {flake_prep:.3f} s (the NumPy builder "
+          f"{flake_numpy_build:.3f} s), its upload (to_device) "
+          f"{flake_upload:.3f} s"
           f" | by layer: {flake_profile} (K4 launches over the three "
           f"renders {flake_profile_k4}) | sphereflake {RW}x{RH} {RSPP}spp d10 "
           f"through the CLI: --intersector sweep {walls['sweep']:.3f} s, "
@@ -2617,6 +2975,12 @@ def main(argv=None) -> int:
 
     # Phase 23: the four fits at their own defaults.
     phase(23, "fits: " + fits_phase(reset_counts, counts))
+
+    # Phase 24: cluster mode (K5) end to end.
+    k5_text, k5_record = cluster_phase(
+        dev, kinds, reset_counts, counts, flake_bvh_png, final_sweep_png,
+        resources(ptxas["cluster_sweep"]))
+    phase(24, k5_text)
 
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
@@ -2677,6 +3041,7 @@ def main(argv=None) -> int:
          # the first design's walk on the same rays (bvh_traverse_dfs_plain)
          "old_bound_ms": k4["sphereflake"]["dfs_bound"][0],
          "old_bound_by": k4["sphereflake"]["dfs_bound"][1]},
+        k5_record,
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

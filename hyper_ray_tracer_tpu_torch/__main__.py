@@ -46,7 +46,8 @@ def main(argv=None) -> int:
                         choices=["auto", "sweep", "cluster", "bvh"],
                         help="Intersector mode (auto: the all-pairs sweep "
                              "below 30,000 primitives, the BVH from there; "
-                             "cluster is not ported yet)")
+                             "cluster: the box-culled sweep of spatial "
+                             "clusters)")
     parser.add_argument("--no-bvh", action="store_true",
                         help="Deprecated, and does nothing: auto picks the "
                              "mode (--intersector sweep forces the sweeps)")

@@ -47,25 +47,19 @@
 // slab distances misses the box explicitly, and the min and max run only
 // on NaN-free values.
 //
-// The primitive test is prim_hit_t_lanes: the scene-wide flags, not a
-// tile's.  With motion, every sphere whose center can move is lerped (its
-// record's shutter slot, sweep_sphere.cuh's layout); with ray transforms,
-// every primitive's ray is taken to its object frame.  The per-type
-// functions are K1b's (prim_hit.cuh).  A medium's uniform is the ray's
-// bounce word through stream_bits (P_MEDIUM, salt stable_id), the
-// wrapper's int64 word narrowed here; its free flight is bounded by the
-// running best.  A leaf mixes types, so a primitive is its type tag
-// (int32) and K1b's two float4 records, geo and aux (a rect's aux carries
-// its plane tag in .y), plus three float4 of transform when the scene has
-// one.
+// The primitive test is prim_lane.cuh's prim_t with the scene-wide flags
+// (prim_hit_t_lanes): with motion, every sphere whose center can move is
+// lerped; with ray transforms, every primitive's ray is taken to its
+// object frame.  A medium's free flight is bounded by the running best.
 // Rounding: as prim_hit.cuh, in the order of the plain version.
 
-#include "prim_hit.cuh"
+#include "prim_lane.cuh"
 
 namespace {
 
 using hrt::kBig;
-using hrt::RayTerms;
+using hrt::Prims;
+using hrt::Ray;
 
 constexpr int kThreads = 128;
 constexpr int kMinBlocks = 8;
@@ -98,107 +92,13 @@ __device__ __forceinline__ bool box_entry(float lx, float ly, float lz,
   return t_hi > t_lo;
 }
 
-// One ray's state through its walk.
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float ix, iy, iz;  // the slab test's 1 / d
-  RayTerms rt;       // the untransformed ray's terms (no ray transforms)
-  float time;        // shutter time
-  uint32_t bits;     // bounce word of the media's uniform
-  int slot;          // the shutter slot f holds, -1 for none yet
-  float f;           // lerp factor of that slot
-};
-
-// The primitive records of the reordered geometry.
-struct Prims {
-  const float4* __restrict__ geo;
-  const float4* __restrict__ aux;
-  const int* __restrict__ tag;
-  const float4* __restrict__ xf;
-  const float2* __restrict__ shutter;
-  bool has_xf;
-};
-
-// The candidate t of primitive `pid` (ops/intersect.py prim_hit_t_lanes),
-// kBig on a miss.
-__device__ __forceinline__ float prim_t(Ray& ray, int pid, const Prims& pr,
-                                        float t_min, float t_max) {
-  const int type = __ldg(&pr.tag[pid]);
-  const float4 g = __ldg(&pr.geo[pid]);
-  const float4 m = __ldg(&pr.aux[pid]);
-  float ox = ray.ox, oy = ray.oy, oz = ray.oz;
-  float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  RayTerms rt = ray.rt;
-  if (pr.has_xf) {
-    hrt::to_object(__ldg(&pr.xf[3 * pid]), __ldg(&pr.xf[3 * pid + 1]),
-                   __ldg(&pr.xf[3 * pid + 2]), ox, oy, oz, dx, dy, dz);
-    rt = hrt::ray_terms<-1>(dx, dy, dz);
-  }
-  switch (type) {
-    case hrt::kSphere: {
-      float cx = g.x, cy = g.y, cz = g.z;
-      const int slot = __float_as_int(m.w);
-      if (slot >= 0) {
-        if (slot != ray.slot) {
-          const float2 s = __ldg(&pr.shutter[slot]);
-          ray.f = __fdiv_rn(__fsub_rn(ray.time, s.x), s.y);
-          ray.slot = slot;
-        }
-        cx = __fadd_rn(cx, __fmul_rn(ray.f, m.x));
-        cy = __fadd_rn(cy, __fmul_rn(ray.f, m.y));
-        cz = __fadd_rn(cz, __fmul_rn(ray.f, m.z));
-      }
-      return hrt::sphere_t(cx, cy, cz, g.w, ox, oy, oz, dx, dy, dz, rt.a,
-                           t_min, t_max);
-    }
-    case hrt::kRect:
-      return hrt::rect_t(g, m.x, __float_as_int(m.y), ox, oy, oz, dx, dy,
-                         dz, t_min, t_max);
-    case hrt::kBox: {
-      float entry, exit;
-      hrt::box_slab(g, m, ox, oy, oz, rt, entry, exit);
-      if (!(exit > entry)) return kBig;
-      if (entry >= t_min && entry <= t_max) return entry;
-      if (exit >= t_min && exit <= t_max) return exit;
-      return kBig;
-    }
-    case hrt::kMediumSphere: {
-      const hrt::Roots r = hrt::sphere_roots(g.x, g.y, g.z, g.w, ox, oy, oz,
-                                             dx, dy, dz, rt.a);
-      if (!r.exists) return kBig;
-      const float u = hrt::medium_uniform(ray.bits, __float_as_uint(m.y));
-      return hrt::medium_scatter_t(r.t_near, r.t_far, m.x, rt.len, t_min,
-                                   t_max, u);
-    }
-    case hrt::kMediumBox: {
-      float entry, exit;
-      hrt::box_slab(g, m, ox, oy, oz, rt, entry, exit);
-      if (!(exit > entry)) return kBig;
-      const float u = hrt::medium_uniform(ray.bits, __float_as_uint(m.w));
-      return hrt::medium_scatter_t(entry, exit, g.w, rt.len, t_min, t_max,
-                                   u);
-    }
-    default:  // a pad slot (PT_NONE); never within a leaf's count
-      return kBig;
-  }
-}
-
-// The slots of the leaf of child word `word` in index order, against the
-// running best as the inclusive t_max; a slot wins with a smaller t, or an
-// equal t and a lower index.
+// The slots of the leaf of child word `word` (prim_lane.cuh test_range).
 __device__ __forceinline__ void test_leaf(Ray& ray, int word,
                                           const Prims& pr, float t_min,
                                           float& t_best, int& best) {
   const int leaf = ~word;
-  const int first = leaf >> kLeafShift, count = leaf & kLeafMask;
-  for (int j = 0; j < count; ++j) {
-    const int pid = first + j;
-    const float t = prim_t(ray, pid, pr, t_min, t_best);
-    if (t < t_best || (t == t_best && pid < best)) {
-      t_best = t;
-      best = pid;
-    }
-  }
+  hrt::test_range(ray, leaf >> kLeafShift, leaf & kLeafMask, pr, t_min,
+                  t_best, best);
 }
 
 // Ray i's walk, nearer child first; writes its (t, index).
@@ -211,21 +111,7 @@ __device__ __forceinline__ void walk(
   float t_best = kBig;
   int best = -1;
   if (active[i]) {
-    Ray ray;
-    ray.ox = o[3 * i];
-    ray.oy = o[3 * i + 1];
-    ray.oz = o[3 * i + 2];
-    ray.dx = d[3 * i];
-    ray.dy = d[3 * i + 1];
-    ray.dz = d[3 * i + 2];
-    ray.ix = __fdiv_rn(1.0f, ray.dx);
-    ray.iy = __fdiv_rn(1.0f, ray.dy);
-    ray.iz = __fdiv_rn(1.0f, ray.dz);
-    ray.rt = hrt::ray_terms<-1>(ray.dx, ray.dy, ray.dz);
-    ray.time = time[i];
-    ray.bits = static_cast<uint32_t>(bits[i]);  // a word below 2^32
-    ray.slot = -1;
-    ray.f = 0.f;
+    Ray ray = hrt::load_ray(i, o, d, time, bits);
     const float4 r0 = __ldg(&nodes[0]);
     const float4 r1 = __ldg(&nodes[1]);
     float t_lo;

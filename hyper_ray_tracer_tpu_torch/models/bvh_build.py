@@ -1,5 +1,9 @@
 """Host-side flattened-BVH builder (the JAX package's
-``models/bvh_build.py``, NumPy builder only; the port keeps its own copy).
+``models/bvh_build.py``; the port keeps its own copy).  Two builders of
+one contract: the C++ one of ``native/bvh_builder.cpp``, which the port
+compiles from the checkout and binds itself (``utils/native.py``), and
+``_build_numpy``.  Both stable-sort and recurse in one order, so their
+arrays are equal; ``build_bvh`` takes the C++ one unless asked not to.
 
 Replicates the reference's construction policy
 (``bvh_node.rs:27-100``):
@@ -25,6 +29,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 
+from ..utils import native
 from .scene import PT_NONE, GeometrySoA
 
 
@@ -87,12 +92,14 @@ def _build_numpy(aabb_min, aabb_max, leaf_size: int):
     )
 
 
-def build_bvh(geom: GeometrySoA,
-              leaf_size: int = 4) -> Tuple[BVHArrays, GeometrySoA]:
+def build_bvh(geom: GeometrySoA, leaf_size: int = 4,
+              use_native: bool = True) -> Tuple[BVHArrays, GeometrySoA]:
     """Build the flattened BVH over the *real* (non-padding) primitives and
     return it together with the geometry SoA reordered into leaf order and
     padded with ``leaf_size`` PT_NONE slots (``time1 = 1`` there, so a
-    motion lerp on a pad slot never divides 0 by 0)."""
+    motion lerp on a pad slot never divides 0 by 0).  ``use_native``:
+    build with the C++ builder (compiled on first use; a missing compiler
+    raises), else with NumPy; the trees are equal."""
     real = np.asarray(geom.ptype) != PT_NONE
     n = int(real.sum())
     if n == 0:
@@ -100,8 +107,8 @@ def build_bvh(geom: GeometrySoA,
     idx_real = np.nonzero(real)[0]
     amin = np.asarray(geom.aabb_min)[idx_real]
     amax = np.asarray(geom.aabb_max)[idx_real]
-    bmin, bmax, first, count, skip, perm = _build_numpy(amin, amax,
-                                                        leaf_size)
+    builder = native.build_bvh_arrays if use_native else _build_numpy
+    bmin, bmax, first, count, skip, perm = builder(amin, amax, leaf_size)
     order = idx_real[perm]
 
     def reorder(a):

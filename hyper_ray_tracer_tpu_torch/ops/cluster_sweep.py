@@ -1,0 +1,351 @@
+"""Cluster mode's trace step: the closest hit of every ray over the
+geometry in the padded cluster order of ``models/clusters.py``.
+
+Named after the JAX module it ports (``hyper_ray_tracer_tpu/ops/
+cluster_sweep.py``, ``make_cluster_intersector`` and
+``make_coherence_key``).  Two implementations of one contract:
+
+* ``cluster_sweep``: the wrapper of the hand-written Hopper kernel K5,
+  ``csrc/cluster_sweep.cu`` (one thread a ray; the design note and the
+  contract are at the top of the CUDA source).  It reads the layout as
+  tail groups, run rows and cluster boxes, and the padded geometry as the
+  packed, type-tagged records K4 also reads (``cluster_scene``).
+* ``cluster_sweep_plain``: the same function in plain torch, vectorised
+  over lanes, one step a cluster in the contract's order.  CPU tensors
+  take it; on the card it is only the reference the kernel is checked
+  against.
+
+Contract, per active ray: the tail first, then each run's clusters in
+layout order whose box admits the ray (slab distances ``(b - o) * (1 /
+d)``, ``hi > max(lo, t_min)`` and ``lo <= t_best``, a NaN distance
+missing), each slot tested with the running best as the inclusive
+``t_max``; a slot wins with a smaller t, or an equal t and a lower slot
+index (K4's rule; the JAX package folds with a strict ``<`` in its
+per-tile nearest-first order).  The primitive tests are the typed
+sweep's with each tail group's or run's flags (``ops/intersect.py
+prim_hit_t``).  Every run is one level: the JAX package's super boxes
+(``SUPER_MIN_CLUSTERS``) are unions of their members' boxes, so testing
+them first culls nothing the members would admit.
+
+Rays: ``o``, ``d`` [N,3] and ``time`` [N] float32, ``active`` [N] bool,
+``bits`` [N] int64 bounce words (values below 2**32).  Returns ``t_best``
+[N] float32 and ``best`` [N] int32, slots of the padded geometry, (BIG,
+-1) for a miss or an inactive ray.  The kernel and ``cluster_sweep_plain``
+agree bit for bit.
+
+``make_coherence_key`` is the JAX package's default ``octant-cell`` key,
+in integer tensors: a render in cluster mode orders each compaction's
+survivors by it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..models.clusters import ClusterLayout
+from ..models.scene import PT_MEDIUM_BOX, PT_MEDIUM_SPHERE, PT_SPHERE
+from ..utils import cuda_build
+from .intersect import BIG, PrimFields, prim_hit_t
+from .typed_sweep import prim_records
+
+# A run is tested super box first from this many clusters in the JAX
+# package; here it only picks the coherence key's leading field.
+SUPER_MIN_CLUSTERS = 512
+CELL_BITS = 4  # Morton bits per axis of the coherence key
+# Ray-slot pairs a step of the plain version holds at most, by device.
+PLAIN_PAIRS = {"cpu": 1 << 22, "cuda": 1 << 24}
+MEDIA = (PT_MEDIUM_SPHERE, PT_MEDIUM_BOX)
+
+
+class Group(NamedTuple):
+    """Slots the contract tests together, with the flags of their tests:
+    a tail group, or one cluster of a run."""
+
+    start: int
+    width: int
+    ptype: int
+    motion: bool
+    xform: bool
+    rect_axis: Optional[int]
+
+
+class ClusterScene(NamedTuple):
+    """Cluster mode's view of a scene on one device."""
+
+    layout: ClusterLayout  # host side
+    tail: tuple  # Group per tail group
+    runs: tuple  # Group per run, its start and width those of cluster 0
+    tail_rows: torch.Tensor  # [T, 4] int32: start, width, xform, 0
+    run_rows: torch.Tensor  # [R, 8] int32: base, clusters, width, xform,
+    # first box row, 0, 0, 0
+    boxes: torch.Tensor  # [C, 8] float32: cmin, 0, cmax, 0 per cluster
+    prims: PrimFields  # [S] every field of the padded geometry (plain)
+    geo: torch.Tensor  # [S, 4] float32 (ops/typed_sweep.prim_records)
+    aux: torch.Tensor  # [S, 4] float32
+    tag: torch.Tensor  # [S] int32, the PT_* type (PT_NONE on a pad)
+    xf: torch.Tensor  # [S, 12] float32 (R row-major, t), [1, 12] without
+    shutter: torch.Tensor  # [K, 2] float32 (time0, time1 - time0)
+    key: Optional[Callable]  # make_coherence_key's, None without runs
+
+
+def _groups(layout: ClusterLayout):
+    tail = tuple(Group(s, w, next(iter(t)), m, x, ra)
+                 for s, w, t, m, x, ra in layout.tail)
+    runs = tuple(Group(r.base, r.width, next(iter(r.types)), r.has_motion,
+                       r.has_xform, r.rect_axis) for r in layout.runs)
+    return tail, runs
+
+
+def cluster_scene(layout: ClusterLayout, geom_np, geom) -> ClusterScene:
+    """Cluster mode's scene from the layout and the padded NumPy geometry
+    ``geom_np`` (``models/clusters.build_clusters``), with ``geom`` the
+    same geometry as tensors on the target device."""
+    device = geom.p0.device
+    tail, runs = _groups(layout)
+    tail_rows = np.zeros((len(tail), 4), np.int32)
+    for k, g in enumerate(tail):
+        tail_rows[k, :3] = g.start, g.width, g.xform
+    run_rows = np.zeros((len(runs), 8), np.int32)
+    boxes = np.zeros((sum(r.n_clusters for r in layout.runs), 8),
+                     np.float32)
+    first = 0
+    for k, r in enumerate(layout.runs):
+        run_rows[k, :5] = r.base, r.n_clusters, r.width, r.has_xform, first
+        boxes[first:first + r.n_clusters, 0:3] = r.cmin
+        boxes[first:first + r.n_clusters, 4:7] = r.cmax
+        first += r.n_clusters
+    if layout.n_slots >= 2**31 or boxes.shape[0] >= 2**30:
+        raise ValueError("cluster_scene: the layout exceeds K5's 32-bit "
+                         "indexing")
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    scene = ClusterScene(
+        layout=layout, tail=tail, runs=runs, tail_rows=dev(tail_rows),
+        run_rows=dev(run_rows), boxes=dev(boxes), prims=None, geo=None,
+        aux=None, tag=None, xf=None, shutter=None,
+        key=make_coherence_key(layout, device=device) if layout.runs
+        else None)
+    return cluster_records(scene, geom_np, geom)
+
+
+def cluster_records(scene: ClusterScene, geom_np, geom) -> ClusterScene:
+    """``scene`` with its slots' records (``prims`` and K5's ``geo``,
+    ``aux``, ``tag``, ``xf``, ``shutter``) taken from the padded geometry
+    ``geom_np`` (NumPy) and ``geom`` (the same as tensors).  The layout
+    and its boxes stay as they are: a train step moves the primitives,
+    not the boxes, as the JAX package's boxes are constants of its
+    trace."""
+    device = geom.p0.device
+    n = scene.layout.n_slots
+    pt = np.asarray(geom_np.ptype)
+    lerp = np.zeros(n, bool)
+    xform = np.zeros(n, bool)
+    for g in scene.tail:
+        lerp[g.start:g.start + g.width] = g.motion
+        xform[g.start:g.start + g.width] = g.xform
+    for g, r in zip(scene.runs, scene.layout.runs):
+        span = slice(r.base, r.base + r.n_clusters * r.width)
+        lerp[span] = g.motion
+        xform[span] = g.xform
+    # The plain version lerps every sphere of a motion group.
+    geo, aux, shutter = prim_records(geom_np, n, lerp & (pt == PT_SPHERE))
+    if xform.any():
+        xf = np.concatenate(
+            [np.asarray(geom_np.rot, np.float32).reshape(n, 9),
+             np.asarray(geom_np.trans, np.float32)], 1)
+    else:
+        xf = np.zeros((1, 12), np.float32)
+
+    def dev(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+
+    prims = PrimFields(
+        p0=geom.p0, p1=geom.p1, radius=geom.radius, time0=geom.time0,
+        time1=geom.time1, ptype=geom.ptype, stable_id=geom.stable_id,
+        axis=geom.axis, neg_inv_density=geom.neg_inv_density, rot=geom.rot,
+        trans=geom.trans)
+    return scene._replace(prims=PrimFields(*(x.contiguous() for x in prims)),
+                          geo=dev(geo), aux=dev(aux), tag=dev(pt, np.int32),
+                          xf=dev(xf), shutter=dev(shutter))
+
+
+def _fold(cs: ClusterScene, g: Group, lanes, o, d, time, bits, t_min,
+          t_best, best, stats):
+    """Test slots g.start .. g.start + g.width - 1 for the lanes ``lanes``
+    (indices into the compacted rays) and fold them into (t_best, best).
+    A medium's free flight depends on its bound, so a medium group is
+    tested slot by slot with the running best; any other type's hit does
+    not (a t beyond the bound comes back BIG either way), so its slots
+    are tested at once with the bound at the group's start, and the
+    smallest (t, slot) wins: the same result as slot by slot."""
+    if stats is not None:
+        stats["prim_tests"][g.start:g.start + g.width] += lanes.numel()
+    steps = ([(s, 1) for s in range(g.start, g.start + g.width)]
+             if g.ptype in MEDIA else [(g.start, g.width)])
+    step = max(1, PLAIN_PAIRS.get(o.device.type, 1 << 22) // g.width)
+    for s, w in steps:
+        pf = PrimFields(*(x[None, s:s + w] for x in cs.prims))
+        for c in range(0, lanes.numel(), step):
+            sel = lanes[c:c + step]
+            bound = t_best[sel]
+            t = prim_hit_t(g.ptype, pf, o[sel, None], d[sel, None],
+                           time[sel, None], t_min, bound[:, None],
+                           bits[sel, None], has_motion=g.motion,
+                           has_xform=g.xform, rect_axis=g.rect_axis)
+            tt, j = torch.min(t, dim=1)  # first index of the minimum
+            slot = (s + j).to(torch.int32)
+            b = best[sel]
+            upd = (tt < bound) | ((tt == bound) & (slot < b))
+            t_best[sel] = torch.where(upd, tt, bound)
+            best[sel] = torch.where(upd, slot, b)
+
+
+def cluster_sweep_plain(cs: ClusterScene, o, d, time, active, bits,
+                        t_min: float = 1.0e-3, stats=None):
+    """Plain-torch cluster sweep of the contract above.  ``stats``: a dict
+    that gets the work these rays need: ``box_tests`` (an int) and
+    ``prim_tests`` ([S] int64, the tests of each slot, pads included)."""
+    n = o.shape[0]
+    dev = o.device
+    t_out = torch.full((n,), BIG, dtype=torch.float32, device=dev)
+    best_out = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    lane = active.nonzero().squeeze(1)
+    o, d, time, bits = (x[lane] for x in (o, d, time, bits))
+    inv_d = 1.0 / d
+    m = lane.numel()
+    t_best = torch.full((m,), BIG, dtype=torch.float32, device=dev)
+    best = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    if stats is not None:
+        stats.update(box_tests=0, prim_tests=torch.zeros(
+            cs.layout.n_slots, dtype=torch.int64, device=dev))
+    every = torch.arange(m, device=dev)
+    args = (o, d, time, bits, t_min, t_best, best, stats)
+    for g in cs.tail:
+        _fold(cs, g, every, *args)
+    row = 0
+    for g, r in zip(cs.runs, cs.layout.runs):
+        for c in range(r.n_clusters):
+            box = cs.boxes[row + c]
+            t0 = (box[0:3] - o) * inv_d
+            t1 = (box[4:7] - o) * inv_d
+            lo = torch.minimum(t0, t1).amax(-1)
+            hi = torch.maximum(t0, t1).amin(-1)
+            admit = (hi > torch.clamp(lo, min=t_min)) & (lo <= t_best)
+            sel = admit.nonzero().squeeze(1)
+            if stats is not None:
+                stats["box_tests"] += m
+            if sel.numel():
+                _fold(cs, g._replace(start=r.base + c * r.width), sel,
+                      *args)
+        row += r.n_clusters
+    t_out[lane] = t_best
+    best_out[lane] = best
+    return t_out, best_out
+
+
+def make_coherence_key(layout: ClusterLayout, cell_bits: int = CELL_BITS,
+                       device="cpu"):
+    """key(o, d) -> [N] int64 (values below 2**32): the JAX package's
+    ``make_coherence_key(layout)`` (its default ``octant-cell`` scheme),
+    equal bit for bit.  The key joins the origin's Morton cell (cell
+    bounds from the clusters whose diagonal is within 8x the median, so
+    that one outlier such as a ground sphere does not stretch the grid)
+    and the direction's octant; the octant leads unless a run has
+    ``SUPER_MIN_CLUSTERS`` clusters or more.  A render orders each
+    compaction's survivors by it (a pure permutation)."""
+    octant_leads = not any(r.n_clusters >= SUPER_MIN_CLUSTERS
+                           for r in layout.runs)
+    allmin = np.concatenate([r.cmin for r in layout.runs])
+    allmax = np.concatenate([r.cmax for r in layout.runs])
+    diag = np.linalg.norm(allmax - allmin, axis=-1)
+    keep = diag <= 8.0 * max(float(np.median(diag)), 1e-20)
+    if not keep.any():
+        keep = np.ones_like(keep)
+    bmin = allmin[keep].min(0)
+    bmax = allmax[keep].max(0)
+    n_cells = 1 << cell_bits
+    scale = torch.from_numpy(np.float32(
+        (n_cells - 1e-3) / np.maximum(bmax - bmin, 1e-20))).to(device)
+    bmin = torch.from_numpy(np.float32(bmin)).to(device)
+
+    def key(o, d):
+        q = torch.clamp((o - bmin) * scale, 0.0,
+                        float(n_cells - 1)).to(torch.int64)
+        m = torch.zeros(o.shape[:-1], dtype=torch.int64, device=o.device)
+        for b in range(cell_bits):
+            m = m | (((q[..., 0] >> b) & 1) << (3 * b + 2)) \
+                | (((q[..., 1] >> b) & 1) << (3 * b + 1)) \
+                | (((q[..., 2] >> b) & 1) << (3 * b))
+        oc = ((d[..., 0] < 0.0).to(torch.int64) * 4
+              + (d[..., 1] < 0.0).to(torch.int64) * 2
+              + (d[..., 2] < 0.0).to(torch.int64))
+        if octant_leads:
+            return (oc << (3 * cell_bits)) | m
+        return (m << 3) | oc
+
+    return key
+
+
+def _bind(lib):
+    fn = lib.hrt_cluster_sweep
+    ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([ptr] * 5 + [c_int, ptr, c_int, ptr, c_int] + [ptr] * 6
+                   + [ctypes.c_float, ptr, ptr, ptr])
+    fn.restype = c_int
+    return fn
+
+
+def cluster_sweep(cs: ClusterScene, o, d, time, active, bits,
+                  t_min: float = 1.0e-3):
+    """Closest hit per ray over the cluster layout.  A CPU tensor takes the
+    plain version; a CUDA tensor launches K5 (building it on first use)
+    or raises.  Counts its kernel launches in ``cluster_sweep.launches``."""
+    device = o.device
+    if device.type == "cpu":
+        return cluster_sweep_plain(cs, o, d, time, active, bits, t_min)
+    if device.type != "cuda":
+        raise ValueError(f"cluster_sweep: unsupported device {device}")
+    n, f32, i32 = o.shape[0], torch.float32, torch.int32
+    p = cs.layout.n_slots
+    for name, x, shape, dtype in (
+            ("o", o, (n, 3), f32), ("d", d, (n, 3), f32),
+            ("time", time, (n,), f32), ("active", active, (n,), torch.bool),
+            ("bits", bits, (n,), torch.int64),
+            ("tail_rows", cs.tail_rows, (len(cs.tail), 4), i32),
+            ("run_rows", cs.run_rows, (len(cs.runs), 8), i32),
+            ("boxes", cs.boxes, (cs.boxes.shape[0], 8), f32),
+            ("geo", cs.geo, (p, 4), f32), ("aux", cs.aux, (p, 4), f32),
+            ("tag", cs.tag, (p,), i32),
+            ("xf", cs.xf, (cs.xf.shape[0], 12), f32),
+            ("shutter", cs.shutter, (cs.shutter.shape[0], 2), f32)):
+        cuda_build.check_arg("cluster_sweep", name, x, shape, dtype, device)
+    if cs.xf.shape[0] not in (1, p):
+        raise ValueError("cluster_sweep: xf holds neither one row nor one "
+                         "a slot")
+    if n >= 2**31 // 3:
+        raise ValueError(f"cluster_sweep: {n} rays exceed the kernel's "
+                         "32-bit indexing")
+    t_best = torch.empty(n, dtype=f32, device=device)
+    best = torch.empty(n, dtype=i32, device=device)
+    if n == 0:
+        return t_best, best
+    fn = _bind(cuda_build.load("cluster_sweep"))
+    cuda_build.launch(
+        "cluster_sweep", fn, device, o.data_ptr(), d.data_ptr(),
+        time.data_ptr(), active.data_ptr(), bits.data_ptr(), n,
+        cs.tail_rows.data_ptr(), len(cs.tail), cs.run_rows.data_ptr(),
+        len(cs.runs), cs.boxes.data_ptr(), cs.geo.data_ptr(),
+        cs.aux.data_ptr(), cs.tag.data_ptr(), cs.xf.data_ptr(),
+        cs.shutter.data_ptr(), float(t_min), t_best.data_ptr(),
+        best.data_ptr())
+    cluster_sweep.launches += 1
+    return t_best, best
+
+
+cluster_sweep.launches = 0

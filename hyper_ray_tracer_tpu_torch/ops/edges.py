@@ -766,9 +766,10 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
 
     ``geom`` is the NumPy geometry ``scene_t`` was uploaded from
     (``SceneTensors.host_geom``: in BVH mode the leaf order of
-    ``render.prepare_scene``); None takes the scene's own, the sweep
-    mode's.  The primitive ids (``sphere_ids`` ... ``glass_shells``; by
-    default the selectors above) index that geometry, and the correction
+    ``render.prepare_scene``, in cluster mode its padded cluster order);
+    None takes the scene's own, the sweep mode's.  The primitive ids
+    (``sphere_ids`` ... ``glass_shells``; by default the selectors above,
+    which skip pad slots) index that geometry, and the correction
     raises on a ``scene_t`` uploaded from any other.  ``n_edge``
     samples per sphere and per curved pair, ``n_seg`` per segment,
     ``n_probe`` probes per side, ``eps`` the probe offset in pixels,
@@ -782,8 +783,13 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
     from ..render import WavefrontState, bounce_paths
 
     if geom is not None:
+        # The selectors read the first n_prims slots; the geometry of BVH
+        # and cluster mode has more (its pads, of type PT_NONE, which no
+        # selector takes), so they read every slot of it.
         scene = dataclasses.replace(
-            scene, arrays=scene.arrays._replace(geom=geom))
+            scene, arrays=scene.arrays._replace(geom=geom),
+            static=dataclasses.replace(
+                scene.static, n_prims=np.asarray(geom.ptype).shape[0]))
     ids_geom = scene.arrays.geom
     background = scene.background
     if sphere_ids is None:

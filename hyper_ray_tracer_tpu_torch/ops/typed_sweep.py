@@ -62,15 +62,10 @@ PLAN_COLUMNS = ("start", "width", "ptype", "motion", "xform", "rect_axis",
                 "xf_offset", "pad")
 
 
-def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE):
-    """The plan of the sweep: the canonical primitive order cut into
-    maximal runs that share type, transform presence and (for rects) plane
-    axis, each run cut to ``max_tile`` primitives.  The JAX package's
-    ``ops/bvh.py:type_runs`` / ``_tile_plan`` (without partition cuts),
-    copied.  ``geom``: a GeometrySoA of NumPy arrays.  Returns [(start,
-    width, types, motion, xform, rect_axis)] covering [0, n_prims).
-    Unlike the JAX package, the port always follows the plan (it is data,
-    not unrolled code), however many tiles it has."""
+def _prim_flags(geom, n_prims: int):
+    """Per primitive of the canonical order: (PT_* type, plane axis, has a
+    ray transform, is a sphere that moves, the run key (type, transform,
+    rect plane axis))."""
     pt = np.asarray(geom.ptype)[:n_prims]
     rot = np.asarray(geom.rot)[:n_prims]
     trans = np.asarray(geom.trans)[:n_prims]
@@ -82,14 +77,41 @@ def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE):
     moving = (pt == PT_SPHERE) & np.any(p0 != p1, axis=-1)
     key = (pt.astype(np.int64) * 8 + has_xf * 4
            + np.where(pt == PT_RECT, axis, 0))
+    return pt, axis, has_xf, moving, key
+
+
+def type_runs(geom, n_prims: int):
+    """The maximal runs of the canonical primitive order that share type,
+    transform presence and (for rects) plane axis, with each run's flags:
+    [(start, end, types, motion, xform, rect_axis)], ``motion`` and
+    ``xform`` set when some primitive of the run moves or is transformed.
+    The JAX package's ``ops/bvh.py:type_runs``, copied.  ``geom``: a
+    GeometrySoA of NumPy arrays."""
+    pt, axis, has_xf, moving, key = _prim_flags(geom, n_prims)
     bounds = [0] + (np.flatnonzero(key[1:] != key[:-1]) + 1).tolist() \
         + [n_prims]
-    plan = []
+    runs = []
     for a, b in zip(bounds[:-1], bounds[1:]):
         types = frozenset(int(v) for v in np.unique(pt[a:b])) - {PT_NONE}
         rect_axis = None
         if types == {PT_RECT} and np.unique(axis[a:b]).size == 1:
             rect_axis = int(axis[a])
+        runs.append((a, b, types, bool(moving[a:b].any()),
+                     bool(has_xf[a:b].any()), rect_axis))
+    return runs
+
+
+def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE):
+    """The plan of the sweep: each of ``type_runs``' runs cut to
+    ``max_tile`` primitives, each tile with its own motion and transform
+    flags.  The JAX package's ``ops/bvh.py:_tile_plan`` (without
+    partition cuts), copied.  Returns [(start, width, types, motion,
+    xform, rect_axis)] covering [0, n_prims).  Unlike the JAX package,
+    the port always follows the plan (it is data, not unrolled code),
+    however many tiles it has."""
+    _, _, has_xf, moving, _ = _prim_flags(geom, n_prims)
+    plan = []
+    for a, b, types, _, _, rect_axis in type_runs(geom, n_prims):
         for s in range(a, b, max_tile):
             sl = slice(s, min(s + max_tile, b))
             plan.append((s, sl.stop - s, types, bool(moving[sl].any()),

@@ -24,10 +24,16 @@ discrete searches) and recomputes the winner's hit distance in plain
 torch, so that gradients reach the geometry through t, the hit point
 and everything shaded from it.
 
-The trace step has two modes (``resolve_intersector``): the all-pairs
-sweeps, and BVH mode, the walk of a skip-threaded BVH over the geometry
-reordered into its leaves (``prepare_scene``; the JAX package's
-``render.py:119-151, 547-575``).
+The trace step has three modes (``resolve_intersector``): the all-pairs
+sweeps; BVH mode, the walk of a skip-threaded BVH over the geometry
+reordered into its leaves; and cluster mode, the sweep of spatial
+clusters culled by their boxes over the geometry in padded cluster order
+(``prepare_scene``; the JAX package's ``render.py:119-151, 547-575``).
+A render in cluster mode launches its camera rays in image blocks
+(``block_order``) and orders each compaction's survivors by the
+coherence key (``ops/cluster_sweep.make_coherence_key``), as the JAX
+package does, so that neighbouring lanes share clusters; both are pure
+permutations, and the image is bit-identical to launch order.
 
 Compaction is eager: after every bounce, each lane's radiance is written to
 its launch slot, and only the ``alive.nonzero()`` lanes, in launch order,
@@ -53,9 +59,11 @@ from torch.utils.checkpoint import checkpoint
 
 from .camera import CameraBasis, get_rays, make_basis
 from .models.bvh_build import build_bvh
+from .models.clusters import build_clusters
 from .models.scene import Scene
 from .ops import rng as prng
 from .ops.bvh import MAX_LEAF_SIZE, bvh_traverse
+from .ops.cluster_sweep import cluster_sweep
 from .ops.intersect import (
     BIG,
     gather_prim_shade_packed,
@@ -94,8 +102,9 @@ CHUNK_LANES = 1 << 23
 RENDER_FORMAT = "torch-1"
 
 # Primitives from which auto leaves the sweep: the JAX package's
-# AUTO_CLUSTER_MIN_PRIMS.  Its cluster intersector is not ported yet
-# (ROADMAP queue 1), so auto takes the BVH there.
+# AUTO_CLUSTER_MIN_PRIMS.  The JAX package takes its cluster intersector
+# there; the port takes the BVH (K4) until its benchmark decides between
+# the two on the card (ROADMAP queue 1, item 6).
 AUTO_MIN_PRIMS = 30_000
 
 
@@ -107,7 +116,8 @@ class RenderSettings:
     depth: int
     seed: int = 0
     spp_chunk: Optional[int] = None  # samples per pass (None: CHUNK_LANES)
-    # None / 'auto' / True / 'sweep' / 'bvh' (resolve_intersector).
+    # None / 'auto' / True / 'sweep' / 'cluster' / 'bvh'
+    # (resolve_intersector).
     intersector: Union[None, bool, str] = None
     leaf_size: int = 4  # primitives per BVH leaf, 1..MAX_LEAF_SIZE
     checkpoint_path: Optional[str] = None  # resumes from it if it exists
@@ -151,17 +161,13 @@ def init_state(basis: CameraBasis, width: int, height: int, pixel_ids,
 
 def resolve_intersector(scene: Scene, intersector) -> str:
     """Map a ``RenderSettings.intersector`` value to a mode, as the JAX
-    package's ``resolve_intersector`` does: 'sweep' and 'bvh' are forced,
-    True means 'bvh', False, None and 'auto' are auto.  Auto traces with
-    the sweeps below ``AUTO_MIN_PRIMS`` primitives (every reference
-    scene) and with the BVH from there (where the JAX package takes its
-    cluster intersector).  'cluster' is not ported yet and raises."""
+    package's ``resolve_intersector`` does: 'sweep', 'cluster' and 'bvh'
+    are forced, True means 'bvh', False, None and 'auto' are auto.  Auto
+    traces with the sweeps below ``AUTO_MIN_PRIMS`` primitives (every
+    reference scene) and with the BVH from there (where the JAX package
+    takes its cluster intersector)."""
     if isinstance(intersector, str):
-        if intersector == "cluster":
-            raise NotImplementedError(
-                "the cluster intersector is not ported yet (ROADMAP queue 1,"
-                " item 4); use intersector 'sweep', 'bvh' or 'auto'")
-        if intersector in ("sweep", "bvh"):
+        if intersector in ("sweep", "cluster", "bvh"):
             return intersector
         if intersector != "auto":
             raise ValueError(f"unknown intersector {intersector!r}")
@@ -174,14 +180,20 @@ def resolve_intersector(scene: Scene, intersector) -> str:
 
 def prepare_scene(scene: Scene, intersector=None, leaf_size: int = 4):
     """Resolve the intersector mode and produce the arrays it traces:
-    (arrays, bvh, mode).  In BVH mode ``arrays`` holds the geometry
-    reordered into leaf order and ``bvh`` the tree
-    (``models/bvh_build.build_bvh``); otherwise ``arrays`` is the
-    scene's and ``bvh`` None.  ``scene_tensors.to_device(arrays, static,
-    device, bvh)`` uploads them."""
+    (arrays, structure, mode).  In BVH mode ``arrays`` holds the geometry
+    reordered into leaf order and the structure is the tree
+    (``models/bvh_build.build_bvh``); in cluster mode the geometry in
+    padded cluster order and the layout (``models/clusters.
+    build_clusters``); otherwise ``arrays`` is the scene's and the
+    structure None.  ``scene_tensors.to_device(arrays, static, device,
+    structure)`` uploads them."""
     mode = resolve_intersector(scene, intersector)
     if mode == "sweep":
         return scene.arrays, None, mode
+    if mode == "cluster":
+        geom, layout = build_clusters(scene.arrays.geom,
+                                      scene.static.n_prims)
+        return scene.arrays._replace(geom=geom), layout, mode
     if not 1 <= leaf_size <= MAX_LEAF_SIZE:
         raise ValueError(f"leaf_size {leaf_size} is outside 1.."
                          f"{MAX_LEAF_SIZE}")
@@ -189,15 +201,34 @@ def prepare_scene(scene: Scene, intersector=None, leaf_size: int = 4):
     return scene.arrays._replace(geom=geom), bvh, mode
 
 
+def block_order(width: int, height: int, block_w: int = 64,
+                block_h: int = 32) -> np.ndarray:
+    """Pixel launch permutation of cluster mode (the JAX package's
+    ``block_order``): ``perm[lane] = pixel_id``, the lanes walking 64x32
+    image blocks, so that neighbouring lanes' camera rays form a narrow
+    frustum and meet the same clusters.  Every ray's RNG words are keyed
+    by its pixel, so the image is bit-identical to row-major order."""
+    x = np.arange(width)
+    y = np.arange(height)
+    yy, xx = np.meshgrid(y, x, indexing="ij")
+    pid = (yy * width + xx).ravel()
+    key = ((yy // block_h) * (-(-width // block_w)) + (xx // block_w)).ravel()
+    return pid[np.argsort(key, kind="stable")].astype(np.int32)
+
+
 def trace(scene: SceneTensors, state: WavefrontState, bb):
     """The trace step: each lane's closest hit (t, primitive index; BIG
     and -1 for a miss or a dead lane).  A scene in BVH mode walks its
-    tree (K4); otherwise sphere-only scenes go through the sphere sweep
-    (K1), every other scene through the typed sweep (K1b).  Media draw
-    their free flight from the bounce words ``bb``."""
+    tree (K4), one in cluster mode sweeps its clusters (K5); otherwise
+    sphere-only scenes go through the sphere sweep (K1), every other
+    scene through the typed sweep (K1b).  Media draw their free flight
+    from the bounce words ``bb``."""
     if scene.mode == "bvh":
         return bvh_traverse(scene.bvh, state.o, state.d, state.time,
                             state.alive, bb, T_MIN)
+    if scene.mode == "cluster":
+        return cluster_sweep(scene.cluster, state.o, state.d, state.time,
+                             state.alive, bb, T_MIN)
     if scene.sphere_only:
         return sphere_sweep(*scene.spheres, state.o, state.d, state.time,
                             state.alive, T_MIN)
@@ -277,28 +308,34 @@ def bounce_step(scene: SceneTensors, background, state: WavefrontState,
 def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
                 width: int, height: int, pixel_ids, sample_ids, seed: int,
                 depth: int, differentiable: bool = False,
-                remat: bool = False):
+                remat: bool = False, coherent: bool = False):
     """Per-lane radiance [N,3] (pre-gamma, pre-averaging) of the camera
     rays (pixel_ids[i], sample_ids[i]), in launch order, with dead lanes
-    compacted out after every bounce.  ``differentiable`` and ``remat``:
-    see ``render_radiance``."""
+    compacted out after every bounce.  ``differentiable``, ``remat`` and
+    ``coherent``: see ``render_radiance`` and ``bounce_paths``."""
     with record_function("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
     return bounce_paths(scene, background, state, depth, differentiable,
-                        remat)
+                        remat, coherent)
 
 
 def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
                  depth: int, differentiable: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, coherent: bool = False):
     """Per-lane radiance [N,3] of the wavefront ``state`` after ``depth``
     bounces numbered from 0, in ``state``'s lane order: the JAX package's
     ``bounce_scan(arrays, bvh, state, 0, depth)``, for a wavefront built
     from any rays (the silhouette correction's probes start at film
     points, lens points and shutter times of their own).  Dead lanes are
     compacted out after every bounce; each lane carries its own RNG base
-    and time, so this equals the fixed-width loop bit for bit."""
+    and time, so this equals the fixed-width loop bit for bit.
+    ``coherent`` (cluster mode's render): the survivors go on in the
+    order of their coherence key (one stable sort; the JAX package's
+    ``compact_wavefront_sorted``), not in launch order; the result is the
+    same, lane for lane."""
+    key = scene.cluster.key if coherent and scene.cluster is not None \
+        else None
     out = state.radiance.clone()
     slot = torch.arange(state.o.shape[0], device=state.o.device)
     for bounce in range(depth):
@@ -315,7 +352,11 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
             keep = state.alive.nonzero().squeeze(1)  # launch order kept
             if keep.numel() == 0:
                 break
-            if keep.numel() < slot.numel():
+            if key is not None:
+                k = key(state.o.index_select(0, keep),
+                        state.d.index_select(0, keep))
+                keep = keep[torch.sort(k, stable=True).indices]
+            if key is not None or keep.numel() < slot.numel():
                 # index_select: its backward is index_add_, exact here
                 # because ``keep`` is unique: each lane's gradient is one
                 # addend onto 0, whatever the atomics' order
@@ -374,7 +415,10 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     Samples are traced in chunks of ``spp_per_chunk`` samples over every
     pixel (lane = sample * W * H + pixel) and summed per pixel into one
     float32 accumulator on the device.  ``settings.intersector`` /
-    ``leaf_size`` pick the trace's mode (``prepare_scene``).
+    ``leaf_size`` pick the trace's mode (``prepare_scene``); in cluster
+    mode the lanes trace the pixels in ``block_order`` and each
+    compaction orders its survivors by the coherence key, which leaves
+    every pixel's sum as it is.
     ``progress_cb(samples_done, samples)`` is called after every chunk.
 
     Snapshots: every ``snapshot_every`` chunks and after the last, the
@@ -397,13 +441,19 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     log = get_logger()
     device = torch.device(device)
     W, H = settings.width, settings.height
-    arrays, bvh, mode = prepare_scene(scene, settings.intersector,
-                                      settings.leaf_size)
-    scene_t = to_device(arrays, scene.static, device, bvh)
+    arrays, structure, mode = prepare_scene(scene, settings.intersector,
+                                            settings.leaf_size)
+    scene_t = to_device(arrays, scene.static, device, structure)
     basis = make_basis(scene.camera, W, H)
     n_pix = W * H
     chunk = spp_per_chunk(settings)
-    pix = torch.arange(n_pix, dtype=torch.int64, device=device)
+    coherent = mode == "cluster"
+    if coherent:  # lane j traces pixel perm[j]; inv takes it back
+        perm = block_order(W, H).astype(np.int64)
+        pix = torch.from_numpy(perm).to(device)
+        inv = torch.from_numpy(np.argsort(perm)).to(device)
+    else:
+        pix = torch.arange(n_pix, dtype=torch.int64, device=device)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
 
     # The port never partitions its sweep nor rounds hits to bf16: those
@@ -438,8 +488,10 @@ def render_image(scene: Scene, settings: RenderSettings, device,
         sample_ids = torch.arange(s, s + ns, dtype=torch.int64,
                                   device=device).repeat_interleave(n_pix)
         rad = trace_paths(scene_t, scene.background, basis, W, H, pixel_ids,
-                          sample_ids, settings.seed, settings.depth)
-        acc += rad.reshape(ns, n_pix, 3).sum(0)
+                          sample_ids, settings.seed, settings.depth,
+                          coherent=coherent)
+        per_lane = rad.reshape(ns, n_pix, 3).sum(0)
+        acc += per_lane[inv] if coherent else per_lane
         s += ns
         rays_done += ns * n_pix
         chunks_done += 1

@@ -8,7 +8,12 @@ array for array, which is how the tests feed both packages one scene.
 In BVH mode (``render.prepare_scene`` with ``intersector='bvh'``) the
 arrays come reordered into the tree's leaf order, and ``to_device`` also
 uploads the tree and the records K4 reads (``ops/bvh.bvh_scene``); the
-sweeps' records are not built then.
+sweeps' records are not built then.  In cluster mode the geometry comes
+in the padded cluster order (``models/clusters.build_clusters``: more
+slots than ``static.n_prims``, NaN geometry on the pads), and
+``to_device`` uploads the layout's groups and boxes and the records K5
+reads (``ops/cluster_sweep.cluster_scene``); every table indexed by a
+primitive (the shade rows, the parameters) has a row per slot.
 
 A train step splits the result by what changes.  What stays fixed per
 scene: the sweep's plan (taken from the geometry as built, as the JAX
@@ -16,9 +21,10 @@ package's host-side plan is), the int shade rows, the Perlin tables and
 the image sizes.  What follows the parameters (``PARAM_PATHS``) is
 rebuilt by ``bind_params`` once per forward: the joined float shade rows
 inside the autograd graph, the sphere fields as views of the parameters,
-and the sweeps' packed records, or in BVH mode K4's leaf records, from
-their detached current values.  A BVH's tree (its node boxes) stays as
-built, as in the JAX package.
+and the sweeps' packed records (in BVH mode K4's leaf records, in
+cluster mode K5's slot records) from their detached current values.  A
+BVH's tree (its node boxes) and a cluster layout's boxes stay as built,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .models.clusters import ClusterLayout
 from .models.scene import PT_SPHERE, GeometrySoA, SceneStatic
 from .ops.bvh import BVHScene, bvh_leaf_records, bvh_scene
+from .ops.cluster_sweep import ClusterScene, cluster_records, cluster_scene
 from .ops.intersect import pack_prim_shade
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
@@ -68,19 +76,24 @@ class SceneTensors(NamedTuple):
     arrays: object  # SceneArrays with every array leaf a torch tensor
     static: SceneStatic
     sphere_only: bool  # traced by the sphere sweep, else the typed sweep
-    spheres: SphereFields  # the first n_prims primitives
+    spheres: SphereFields  # the first n_prims primitives (every slot in
+    # cluster mode)
     sweep: Optional[SweepScene]  # the typed sweep's plan and primitive
-    # fields (None in BVH mode)
+    # fields (None in BVH and cluster mode)
     fpack: torch.Tensor  # [P, F] float32 joined shade rows
     ipack: torch.Tensor  # [P, 7] int32
     tables: TextureTables  # images, Perlin keys and tables
     host_geom: GeometrySoA  # the geometry as built, NumPy (the plan's)
     bvh: Optional[BVHScene] = None  # BVH mode's tree and records
+    cluster: Optional[ClusterScene] = None  # cluster mode's layout, records
 
     @property
     def mode(self) -> str:
-        """The intersector that traces the scene: 'bvh' or 'sweep'."""
-        return "sweep" if self.bvh is None else "bvh"
+        """The intersector that traces the scene: 'bvh', 'cluster' or
+        'sweep'."""
+        if self.bvh is not None:
+            return "bvh"
+        return "sweep" if self.cluster is None else "cluster"
 
 
 def _tensor(x, device):
@@ -105,14 +118,21 @@ def sphere_only(static: SceneStatic, ptype) -> bool:
         and not static.has_ray_xform
 
 
-def to_device(arrays, static: SceneStatic, device, bvh=None) -> SceneTensors:
+def to_device(arrays, static: SceneStatic, device, bvh=None,
+              clusters=None) -> SceneTensors:
     """SceneArrays of NumPy arrays -> SceneTensors on ``device``.  ``bvh``:
     the tree (``models/bvh_build.BVHArrays``) of BVH mode, with ``arrays``
-    reordered by the same ``build_bvh``; None traces with the sweeps."""
+    reordered by the same ``build_bvh``; ``clusters``: the layout
+    (``models/clusters.ClusterLayout``) of cluster mode, with ``arrays``
+    in its padded order; neither traces with the sweeps.  The middle
+    value of ``render.prepare_scene`` goes in as ``bvh`` in every mode: a
+    layout passed there is taken as ``clusters``."""
+    if isinstance(bvh, ClusterLayout):
+        bvh, clusters = None, bvh
     device = torch.device(device)
     t = _convert(arrays, device)
     g = t.geom
-    n = static.n_prims
+    n = static.n_prims if clusters is None else clusters.n_slots
     spheres = SphereFields(*(x[:n].contiguous() for x in
                              (g.p0, g.p1, g.time0, g.time1, g.radius)))
     fpack, ipack = pack_prim_shade(t, static)
@@ -124,9 +144,12 @@ def to_device(arrays, static: SceneStatic, device, bvh=None) -> SceneTensors:
         arrays=t, static=static,
         sphere_only=sphere_only(static, arrays.geom.ptype),
         spheres=spheres,
-        sweep=sweep_scene(host, g, n) if bvh is None else None,
+        sweep=(sweep_scene(host, g, n) if bvh is None and clusters is None
+               else None),
         fpack=fpack, ipack=ipack, tables=tables, host_geom=host,
-        bvh=None if bvh is None else bvh_scene(bvh, host, g, static))
+        bvh=None if bvh is None else bvh_scene(bvh, host, g, static),
+        cluster=(None if clusters is None
+                 else cluster_scene(clusters, host, g)))
 
 
 def extract_params(arrays) -> dict:
@@ -165,7 +188,9 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     the same way (``ops/bvh.bvh_leaf_records``) and the tree stays as
     built: neither refit nor rebuilt, as in the JAX package, whose walk
     reads the merged parameters inside the boxes of the tree it was given.
-    The int rows, the plan and the Perlin tables are ``scene_t``'s own."""
+    In cluster mode K5's slot records are rebuilt and the layout's boxes
+    kept, likewise.  The int rows, the plan and the Perlin tables are
+    ``scene_t``'s own."""
     static = scene_t.static
     n = static.n_prims
     arrays = merge_params(scene_t.arrays, params)
@@ -183,6 +208,12 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
                                scene_t.arrays.geom._replace(**moved))
         return scene_t._replace(arrays=arrays, spheres=spheres, bvh=bvh,
                                 fpack=fpack, tables=tables)
+    if scene_t.cluster is not None:
+        spheres = SphereFields(g.p0, g.p1, g.time0, g.time1, g.radius)
+        cluster = cluster_records(scene_t.cluster, host,
+                                  scene_t.arrays.geom._replace(**moved))
+        return scene_t._replace(arrays=arrays, spheres=spheres,
+                                cluster=cluster, fpack=fpack, tables=tables)
     # The sphere sweep lerps every sphere whose p1 differs from p0; a
     # sphere of a tile planned without motion traces at p0 however its
     # p1 has moved, as the typed sweep's plan has it.

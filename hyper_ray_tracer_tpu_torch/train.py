@@ -15,8 +15,8 @@ attenuations), not through decision boundaries.
 
 Run a train step's timing (one JSON line) with
 ``python -m hyper_ray_tracer_tpu_torch.train [scene] [W] [H] [SPP]
-[DEPTH] [--intersector auto|sweep|bvh] [--silhouette]``; on the CPU add
-``--cpu`` and a small shape.
+[DEPTH] [--intersector auto|sweep|cluster|bvh] [--silhouette]``; on the
+CPU add ``--cpu`` and a small shape.
 """
 
 from __future__ import annotations
@@ -83,7 +83,10 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
     ``intersector`` / ``leaf_size``: the trace's mode, as
     ``render.prepare_scene`` resolves them; ``scene_t`` must be uploaded
     in that mode and, in BVH mode, at that leaf size (the parameters are
-    then in the tree's leaf order), or the loss raises.
+    then in the tree's leaf order; in cluster mode in the padded cluster
+    order, NaN on the pads, whose gradients are 0), or the loss raises.
+    As in the JAX package, a train step's compaction keeps launch order
+    in every mode (no coherence sort).
     ``silhouette=True`` adds the edge-sampled boundary term
     (``ops/edges.py``, with the JAX package's defaults, built at the
     first call from the geometry ``scene_t`` was uploaded from), so that
@@ -201,7 +204,7 @@ def main(argv=None) -> int:
                     help="force per-bounce remat (auto for depth > 16): "
                          "trades recompute for backward memory")
     ap.add_argument("--intersector", default="auto",
-                    choices=("auto", "sweep", "bvh"),
+                    choices=("auto", "sweep", "cluster", "bvh"),
                     help="the trace's mode, as the render CLI's: auto "
                          "takes the BVH from 30,000 primitives")
     ap.add_argument("--leaf-size", type=int, default=4,
@@ -225,8 +228,9 @@ def main(argv=None) -> int:
     W, H, spp, depth = a.width, a.height, a.spp, a.depth
     remat = a.remat or depth >= REMAT_MIN_DEPTH
     scene = build_scene(a.scene)
-    arrays, bvh, mode = prepare_scene(scene, a.intersector, a.leaf_size)
-    scene_t = to_device(arrays, scene.static, device, bvh)
+    arrays, structure, mode = prepare_scene(scene, a.intersector,
+                                            a.leaf_size)
+    scene_t = to_device(arrays, scene.static, device, structure)
     basis = make_basis(scene.camera, W, H)
     pix, sam = pixel_lanes(W, H, spp, device)
     target = torch.zeros((W * H, 3), dtype=torch.float32, device=device)

@@ -1,5 +1,5 @@
 """The CUDA kernels (the sphere sweep, the typed sweep, the BVH
-traversal, the noise texture's marble turbulence and its backward, the
+traversal, the cluster sweep, the noise texture's marble turbulence and its backward, the
 gathers' segmented sum) against their plain-PyTorch versions, and a
 train step on the card against the CPU's and against itself.  Every
 test here needs a CUDA device and nvcc and skips without them; on a GPU
@@ -33,6 +33,10 @@ from hyper_ray_tracer_tpu_torch.ops import perlin  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.bvh import (  # noqa: E402
     bvh_traverse,
     bvh_traverse_plain,
+)
+from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import (  # noqa: E402
+    cluster_sweep,
+    cluster_sweep_plain,
 )
 from hyper_ray_tracer_tpu_torch.ops.gather import (  # noqa: E402
     CHUNK,
@@ -800,3 +804,115 @@ def test_bvh_render_on_card_equals_sweep(cuda, name):
     sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
                          cuda)
     np.testing.assert_array_equal(bvh, sweep)
+
+
+def _cluster_scene(name, dev):
+    if name == "sphereflake-3":
+        from hyper_ray_tracer_tpu_torch.models.builders import sphereflake
+
+        scene = sphereflake(3, "sphereflake-3")
+    else:
+        scene = build_scene(name)
+    arrays, layout, _ = prepare_scene(scene, "cluster")
+    return scene, to_device(arrays, scene.static, dev, layout)
+
+
+def _cluster_both(cs, o, d, time, active, bits):
+    args = (o.contiguous(), d.contiguous(), time.contiguous(),
+            active.contiguous(), bits.contiguous())
+    t_k, b_k = cluster_sweep(cs, *args, T_MIN)
+    torch.cuda.synchronize()
+    t_p, b_p = cluster_sweep_plain(cs, *args, T_MIN)
+    return t_k, b_k, t_p, b_p
+
+
+# chip_smoke.py phase 24's scenes: motion, boxes and media in the tail
+# (`final`), transforms in the tail (`cornell`), sphere runs with pads.
+CLUSTER_CASES = ["random", "final", "cornell", "cornell-smoke",
+                 "sphereflake-3", "sphereflake-small"]
+
+
+@pytest.mark.parametrize("name", CLUSTER_CASES)
+@pytest.mark.parametrize("bounces", [0, 1, 2])
+def test_cluster_sweep_equals_plain(cuda, name, bounces):
+    scene, st = _cluster_scene(name, cuda)
+    s = _rays(scene, st, 160, 90, cuda, bounces)
+    t_k, b_k, t_p, b_p = _cluster_both(st.cluster, s.o, s.d, s.time,
+                                       s.alive,
+                                       prng.bounce_base(s.base, bounces))
+    assert torch.equal(b_k, b_p)
+    assert torch.equal(t_k, t_p)
+    assert (b_k >= 0).any()
+
+
+def test_cluster_sweep_sphereflake_equals_plain(cuda):
+    scene, st = _cluster_scene("sphereflake", cuda)
+    s = _rays(scene, st, 96, 54, cuda, 1)
+    t_k, b_k, t_p, b_p = _cluster_both(st.cluster, s.o, s.d, s.time,
+                                       s.alive, prng.bounce_base(s.base, 1))
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 4097])
+def test_cluster_sweep_ragged_counts_and_inactive_rays(cuda, n):
+    scene, st = _cluster_scene("final", cuda)
+    s = _rays(scene, st, 160, 90, cuda, 1)
+    idx = torch.randperm(160 * 90, device=cuda)[:n]
+    active = torch.rand(n, device=cuda) < 0.6
+    t_k, b_k, t_p, b_p = _cluster_both(
+        st.cluster, s.o[idx], s.d[idx], s.time[idx], active,
+        prng.bounce_base(s.base, 1)[idx])
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_k[~active] == -1).all()
+
+
+def test_cluster_sweep_runs_longer_than_a_staged_chunk(cuda, monkeypatch):
+    """A run of more clusters than K5 stages at once (kChunk, 1024): the
+    layout of sphereflake at 16 primitives a cluster (4,096 clusters)."""
+    import hyper_ray_tracer_tpu_torch.models.clusters as C
+
+    monkeypatch.setattr(C, "CLUSTER_TARGET_PRIMS", 16)
+    scene, st = _cluster_scene("sphereflake", cuda)
+    assert st.cluster.layout.runs[0].n_clusters > 1024
+    s = _rays(scene, st, 64, 36, cuda, 1)
+    t_k, b_k, t_p, b_p = _cluster_both(st.cluster, s.o, s.d, s.time,
+                                       s.alive, prng.bounce_base(s.base, 1))
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+
+
+def test_cluster_sweep_tie_goes_to_the_lowest_slot(cuda):
+    from cluster_cases import tie_case
+
+    cs, ray, a, t_a, b = tie_case()
+    cs = cs._replace(**{k: getattr(cs, k).to(cuda) for k in (
+        "tail_rows", "run_rows", "boxes", "geo", "aux", "tag", "xf",
+        "shutter")})
+    t, best = cluster_sweep(cs, *(x.to(cuda) for x in ray), T_MIN)
+    assert (int(best[0]), float(t[0])) == (a, t_a)
+
+
+def test_cluster_sweep_counter_and_validation(cuda):
+    scene, st = _cluster_scene("cornell", cuda)
+    s = _rays(scene, st, 16, 9, cuda)
+    bits = prng.bounce_base(s.base, 0)
+    before = cluster_sweep.launches
+    cluster_sweep(st.cluster, s.o, s.d, s.time, s.alive, bits)
+    assert cluster_sweep.launches == before + 1
+    with pytest.raises(TypeError):
+        cluster_sweep(st.cluster, s.o.double(), s.d, s.time, s.alive, bits)
+    with pytest.raises(ValueError, match="is on cpu"):
+        cluster_sweep(st.cluster, s.o, s.d, s.time.cpu(), s.alive, bits)
+
+
+@pytest.mark.parametrize("name", ["random", "final", "cornell",
+                                  "sphereflake-3"])
+def test_cluster_render_on_card_equals_sweep(cuda, name):
+    scene, _ = _cluster_scene(name, "cpu")
+    s = dict(width=64, height=36, samples=2, depth=4)
+    before = cluster_sweep.launches
+    clus = render_image(scene, RenderSettings(**s, intersector="cluster"),
+                        cuda)
+    assert cluster_sweep.launches > before
+    sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
+                         cuda)
+    np.testing.assert_array_equal(clus, sweep)
