@@ -41,11 +41,15 @@ PNG, ``--preview``'s writes, one ``--watch`` re-render and one
 ``hyper_ray_tracer_tpu_torch.examples`` at their own defaults (phase
 23), each passing its own exit criterion.  Cluster mode (phase 24):
 the cluster sweep K5 bit-equal to its plain version on `sphereflake`'s
-camera rays (timed beside K4 and K1), on bounces 0-2 of a full chunk
-of its CLI default, and on `final`, `random` and sphereflake(3);
+camera rays (timed in raster and in block order beside K4 and K1), on
+bounces 0-2 of a full chunk of its CLI default (timed in launch order
+and in the render's coherence order, where every ray's hit must be the
+same), on `final`, `random` and sphereflake(3), and on a run of 4,096
+clusters and on its first 1,000 (a ragged last window);
 `sphereflake` through the CLI at its defaults with ``--intersector
-cluster`` (its PNG against phase 19's BVH-mode PNG, the native and the
-NumPy BVH build and ``build_clusters`` timed), two goldens, the bench
+cluster`` (its PNG against phase 19's BVH-mode PNG, its render profiled
+by layer with K5 by bounce, the native and the NumPy BVH build and
+``build_clusters`` timed), two goldens, the bench
 workload on `final` in cluster mode against phase 9's PNG, and a
 cluster-mode train step on `final` (two steps bit-equal, card against
 CPU gradients with the pads excluded).  Each
@@ -1920,28 +1924,37 @@ def k5_bound(cs, stats, kinds, n):
 
 def k5_cases(dev, kinds):
     """K5 (``cluster_sweep``) against ``cluster_sweep_plain``, bit for bit,
-    t and slot: `sphereflake`'s camera rays at 1280x720 (timed beside K4
-    and K1 on the same rays, with the tests the rays need and K5's
-    bound); bounces 0-2 of one full chunk of its CLI default; bounces 0-2
-    of `final` at the bench workload's 400x225x16, of `random` at
-    1280x720 and of sphereflake(3) at 320x180.  Returns (case lines, the
-    camera rays' row, the chunk's rows, the largest |t| gap)."""
+    t and slot: bounces 0-2 of `final` at the bench workload's 400x225x16,
+    of `random` at 1280x720 and of sphereflake(3) at 320x180; a run of
+    4,096 clusters (`sphereflake` at 16 primitives a cluster, camera rays
+    and bounce 1 at 320x180) and its first 1,000 clusters (a ragged last
+    window); `sphereflake`'s camera rays at 1280x720, timed in raster and
+    in block order beside K4 and K1 on the same rays, with the tests the
+    rays need and K5's bound; bounces 0-2 of one full chunk of its CLI
+    default, timed in launch order and in the render's order (camera
+    lanes in block order, survivors sorted by the coherence key), where
+    K5 must give every ray what it gave it in launch order.  Returns
+    (case lines, the camera rays' row, the chunk's rows, the largest |t|
+    gap)."""
     from hyper_ray_tracer_tpu_torch import (
         RenderSettings,
         build_scene,
         prepare_scene,
     )
     from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.models import clusters as C
     from hyper_ray_tracer_tpu_torch.models.builders import sphereflake
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
     from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
     from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import (
         cluster_sweep,
         cluster_sweep_plain,
+        cut_run,
     )
     from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
     from hyper_ray_tracer_tpu_torch.render import (
         WavefrontState,
+        block_order,
         bounce_step,
         init_state,
         spp_per_chunk,
@@ -1961,29 +1974,31 @@ def k5_cases(dev, kinds):
                               spp, dtype=torch.int64,
                               device=dev).repeat_interleave(w * h), 0)
 
-    def check(label, st, s, b, stats=None):
+    def check(label, cs, s, b, stats=None):
         args = tuple(x.contiguous() for x in (
             s.o, s.d, s.time, s.alive, prng.bounce_base(s.base, b)))
-        t_k, b_k = cluster_sweep(st.cluster, *args, T_MIN)
+        t_k, b_k = cluster_sweep(cs, *args, T_MIN)
         torch.cuda.synchronize()
         t0 = time.monotonic()
-        t_p, b_p = cluster_sweep_plain(st.cluster, *args, T_MIN,
-                                       stats=stats)
+        t_p, b_p = cluster_sweep_plain(cs, *args, T_MIN, stats=stats)
         torch.cuda.synchronize()
         plain_s = time.monotonic() - t0
         errs.append(sweep_rules(f"K5 {label}", t_k, b_k, t_p, b_p,
                                 args[3])[2])
-        return args, b_k, plain_s
+        return args, t_k, b_k, plain_s
 
-    def waves(label, scene, st, s):
+    def step(scene, st, s, b):
+        s = bounce_step(st, scene.background, s, b)
+        keep = s.alive.nonzero().squeeze(1)
+        return WavefrontState(*(x.index_select(0, keep) for x in s)), keep
+
+    def waves(label, scene, st, s, bounces=3):
         share = []
-        for b in range(3):
-            _, b_k, _ = check(f"{label} bounce {b}", st, s, b)
+        for b in range(bounces):
+            _, _, b_k, _ = check(f"{label} bounce {b}", st.cluster, s, b)
             share.append(f"{(b_k >= 0).float().mean().item():.3f}")
-            if b < 2:
-                s = bounce_step(st, scene.background, s, b)
-                keep = s.alive.nonzero().squeeze(1)
-                s = WavefrontState(*(x.index_select(0, keep) for x in s))
+            if b < bounces - 1:
+                s = step(scene, st, s, b)[0]
         return f"{label} (hit share by bounce {'/'.join(share)})"
 
     lines = []
@@ -1997,47 +2012,91 @@ def k5_cases(dev, kinds):
     lines.append(waves("sphereflake(3) 320x180", sf3, upload(sf3, "cluster"),
                        camera(sf3, 320, 180)))
 
-    # sphereflake's camera rays: K5 timed beside K4 and K1.
     flake = build_scene("sphereflake")
+    # A run of 4,096 clusters (MAX_CLUSTERS_PER_RUN), 16 windows, and
+    # its first 1,000 (a last window of 232).
+    target = C.CLUSTER_TARGET_PRIMS
+    C.CLUSTER_TARGET_PRIMS = 16
+    try:
+        st16 = upload(flake, "cluster")
+    finally:
+        C.CLUSTER_TARGET_PRIMS = target
+    run16 = st16.cluster.layout.runs[0]
+    assert run16.n_clusters == 4096, run16.n_clusters
+    lines.append(waves(f"sphereflake {run16.n_clusters} x {run16.width} "
+                       "320x180", flake, st16, camera(flake, 320, 180), 2))
+    cut = cut_run(st16.cluster, 1000)
+    lines.append(waves("sphereflake's first 1000 of those clusters 320x180",
+                       flake, st16._replace(cluster=cut),
+                       camera(flake, 320, 180), 2))
+    del st16, cut
+
+    # sphereflake's camera rays: K5 timed beside K4 and K1, in raster and
+    # in block order (the render's launch order).
     st = upload(flake, "cluster")
     cam = camera(flake, 1280, 720)
     stats = {}
-    args, b_k, _ = check("sphereflake camera 1280x720", st, cam, 0, stats)
+    args, _, b_k, _ = check("sphereflake camera 1280x720", st.cluster, cam,
+                            0, stats)
     n = args[0].shape[0]
     k5_args = (st.cluster, *args, T_MIN)
+    perm = torch.from_numpy(block_order(1280, 720).astype(np.int64)).to(dev)
+    blocked = (st.cluster, *(x[perm].contiguous() for x in args), T_MIN)
     bvh_t = upload(flake, "bvh")
     sweep_t = to_device(flake.arrays, flake.static, dev)
     k5b, ops = k5_bound(st.cluster, stats, kinds, n)
     cam_row = dict(
         n=n, hits=int((b_k >= 0).sum()), box_tests=stats["box_tests"] / n,
+        visits=stats["cluster_visits"] / n,
         slot_tests=int(stats["prim_tests"].sum()) / n, bound=k5b, ops=ops,
         ms=device_ms(cluster_sweep, k5_args, 10),
+        block_ms=device_ms(cluster_sweep, blocked, 10),
         k4_ms=device_ms(bvh_traverse, (bvh_t.bvh, *args, T_MIN), 10),
         k1_ms=device_ms(sphere_sweep, (*sweep_t.spheres, *args[:4], T_MIN),
                         2))
     cam_row["call_ms"], cam_row["plain_ms"] = in_turns(
         lambda *a: cluster_sweep_plain(*a), cluster_sweep, k5_args, 1, 10)
+    del bvh_t, sweep_t
 
-    # One full chunk of the CLI default, bounces 0-2, as trace_paths runs
-    # them (coherence order is a permutation: launch order here).
+    # One full chunk of the CLI default, bounces 0-2: in launch order (the
+    # twin's check), and in the render's order (render.trace_paths:
+    # camera lanes in block order, each compaction's survivors stably
+    # sorted by the coherence key), a permutation of the same rays.
     spp = spp_per_chunk(RenderSettings(1280, 720, 100, 10))
     s = camera(flake, 1280, 720, spp)
+    n0 = s.o.shape[0]
+    ids = torch.arange(n0, device=dev)  # launch lane of each row of s
+    order = (perm + torch.arange(spp, device=dev)[:, None]
+             * (1280 * 720)).reshape(-1)  # the render's lanes, by id
     chunk = []
     for b in range(3):
         stats = {}
-        args, b_k, plain_s = check(f"sphereflake chunk bounce {b}", st, s,
-                                   b, stats)
+        args, t_k, b_k, plain_s = check(f"sphereflake chunk bounce {b}",
+                                        st.cluster, s, b, stats)
+        pos = torch.full((n0,), -1, dtype=torch.int64, device=dev)
+        pos[ids] = torch.arange(ids.numel(), device=dev)
+        rows = pos[order]
+        if b > 0:  # the render's survivors, sorted by the coherence key
+            order, rows = order[rows >= 0], rows[rows >= 0]
+            key = st.cluster.key(s.o[rows], s.d[rows])
+            srt = torch.sort(key, stable=True).indices
+            order, rows = order[srt], rows[srt]
+        r_args = (st.cluster, *(x[rows].contiguous() for x in args), T_MIN)
+        t_r, b_r = cluster_sweep(*r_args)
+        assert torch.equal(t_r, t_k[rows]) and torch.equal(b_r, b_k[rows]), \
+            f"K5 chunk bounce {b}: the render's order changed a ray's hit"
         n_b = args[0].shape[0]
         chunk.append(dict(
             bounce=b, lanes=n_b, hits=int((b_k >= 0).sum()),
             ms=device_ms(cluster_sweep, (st.cluster, *args, T_MIN), 3),
+            render_ms=device_ms(cluster_sweep, r_args, 3),
+            visits=stats["cluster_visits"] / n_b,
             slot_tests=int(stats["prim_tests"].sum()) / n_b,
             bound=k5_bound(st.cluster, stats, kinds, n_b)[0],
             plain_s=plain_s))
         if b < 2:
-            s = bounce_step(st, flake.background, s, b)
-            keep = s.alive.nonzero().squeeze(1)
-            s = WavefrontState(*(x.index_select(0, keep) for x in s))
+            s, keep = step(flake, st, s, b)
+            ids = ids[keep]
     return lines, cam_row, chunk, spp, max(errs)
 
 
@@ -2047,11 +2106,12 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
     version (``k5_cases``); `sphereflake` through the CLI at its defaults
     with ``--intersector cluster`` (the host builds timed: the native BVH
     build against NumPy's, ``build_clusters``), its PNG against BVH
-    mode's; two goldens in cluster mode; the bench workload on `final` in
-    cluster mode, its PNG against sweep mode's; a cluster-mode train step
-    on `final` at bench_grad.py's shape, two steps from one state
-    bit-equal, card against CPU gradients with the pads excluded.
-    Returns (the phase's line, K5's record)."""
+    mode's, and its render profiled by layer (K5 by bounce); two goldens
+    in cluster mode; the bench workload on `final` in cluster mode, its
+    PNG against sweep mode's; a cluster-mode train step on `final` at
+    bench_grad.py's shape, two steps from one state bit-equal, card
+    against CPU gradients with the pads excluded.  Returns (the phase's
+    line, K5's record)."""
     from hyper_ray_tracer_tpu_torch import (
         RenderSettings,
         build_scene,
@@ -2106,6 +2166,8 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
     peak = torch.cuda.max_memory_allocated() / 1e9
     assert png.shape == (720, 1280, 3), png.shape
     rays = 1280 * 720 * 100
+    by_layer = render_profile(dev, "sphereflake", RenderSettings(
+        1280, 720, 100, 10, intersector="cluster"))
     parts = (png != flake_bvh_png).any(-1)
     flake_err = golden_errors(png.astype(np.float64) / 255.0,
                               flake_bvh_png.astype(np.float64) / 255.0)
@@ -2172,19 +2234,27 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
         "every case and inactive rays at (BIG, -1) (asserted): "
         + "; ".join(lines)
         + f" | sphereflake's {cam['n']} camera rays (1280x720, bit-equal): "
-        f"{cam['hits']} hit, {cam['box_tests']:.1f} box and "
-        f"{cam['slot_tests']:.1f} slot tests a ray, K5 {cam['ms']:.4f} ms "
-        f"on the device (a call back to back {cam['call_ms']:.4f}, plain "
-        f"{cam['plain_ms']:.4f}), bound {cam['bound'][0]:.6f} ms "
-        f"({cam['bound'][1]}, {cam['ops']:.1f} FP32 operations a ray), "
-        f"{cam['bound'][0] / cam['ms']:.3f} of it; K4 {cam['k4_ms']:.4f} "
-        f"ms and K1 {cam['k1_ms']:.4f} ms on the same rays (K5 "
-        f"{cam['ms'] / cam['k4_ms']:.2f}x K4's) | its first CLI chunk "
-        f"(1280x720x{spp}), every lane, bit-equal: " + "; ".join(
+        f"{cam['hits']} hit, {cam['box_tests']:.1f} box tests, "
+        f"{cam['visits']:.3f} cluster visits and {cam['slot_tests']:.1f} "
+        f"slot tests a ray, K5 {cam['ms']:.4f} ms on the device in raster "
+        f"order, {cam['block_ms']:.4f} in block order (a call back to back "
+        f"{cam['call_ms']:.4f}, plain {cam['plain_ms']:.4f}), bound "
+        f"{cam['bound'][0]:.6f} ms ({cam['bound'][1]}, {cam['ops']:.1f} "
+        f"FP32 operations a ray), {cam['bound'][0] / cam['ms']:.3f} of it; "
+        f"K4 {cam['k4_ms']:.4f} ms and K1 {cam['k1_ms']:.4f} ms on the same "
+        f"rays (K5 {cam['ms'] / cam['k4_ms']:.2f}x K4's) | its first CLI "
+        f"chunk (1280x720x{spp}), every lane bit-equal in launch order, "
+        "every ray's hit the same in the render's order (block order, then "
+        "the coherence key): " + "; ".join(
             f"bounce {r['bounce']}: {r['lanes']} lanes ({r['hits']} hit), "
-            f"K5 {r['ms']:.4f} ms, {r['slot_tests']:.1f} slot tests a ray, "
-            f"bound {r['bound'][0]:.6f} ms ({r['bound'][1]}), plain "
-            f"{r['plain_s']:.2f} s" for r in chunk)
+            f"K5 {r['ms']:.4f} ms in launch order "
+            f"({r['ms'] * 1e6 / r['lanes']:.2f} ns a lane, "
+            f"{r['ms'] * cam['n'] / r['lanes'] / cam['ms']:.2f}x a camera "
+            f"lane's), {r['render_ms']:.4f} ms in the render's order "
+            f"({r['render_ms'] * 1e6 / r['lanes']:.2f} ns a lane), "
+            f"{r['visits']:.3f} cluster visits and {r['slot_tests']:.1f} "
+            f"slot tests a ray, bound {r['bound'][0]:.6f} ms "
+            f"({r['bound'][1]}), plain {r['plain_s']:.2f} s" for r in chunk)
         + f" | CLI sphereflake --intersector cluster 1280x720 100spp d10 "
         f"({rays} camera rays): wall {wall:.3f} s, "
         f"{rays / wall / 1e6:.3f} camera Mrays/s, launches {launched}, "
@@ -2192,7 +2262,8 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
         f"(phase 19): {int(parts.sum())} pixels differ ({parts.mean():.2e}"
         f", bound 1e-3, asserted), median / mean err / outliers "
         f"{flake_err[0]:.3e} / {flake_err[1]:.3e} / {flake_err[2]:.4f} "
-        "(golden bounds, asserted) | host builds of sphereflake: "
+        f"(golden bounds, asserted) | by layer: {by_layer} | host builds "
+        "of sphereflake: "
         + ", ".join(f"{k} {v:.4f} s" for k, v in builds.items())
         + f", the cluster-mode upload (to_device) {upload_s:.3f} s | "
         "goldens in cluster mode (asserted): " + "; ".join(goldens)
@@ -2232,9 +2303,10 @@ def render_profile(dev, name, settings):
     """Where the device time of ``render_image`` goes: one warm-up, one
     unprofiled render timed, one under torch.profiler, its kernels' time
     given to the layers by the record_function ranges of
-    render.trace_paths and to the hand kernels by name.  K4's time is
-    also split by bounce (its launches in order, ``settings.depth`` a
-    chunk), beside the lanes each compaction kept."""
+    render.trace_paths and to the hand kernels by name.  The time of
+    K4 or K5 is also split by bounce (its launches in order,
+    ``settings.depth`` a chunk), beside the lanes each compaction
+    kept."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2293,17 +2365,18 @@ def render_profile(dev, name, settings):
             + f" (layers hold {sum(by_layer.values()) / busy:.3f} of "
             f"busy); hand kernels "
             + ", ".join(f"{k} {v:.3f}" for k, v in by_kernel.items() if v))
-    k4 = sorted((e for e in kern if HAND["K4"][0] in e.name),
-                key=lambda e: e.time_range.start)
     depth = settings.depth
-    if k4 and len(k4) % depth == 0:
-        per = [sum(e.time_range.elapsed_us() for e in k4[b::depth]) / 1e3
-               for b in range(depth)]
-        text += (f"; K4 by bounce over {len(k4) // depth} chunks (ms) "
-                 + "/".join(f"{v:.3f}" for v in per))
-    elif k4:
-        text += (f"; K4 {len(k4)} launches, not {depth} a chunk: not "
-                 "split by bounce")
+    for hk in ("K4", "K5"):
+        runs = sorted((e for e in kern if HAND[hk][0] in e.name),
+                      key=lambda e: e.time_range.start)
+        if runs and len(runs) % depth == 0:
+            per = [sum(e.time_range.elapsed_us() for e in runs[b::depth])
+                   / 1e3 for b in range(depth)]
+            text += (f"; {hk} by bounce over {len(runs) // depth} chunks "
+                     "(ms) " + "/".join(f"{v:.3f}" for v in per))
+        elif runs:
+            text += (f"; {hk} {len(runs)} launches, not {depth} a chunk: "
+                     "not split by bounce")
     return text + f"; lanes per bounce (first chunk) {lanes[:depth]}"
 
 

@@ -67,3 +67,47 @@ def tie_case():
     return cs, ray, a, float(t0[i]), b
 
 
+def two_spheres_case(z, boxes):
+    """(cluster scene, one ray, the first slots of clusters 0 and 1):
+    sphereflake(3)'s run of 4 clusters with one sphere of radius 1 left
+    in each of clusters 0 and 1, centred on the z axis at ``z`` (a pair),
+    the other slots' spheres moved far off; the boxes of clusters 0 and 1
+    set to [-1, 1]^2 x [lo, hi] by ``boxes`` (two (lo, hi) pairs), those
+    of clusters 2 and 3 out of the way; the ray from the origin along +z,
+    which enters a box at its lo."""
+    scene = port_scene("sphereflake-3")
+    st, lay = upload(scene)
+    run = lay.runs[0]
+    first = [run.base + c * run.width for c in (0, 1)]
+    moved = {k: getattr(st.arrays.geom, k).clone()
+             for k in ("p0", "p1", "radius")}
+    real = torch.from_numpy(lay.src >= 0)
+    moved["p0"][real] = 1000.0
+    moved["p1"][real] = 1000.0
+    moved["radius"][real] = 0.5
+    for s, zc in zip(first, z):
+        moved["p0"][s] = moved["p1"][s] = torch.tensor([0.0, 0.0, zc])
+        moved["radius"][s] = 1.0
+    host = st.host_geom._replace(**{k: v.numpy() for k, v in moved.items()})
+    cs = p_cluster_sweep.cluster_records(
+        st.cluster, host, st.arrays.geom._replace(**moved))
+    box = cs.boxes.clone()
+    for c, (lo, hi) in enumerate(boxes):
+        box[c, 0:3] = torch.tensor([-1.0, -1.0, lo])
+        box[c, 4:7] = torch.tensor([1.0, 1.0, hi])
+    box[2:, 0:3] = 100.0
+    box[2:, 4:7] = 101.0
+    ray = (torch.zeros(1, 3), torch.tensor([[0.0, 0.0, 1.0]]),
+           torch.zeros(1), torch.ones(1, dtype=torch.bool),
+           torch.zeros(1, dtype=torch.int64))
+    return cs._replace(boxes=box), ray, first
+
+
+# Equal box entries: (sphere centres, boxes, the winner's cluster, its t).
+# Both boxes are entered at 5, beyond both spheres (t 3 and 4; a graze,
+# built), so the cluster visited first wins and the other is skipped: on
+# equal entries the lower cluster index, cluster 0, whichever sphere is
+# nearer; entered first at 4.5, cluster 1.
+ENTRY_TIES = [((4.0, 5.0), ((5.0, 6.0), (5.0, 6.0)), 0, 3.0),
+              ((5.0, 4.0), ((5.0, 6.0), (5.0, 6.0)), 0, 4.0),
+              ((5.0, 4.0), ((5.0, 6.0), (4.5, 6.0)), 1, 3.0)]

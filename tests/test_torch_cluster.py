@@ -56,6 +56,10 @@ from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import (  # noqa: E402
     cluster_sweep_plain,
     make_coherence_key,
 )
+from hyper_ray_tracer_tpu_torch.ops.intersect import (  # noqa: E402
+    PrimFields,
+    prim_hit_t,
+)
 from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (  # noqa: E402
     typed_sweep_plain,
 )
@@ -72,7 +76,14 @@ from hyper_ray_tracer_tpu_torch.scene_tensors import (  # noqa: E402
 from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     main as train_main,
 )
-from cluster_cases import port_scene, tie_case, upload, waves  # noqa: E402
+from cluster_cases import (  # noqa: E402
+    ENTRY_TIES,
+    port_scene,
+    tie_case,
+    two_spheres_case,
+    upload,
+    waves,
+)
 from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     make_loss_fn,
     params_from_jax,
@@ -196,16 +207,11 @@ def _canonical(best, layout):
         torch.int32), -1)
 
 
-@pytest.mark.parametrize("name", ["final", "random", "sphereflake-3"])
-def test_plain_equals_typed_sweep_through_src(name):
-    """On the camera waves and on seeded rays from inside the scene, the
-    cluster sweep's winners, taken back to the canonical order through
-    ``layout.src``, and t's equal the typed sweep's.  They could part
-    only on a graze (a primitive's float32 t before its own cluster's box
-    entry, or a medium's bound) or on an exact tie between two
-    primitives; both are counted, and there are none."""
-    scene = _scene(name)
-    st, lay = upload(scene)
+def _partings(scene, st, lay):
+    """(hits, grazes, ties) of the cluster sweep against the typed sweep
+    on the camera waves and on seeded rays from inside the scene; a lane
+    parts when its winner, taken back to the canonical order through
+    ``layout.src``, or its t differs."""
     sweep = to_device(scene.arrays, scene.static, "cpu")
     hits = grazes = ties = 0
     rays = list(waves(scene, sweep)) + [_seeded_rays(lay, seed=1)]
@@ -218,8 +224,124 @@ def test_plain_equals_typed_sweep_through_src(name):
         hits += int((b_c >= 0).sum())
         inactive = ~args[3]
         assert (b_c[inactive] == -1).all() and (t_c[inactive] == 3.0e38).all()
+    return hits, grazes, ties
+
+
+@pytest.mark.parametrize("name", ["final", "random", "sphereflake-3"])
+def test_plain_equals_typed_sweep_through_src(name):
+    """On the camera waves and on seeded rays from inside the scene, the
+    cluster sweep's winners, taken back to the canonical order through
+    ``layout.src``, and t's equal the typed sweep's.  They could part
+    only on a graze (a primitive's float32 t before its own cluster's box
+    entry, or a medium's bound) or on an exact tie between two
+    primitives; both are counted, and there are none."""
+    scene = _scene(name)
+    st, lay = upload(scene)
+    hits, grazes, ties = _partings(scene, st, lay)
     assert (grazes, ties) == (0, 0)
     assert hits > 1000
+
+
+@pytest.mark.parametrize("window", [16, 24])
+def test_runs_longer_than_a_window(monkeypatch, window):
+    """A run taken in several windows, each nearest first: sphereflake(3)
+    at 16 primitives a cluster (64 clusters) in windows of 16 (four) and
+    of 24 (a last window of 16); every box is tested once a ray, and the
+    winners still equal the typed sweep's."""
+    monkeypatch.setattr(p_clusters, "CLUSTER_TARGET_PRIMS", 16)
+    monkeypatch.setattr(p_cluster_sweep, "WINDOW", window)
+    scene = _scene("sphereflake-3")
+    st, lay = upload(scene)
+    assert lay.runs[0].n_clusters == 64
+    hits, grazes, ties = _partings(scene, st, lay)
+    assert (grazes, ties) == (0, 0) and hits > 1000
+    o, d, tm, active, bits = next(waves(scene, st))
+    stats = {}
+    cluster_sweep_plain(st.cluster, o, d, tm, active, bits, T_MIN, stats)
+    assert stats["box_tests"] == int(active.sum()) * 64
+
+
+def _slots_tested(cs, ray, window=None, monkeypatch=None):
+    if window is not None:
+        monkeypatch.setattr(p_cluster_sweep, "WINDOW", window)
+    stats = {}
+    t, best = cluster_sweep_plain(cs, *ray, T_MIN, stats)
+    return t, best, stats
+
+
+def test_nearest_cluster_first(monkeypatch):
+    """Cluster 0 holds a sphere at t = 7 (box entered at 7), cluster 1 one
+    at t = 3 (box entered at 3).  Nearest first visits cluster 1 only:
+    cluster 0's entry is then beyond the best.  Layout order (windows of
+    one cluster) visits both.  The winner is the same."""
+    cs, ray, first = two_spheres_case((8.0, 4.0), ((7.0, 9.0), (3.0, 5.0)))
+    width = cs.layout.runs[0].width
+    t, best, stats = _slots_tested(cs, ray)
+    t_l, best_l, stats_l = _slots_tested(cs, ray, 1, monkeypatch)
+    assert (int(best[0]), float(t[0])) == (first[1], 3.0)
+    assert torch.equal(t, t_l) and torch.equal(best, best_l)
+    assert stats["cluster_visits"] == 1 and stats_l["cluster_visits"] == 2
+    tests = stats["prim_tests"]
+    assert (tests[first[1]:first[1] + width] == 1).all()
+    assert not tests[first[0]:first[0] + width].any()
+    assert (stats_l["prim_tests"][first[0]:first[1] + width] == 1).all()
+
+
+@pytest.mark.parametrize("z,boxes,winner,t_win", ENTRY_TIES)
+def test_equal_entries_go_to_the_lower_cluster(z, boxes, winner, t_win):
+    """Two boxes entered at the same t are visited lower cluster index
+    first, as a stable sort orders them; the spheres lie before the boxes
+    (a graze, built), so the cluster visited first wins and the other,
+    its entry now beyond the best, is skipped."""
+    cs, ray, first = two_spheres_case(z, boxes)
+    stats = {}
+    t, best = cluster_sweep_plain(cs, *ray, T_MIN, stats)
+    assert (int(best[0]), float(t[0])) == (first[winner], t_win)
+    assert stats["cluster_visits"] == 1
+
+
+def test_nearest_first_tests_fewer_slots_than_layout_order(monkeypatch):
+    """On sphereflake(3)'s camera wave, per-ray nearest first tests fewer
+    slots than the first design's layout order (windows of one cluster,
+    each visited while its entry is at or below the best), for the same
+    winners and t's."""
+    scene = _scene("sphereflake-3")
+    st, lay = upload(scene)
+    ray = next(waves(scene, st))
+    t, best, stats = _slots_tested(st.cluster, ray)
+    t_l, best_l, stats_l = _slots_tested(st.cluster, ray, 1, monkeypatch)
+    assert torch.equal(t, t_l) and torch.equal(best, best_l)
+    near, layout = (int(x["prim_tests"].sum()) for x in (stats, stats_l))
+    assert near < layout, (near, layout)
+    assert stats["cluster_visits"] < stats_l["cluster_visits"]
+
+
+def test_prim_hit_t_takes_a_field_row_per_lane():
+    """``prim_hit_t`` on [lanes, width] fields (a cluster a lane, as the
+    plain sweep gathers them) equals it on each lane's [1, width] slice:
+    `final`'s moving-sphere run and its box run."""
+    scene = _scene("final")
+    st, lay = upload(scene)
+    cs = st.cluster
+    o, d, tm, _, bits = next(waves(scene, st))
+    lanes = torch.arange(0, o.shape[0], 37)
+    for g, r in zip(cs.runs, lay.runs):
+        first = r.base + (lanes % r.n_clusters) * r.width
+        idx = first[:, None] + torch.arange(r.width)
+        kw = dict(has_motion=g.motion, has_xform=g.xform,
+                  rect_axis=g.rect_axis)
+        bound = torch.full((lanes.numel(), 1), 3.0e38)
+        got = prim_hit_t(g.ptype, PrimFields(*(x[idx] for x in cs.prims)),
+                         o[lanes, None], d[lanes, None], tm[lanes, None],
+                         T_MIN, bound, bits[lanes, None], **kw)
+        for k, i in enumerate(lanes.tolist()):
+            s = int(first[k])
+            want = prim_hit_t(g.ptype, PrimFields(
+                *(x[None, s:s + r.width] for x in cs.prims)), o[i:i + 1, None],
+                d[i:i + 1, None], tm[i:i + 1, None], T_MIN, bound[k:k + 1],
+                bits[i:i + 1, None], **kw)
+            assert torch.equal(got[k:k + 1], want), (g.ptype, i)
+        assert (got < 3.0e38).any()
 
 
 def test_tie_goes_to_the_lowest_slot():
@@ -257,6 +379,10 @@ def test_plain_counts_the_tests_the_rays_need():
     tail = [s for s, w, *_ in lay.tail for s in range(s, s + w)]
     assert (stats["prim_tests"][tail] == m).all()
     assert 0 < int(stats["prim_tests"].sum()) < m * lay.n_slots
+    # A visit tests every slot of its cluster once.
+    firsts = [r.base + c * r.width for r in lay.runs
+              for c in range(r.n_clusters)]
+    assert stats["cluster_visits"] == int(stats["prim_tests"][firsts].sum())
 
 
 # --- modes, uploads, renders ---
@@ -271,9 +397,10 @@ def test_resolve_and_prepare_cluster_mode():
     assert st.mode == "cluster" and st.sweep is None and st.bvh is None
     assert st.fpack.shape[0] == lay.n_slots
     assert st.cluster.key is not None
-    # Passed by keyword, the same upload.
+    # Passed by keyword, the same upload (bit for bit: pads' geo is NaN).
     st2 = to_device(arrays, final.static, "cpu", clusters=lay)
-    assert torch.equal(st2.cluster.geo, st.cluster.geo)
+    assert torch.equal(st2.cluster.geo.view(torch.int32),
+                       st.cluster.geo.view(torch.int32))
     # An all-tail layout has no boxes and no coherence key.
     cornell = build_scene("cornell")
     st3, lay3 = upload(cornell)

@@ -37,6 +37,7 @@ from hyper_ray_tracer_tpu_torch.ops.bvh import (  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import (  # noqa: E402
     cluster_sweep,
     cluster_sweep_plain,
+    cut_run,
 )
 from hyper_ray_tracer_tpu_torch.ops.gather import (  # noqa: E402
     CHUNK,
@@ -80,6 +81,7 @@ from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     make_loss_fn,
     pixel_lanes,
 )
+from hyper_ray_tracer_tpu_torch.utils import cuda_build  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -867,8 +869,9 @@ def test_cluster_sweep_ragged_counts_and_inactive_rays(cuda, n):
 
 
 def test_cluster_sweep_runs_longer_than_a_staged_chunk(cuda, monkeypatch):
-    """A run of more clusters than K5 stages at once (kChunk, 1024): the
-    layout of sphereflake at 16 primitives a cluster (4,096 clusters)."""
+    """A run of MAX_CLUSTERS_PER_RUN clusters, 16 of K5's windows of 256
+    (and four of the first design's staged chunks of 1,024): the layout
+    of sphereflake at 16 primitives a cluster (4,096 clusters)."""
     import hyper_ray_tracer_tpu_torch.models.clusters as C
 
     monkeypatch.setattr(C, "CLUSTER_TARGET_PRIMS", 16)
@@ -878,6 +881,34 @@ def test_cluster_sweep_runs_longer_than_a_staged_chunk(cuda, monkeypatch):
     t_k, b_k, t_p, b_p = _cluster_both(st.cluster, s.o, s.d, s.time,
                                        s.alive, prng.bounce_base(s.base, 1))
     assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("n_clusters", [255, 256, 257, 1000, 4095])
+def test_cluster_sweep_ragged_last_window(cuda, monkeypatch, n_clusters):
+    """Runs cut short of a whole number of K5's windows of 256: the first
+    ``n_clusters`` clusters of the 4,096-cluster layout above."""
+    import hyper_ray_tracer_tpu_torch.models.clusters as C
+
+    monkeypatch.setattr(C, "CLUSTER_TARGET_PRIMS", 16)
+    scene, st = _cluster_scene("sphereflake", cuda)
+    cs = cut_run(st.cluster, n_clusters)
+    s = _rays(scene, st, 64, 36, cuda, 1)
+    t_k, b_k, t_p, b_p = _cluster_both(cs, s.o, s.d, s.time, s.alive,
+                                       prng.bounce_base(s.base, 1))
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_k >= 0).any()
+
+
+def test_cluster_sweep_equal_entries_go_to_the_lower_cluster(cuda):
+    from cluster_cases import ENTRY_TIES, two_spheres_case
+
+    for z, boxes, winner, t_win in ENTRY_TIES:
+        cs, ray, first = two_spheres_case(z, boxes)
+        cs = cs._replace(**{k: getattr(cs, k).to(cuda) for k in (
+            "tail_rows", "run_rows", "boxes", "geo", "aux", "tag", "xf",
+            "shutter")})
+        t, best = cluster_sweep(cs, *(x.to(cuda) for x in ray), T_MIN)
+        assert (int(best[0]), float(t[0])) == (first[winner], t_win)
 
 
 def test_cluster_sweep_tie_goes_to_the_lowest_slot(cuda):
@@ -902,6 +933,23 @@ def test_cluster_sweep_counter_and_validation(cuda):
         cluster_sweep(st.cluster, s.o.double(), s.d, s.time, s.alive, bits)
     with pytest.raises(ValueError, match="is on cpu"):
         cluster_sweep(st.cluster, s.o, s.d, s.time.cpu(), s.alive, bits)
+
+
+def test_cluster_sweep_window_is_the_plain_versions(cuda, monkeypatch):
+    """K5's kWindow equals WINDOW, and the wrapper refuses a kernel whose
+    window differs from the plain version's."""
+    import hyper_ray_tracer_tpu_torch.ops.cluster_sweep as k5
+
+    assert cuda_build.load("cluster_sweep").hrt_cluster_sweep_window() == \
+        k5.WINDOW
+    scene, st = _cluster_scene("cornell", cuda)
+    s = _rays(scene, st, 16, 9, cuda)
+    monkeypatch.setattr(k5, "WINDOW", k5.WINDOW // 2)
+    before = cluster_sweep.launches
+    with pytest.raises(RuntimeError, match="window"):
+        cluster_sweep(st.cluster, s.o, s.d, s.time, s.alive,
+                      prng.bounce_base(s.base, 0))
+    assert cluster_sweep.launches == before
 
 
 @pytest.mark.parametrize("name", ["random", "final", "cornell",
