@@ -52,7 +52,19 @@ by layer with K5 by bounce, the native and the NumPy BVH build and
 ``build_clusters`` timed), two goldens, the bench
 workload on `final` in cluster mode against phase 9's PNG, and a
 cluster-mode train step on `final` (two steps bit-equal, card against
-CPU gradients with the pads excluded).  Each
+CPU gradients with the pads excluded).  The partitioned sweep (phase
+25): K1b's masked form on `final`'s bench chunk (bounces 0-2) and K1's
+on `sphereflake`'s camera rays and their bounce 1 in sweep mode, each in
+launch and in category order, bit-equal to its twin and to the unmasked
+kernel, timed all three ways beside the pairs each folds and its bound;
+`sphereflake` rendered in sweep mode with and without the partition;
+`final`'s bench and the CLI default through the CLI with and without
+``--no-partition`` (PNGs byte-equal; which bounces partitioned and the
+probe's category counts), `final`'s render profiled by layer both ways;
+the train CLI on `final` at bench_grad.py's shape both ways (the losses
+bit-equal), two partitioned steps from one state, and card against CPU
+gradients of a partitioned step.  With the partition on by default,
+phases 4, 8, 9 and 12-13 run through it too.  Each
 phase prints one line; any failure ends the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
@@ -797,10 +809,10 @@ def upload(scene, dev, intersector="sweep"):
 
 
 def determinism_line(scene, dev, shape, intersector="sweep",
-                     silhouette=False):
+                     silhouette=False, partition=False):
     """Two adam train steps from one state (``train.snapshot`` and
     ``train.restore`` around each): the losses and every parameter's
-    gradient bit-equal (asserted)."""
+    gradient bit-equal (asserted).  ``partition``: make_train_step's."""
     from hyper_ray_tracer_tpu_torch.camera import make_basis
     from hyper_ray_tracer_tpu_torch.train import (
         make_train_step,
@@ -812,7 +824,7 @@ def determinism_line(scene, dev, shape, intersector="sweep",
     W, H, spp, depth = shape
     st, mode = upload(scene, dev, intersector)
     init, step = make_train_step(scene, W, H, depth, mode,
-                                 silhouette=silhouette)
+                                 silhouette=silhouette, partition=partition)
     state = init(st)
     start = snapshot(state)
     args = (st, make_basis(scene.camera, W, H), *pixel_lanes(W, H, spp, dev),
@@ -826,16 +838,19 @@ def determinism_line(scene, dev, shape, intersector="sweep",
     (loss_a, g_a), (loss_b, g_b) = runs
     differ = [k for k in g_a if not torch.equal(g_a[k], g_b[k])]
     assert torch.equal(loss_a, loss_b) and not differ, (scene.name, differ)
+    if partition:
+        assert any(step.schedule().decisions), scene.name
     nonzero = [k for k in g_a if g_a[k].abs().max() > 0]
     return (f"{scene.name}: loss {loss_a.item():.6f} both times, all "
             f"{len(g_a)} gradient keys bit-equal ({len(nonzero)} nonzero: "
             f"{', '.join(nonzero)})")
 
 
-def loss_and_grads(scene, device, W, H, spp, depth, intersector="sweep"):
+def loss_and_grads(scene, device, W, H, spp, depth, intersector="sweep",
+                   partition=False):
     """The port's loss and every parameter's gradient (zeros where the
     render never reads it), on the CPU, of ``make_loss_fn`` on
-    ``device`` against a constant target."""
+    ``device`` against a constant target (``partition``: its flag)."""
     from hyper_ray_tracer_tpu_torch.camera import make_basis
     from hyper_ray_tracer_tpu_torch.train import (
         extract_params,
@@ -848,19 +863,23 @@ def loss_and_grads(scene, device, W, H, spp, depth, intersector="sweep"):
               for k, v in extract_params(st.arrays).items()}
     pix, sam = pixel_lanes(W, H, spp, device)
     target = torch.full((W * H, 3), 0.25, device=device)
-    loss = make_loss_fn(scene, W, H, depth, mode)(
-        params, st, make_basis(scene.camera, W, H), pix, sam, 0, target)
+    loss_fn = make_loss_fn(scene, W, H, depth, mode, partition=partition)
+    loss = loss_fn(params, st, make_basis(scene.camera, W, H), pix, sam, 0,
+                   target)
+    if partition:
+        assert any(loss_fn.schedule().decisions), scene.name
     loss.backward()
     return loss.item(), {k: (torch.zeros_like(p) if p.grad is None
                              else p.grad).cpu() for k, p in params.items()}
 
 
 def card_grad_check(scene, dev, share, shape=(64, 36, 2, 4),
-                    intersector="sweep", test_rule=True):
+                    intersector="sweep", test_rule=True, partition=False):
     """Every gradient key and the loss on ``dev`` against the CPU's within
     ``share`` (CARD_GRAD_SHARE's rule); returns the phase's text."""
-    loss_c, g_c = loss_and_grads(scene, "cpu", *shape, intersector)
-    loss_g, g_g = loss_and_grads(scene, dev, *shape, intersector)
+    loss_c, g_c = loss_and_grads(scene, "cpu", *shape, intersector,
+                                 partition)
+    loss_g, g_g = loss_and_grads(scene, dev, *shape, intersector, partition)
     worst = {}
     for k, ref in g_c.items():
         assert torch.isfinite(g_g[k]).all(), (scene.name, k)
@@ -897,10 +916,10 @@ HAND_FWD = ("sphere_sweep_kernel", "typed_sweep_kernel",
 
 
 def train_run(scene, dev, shape, steps, reset_counts, counts,
-              intersector="sweep", silhouette=False):
-    """Adam train steps through ``make_train_step``: one warm-up, ``steps``
-    timed (the launch counts set to 0 before them and read after), then
-    one profiled.  Asserts every gradient finite; returns the times, the
+              intersector="sweep", silhouette=False, partition=False):
+    """Adam train steps through ``make_train_step`` (``partition``: its
+    flag): one warm-up, ``steps`` timed (the launch counts set to 0
+    before them and read after), then one profiled.  Asserts every gradient finite; returns the times, the
     losses, peak memory, launches, the largest |grad| of each key, the
     profiled step's device time by range, and the state and scene."""
     from torch.autograd import DeviceType
@@ -912,7 +931,7 @@ def train_run(scene, dev, shape, steps, reset_counts, counts,
     W, H, spp, depth = shape
     st, mode = upload(scene, dev, intersector)
     init, step = make_train_step(scene, W, H, depth, mode,
-                                 silhouette=silhouette)
+                                 silhouette=silhouette, partition=partition)
     state = init(st)
     basis = make_basis(scene.camera, W, H)
     pix, sam = pixel_lanes(W, H, spp, dev)
@@ -969,7 +988,11 @@ def train_run(scene, dev, shape, steps, reset_counts, counts,
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    sched = step.schedule()
     return dict(losses=losses, secs=secs, s=min(secs),
+                partitioned=([] if sched is None else
+                             [b for b, v in enumerate(sched.decisions)
+                              if v]),
                 mrays=W * H * spp / min(secs) / 1e6, peak=peak_gb,
                 launched=launched, gmax=gmax, busy=busy, span=span,
                 wall=wall, fwd=fwd, bwd=busy - fwd - opt, opt=opt,
@@ -986,7 +1009,8 @@ def train_line(name, shape, r):
             + f"), {r['mrays']:.4f} fwd+bwd camera Mrays/s, peak device "
             f"memory {r['peak']:.2f} GB, losses "
             + ", ".join(f"{x:.6f}" for x in r["losses"])
-            + f", launches {r['launched']}; profiled step: {r['kernels']} "
+            + f", launches {r['launched']}, bounces partitioned "
+            f"{r['partitioned']}; profiled step: {r['kernels']} "
             f"kernels busy {r['busy']:.3f} ms in a {r['span']:.3f} ms span "
             f"(idle {idle:.3f}; busy / wall {r['busy'] / r['wall']:.3f} of "
             f"{r['wall']:.3f} ms), forward {r['fwd']:.3f}, backward "
@@ -2289,6 +2313,339 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
     return line, record
 
 
+# Phase 25's shapes: `final`'s bench chunk (bounces 0-2 of K1b),
+# `sphereflake`'s camera rays in sweep mode (K1) and its sweep-mode render.
+PART_FINAL_SHAPE = (400, 225, 16)
+PART_FLAKE_RAYS = (1280, 720)
+PART_FLAKE_RENDER = (640, 360, 4)
+PART_RANDOM_ARGV = ()  # the CLI default
+
+
+def masked_fp_ops(sw, kinds, n, lanes):
+    """FP32 operations of a sweep over the plan of ``sw`` (a SweepScene) on
+    ``n`` active lanes of which ``lanes[i]`` fold group i's tiles: what the
+    partitioned twin folds, by the SWEEP_* counts (``sweep_fp_ops``'s, a
+    tile's pairs weighted by the lanes that fold it; a type's per-ray terms
+    and a shutter slot's factor once for every lane that folds some tile
+    needing them).  With every lane in every group it is n times
+    ``sweep_fp_ops``.  Returns (operations, ray-primitive pairs)."""
+    slot = sw.aux[:, 3].contiguous().view(torch.int32).cpu()
+    ops = pairs = 0
+    per_ray, slots = {}, {}
+    for tile in sw.plan:
+        m = n if tile.group < 0 else lanes[tile.group]
+        kind = kinds[tile.ptype]
+        pairs += m * tile.width
+        ops += m * tile.width * SWEEP_PAIR_OPS[kind]
+        if tile.xform:
+            ops += m * tile.width * (SWEEP_XFORM_OPS + SWEEP_RAY_OPS[kind])
+        else:
+            per_ray[kind] = max(per_ray.get(kind, 0),
+                                m * SWEEP_RAY_OPS[kind])
+        if tile.motion:
+            s = slot[tile.start:tile.start + tile.width]
+            ops += m * SWEEP_MOTION_OPS * int((s >= 0).sum())
+            for v in set(s[s >= 0].tolist()):
+                slots[v] = max(slots.get(v, 0), m)
+    return (ops + sum(per_ray.values())
+            + SWEEP_SHUTTER_OPS * sum(slots.values())), pairs
+
+
+def partitioned_sweep_case(label, kernel, plain, st, s, bits, kinds,
+                           groups_kw, reps):
+    """The partitioned form of one sweep (K1 when ``bits`` is None, else
+    K1b) on the wavefront ``s``: the lanes' group masks by the box test,
+    the kernel masked in launch order and in category order (the stable
+    sort of the render's compaction), held bit for bit to the masked twin
+    and to the unmasked kernel, and timed on the device all three ways;
+    the pairs each form folds (the twin's count) and its bound.  A lane's
+    fold is its own, so the twin in category order is the launch-order
+    twin permuted."""
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    G = len(st.groups)
+    mask = partition.group_mask(st.groups, s.o, s.d, st.group_aabbs)
+    idx = torch.sort((1 << G) - 1 - mask.int(), stable=True).indices
+
+    def args_of(order):
+        fields = [s.o, s.d, s.time, s.alive] + ([] if bits is None
+                                                else [bits])
+        if order is not None:
+            fields = [x[order] for x in fields]
+        fields = [x.contiguous() for x in fields]
+        head = (st.sweep,) if bits is not None else tuple(st.spheres)
+        return (*head, *fields, T_MIN)
+
+    args, args_c, mask_c = args_of(None), args_of(idx), mask[idx].contiguous()
+
+    def masked(*a):
+        return kernel(*a[:-1], mask=a[-1], **groups_kw)
+
+    t_u, b_u = kernel(*args)
+    t_m, b_m = masked(*args, mask)
+    t_c, b_c = masked(*args_c, mask_c)
+    torch.cuda.synchronize()
+    t_p, b_p = plain(*args, mask=mask, **groups_kw)
+    for what, t, b, t_r, b_r in (
+            ("launch order vs twin", t_m, b_m, t_p, b_p),
+            ("category order vs twin", t_c, b_c, t_p[idx], b_p[idx]),
+            ("launch order vs unmasked", t_m, b_m, t_u, b_u)):
+        assert torch.equal(t, t_r) and torch.equal(b, b_r), (label, what)
+    n = int(s.alive.sum())
+    lanes = [int(((mask & partition.group_bit(G, i)) != 0)[s.alive].sum())
+             for i in range(G)]
+    sw = st.sweep
+    ops_u, pairs_u = masked_fp_ops(sw, kinds, n, [n] * G)
+    ops_m, pairs_m = masked_fp_ops(sw, kinds, n, lanes)
+    n_all = s.o.shape[0]
+    lane_bytes = 45 if bits is not None else 37
+    return dict(
+        label=label, n=n_all, lanes=lanes, pairs_u=pairs_u, pairs_m=pairs_m,
+        ms_u=device_ms(kernel, args, reps),
+        ms_m=device_ms(masked, (*args, mask), reps),
+        ms_c=device_ms(masked, (*args_c, mask_c), reps),
+        bound_u=bound(n_all * lane_bytes, ops_u),
+        bound_m=bound(n_all * (lane_bytes + 1), ops_m))
+
+
+def partitioned_case_text(c):
+    return (f"{c['label']} (N={c['n']}, lanes meeting each group "
+            f"{c['lanes']}): pairs {c['pairs_m']:,} of {c['pairs_u']:,} "
+            f"({c['pairs_m'] / c['pairs_u']:.3f}); unmasked "
+            f"{c['ms_u']:.4f} ms, masked in launch order {c['ms_m']:.4f}, in "
+            f"category order {c['ms_c']:.4f} ({c['ms_c'] / c['ms_u']:.3f} "
+            f"of unmasked); bound unmasked {c['bound_u'][0]:.4f} ms "
+            f"({c['bound_u'][1]}), masked {c['bound_m'][0]:.4f} "
+            f"({c['bound_m'][1]}), category order at "
+            f"{c['bound_m'][0] / c['ms_c']:.3f} of it")
+
+
+def partition_phase(dev, kinds, reset_counts, counts, final_png,
+                    random_png):
+    """Phase 25: the partitioned sweep (the lanes' group masks in K1b and
+    K1, the category-ordered compaction, ``--no-partition``); each render's
+    bounces decided as the JAX package's rule decides on its probe's
+    counts.  K1b on
+    `final`'s bench chunk (400x225x16) bounces 0-2 and K1 on
+    `sphereflake`'s 921,600 camera rays and their bounce-1 wave in sweep
+    mode (``partitioned_sweep_case``); `sphereflake` rendered in sweep mode
+    with and without the partition; `final`'s bench and the CLI default
+    through the CLI with and without ``--no-partition`` (PNGs byte-equal
+    to each other and to phases 9 and 4's, which ran partitioned by
+    default; which bounces partitioned, the probe's category counts),
+    `final`'s render profiled by layer both ways; the train CLI on
+    `final` at bench_grad.py's shape both ways (the losses bit-equal),
+    two partitioned steps from one state, and card against CPU gradients
+    of a partitioned step.  Returns (the phase's line, the K1 and K1b
+    records' partitioned keys)."""
+    import contextlib
+    import io
+
+    from hyper_ray_tracer_tpu_torch import (
+        RenderSettings,
+        build_scene,
+        render_image,
+    )
+    from hyper_ray_tracer_tpu_torch import render as render_mod
+    from hyper_ray_tracer_tpu_torch.__main__ import main as cli_main
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import partition
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import (
+        sphere_sweep,
+        sphere_sweep_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        typed_sweep,
+        typed_sweep_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.render import (
+        WavefrontState,
+        bounce_step,
+        init_state,
+    )
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+    from hyper_ray_tracer_tpu_torch.train import main as train_main
+    from hyper_ray_tracer_tpu_torch.utils.image import read_png
+
+    t_phase = time.monotonic()
+
+    def waves(scene, st, W, H, spp, depth):
+        """The wavefronts of bounces 0..depth-1 (each bounce's survivors in
+        launch order), with their bounce words."""
+        ids = torch.arange(W * H * spp, dtype=torch.int64, device=dev)
+        s = init_state(make_basis(scene.camera, W, H), W, H, ids % (W * H),
+                       ids // (W * H), 0)
+        out = []
+        for b in range(depth):
+            out.append((s, prng.bounce_base(s.base, b)))
+            if b + 1 < depth:
+                s = bounce_step(st, scene.background, s, b)
+                keep = s.alive.nonzero().squeeze(1)
+                s = WavefrontState(*(x.index_select(0, keep) for x in s))
+        return out
+
+    # K1b on `final`'s bench chunk, bounces 0-2.
+    BW, BH, BSPP = PART_FINAL_SHAPE
+    final = build_scene("final")
+    final_t = to_device(final.arrays, final.static, dev)
+    k1b = [partitioned_sweep_case(
+        f"final bounce {b}", typed_sweep, typed_sweep_plain, final_t, s, bb,
+        kinds, {}, 20) for b, (s, bb) in enumerate(
+            waves(final, final_t, BW, BH, BSPP, 3))]
+    # K1 on `sphereflake` in sweep mode: camera rays and their bounce 1.
+    flake = build_scene("sphereflake")
+    flake_t = to_device(flake.arrays, flake.static, dev)
+    k1 = [partitioned_sweep_case(
+        f"sphereflake {'camera' if b == 0 else 'bounce 1'}", sphere_sweep,
+        sphere_sweep_plain, flake_t, s, None, kinds,
+        {"groups": flake_t.groups}, 5) for b, (s, _) in enumerate(
+            waves(flake, flake_t, *PART_FLAKE_RAYS, 1, 2))]
+    cases_s = time.monotonic() - t_phase
+
+    made = []  # every PartitionSchedule a render makes, in order
+
+    class Recorded(render_mod.PartitionSchedule):
+        def __init__(self, groups):
+            super().__init__(groups)
+            made.append(self)
+
+    def sched_text(sched):
+        on = [b for b, v in enumerate(sched.decisions) if v]
+        return (f"bounces partitioned {on}, the probe's category counts by "
+                f"bounce {sched.counts}")
+
+    real_schedule = render_mod.PartitionSchedule
+    render_mod.PartitionSchedule = Recorded
+    try:
+        # `sphereflake` in sweep mode, with and without the partition.
+        flake_r = {}
+        for flag in (True, False):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            img = render_image(flake, RenderSettings(
+                *PART_FLAKE_RENDER, 10, intersector="sweep", partition=flag),
+                dev)
+            flake_r[flag] = (time.monotonic() - t0, img,
+                             counts()["sphere_sweep"],
+                             sphere_sweep.partitioned)
+        assert np.array_equal(flake_r[True][1], flake_r[False][1])
+        assert flake_r[True][3] > 0 and flake_r[False][3] == 0, flake_r
+        flake_sched = made[-1]
+
+        # The CLI: `final`'s bench and the default, with and without
+        # --no-partition.
+        cli = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, argv in (
+                    ("final", ["--scene", "final", "--width", str(BW),
+                               "--height", str(BH), "--samples", str(BSPP),
+                               "--depth", "10"]),
+                    ("random", list(PART_RANDOM_ARGV))):
+                for flag in ("", "--no-partition"):
+                    out = Path(tmp) / f"{name}{flag}.png"
+                    n_made = len(made)
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.monotonic()
+                    rc = cli_main([*argv, *([flag] if flag else []),
+                                   "--output", str(out)])
+                    wall = time.monotonic() - t0
+                    assert rc == 0, (name, flag, rc)
+                    cli[name, flag] = dict(
+                        wall=wall, png=read_png(out), launches=counts(),
+                        partitioned=typed_sweep.partitioned
+                        + sphere_sweep.partitioned,
+                        sched=made[-1] if len(made) > n_made else None)
+    finally:
+        render_mod.PartitionSchedule = real_schedule
+    for name, ref in (("final", final_png), ("random", random_png)):
+        a, b = cli[name, ""], cli[name, "--no-partition"]
+        assert np.array_equal(a["png"], b["png"]), name
+        assert np.array_equal(a["png"], ref), name
+        assert b["sched"] is None and b["partitioned"] == 0, name
+    # Each bounce as the JAX package's rule decides on the probe's counts
+    # (`random`'s last bounces pass it at the CLI default's shape).
+    for name, n_prims in (("final", 1409), ("random", 486)):
+        sched = cli[name, ""]["sched"]
+        assert sched.decisions == [
+            c is not None and partition.worth(c, sched.groups, n_prims)
+            for c in sched.counts], (name, sched.decisions, sched.counts)
+        assert (cli[name, ""]["partitioned"] > 0) == any(sched.decisions)
+    assert any(cli["final", ""]["sched"].decisions)
+    profiles = [render_profile(dev, "final", RenderSettings(
+        BW, BH, BSPP, 10, partition=flag)) for flag in (True, False)]
+
+    # The train CLI on `final` at bench_grad.py's shape, both ways.
+    W, H, spp, depth = TRAIN_SHAPE
+    train = {}
+    for flag in ("", "--no-partition"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_main(["final", str(W), str(H), str(spp), str(depth),
+                             *([flag] if flag else [])])
+        assert rc == 0, f"train CLI exit code {rc}"
+        train[flag] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert train[""]["partition"] and train[""]["partitioned_bounces"]
+    assert not train["--no-partition"]["partition"]
+    assert train[""]["loss"] == train["--no-partition"]["loss"], train
+    det = determinism_line(final, dev, TRAIN_SHAPE, partition=True)
+    floor = partition.PART_MIN_LANES
+    partition.PART_MIN_LANES = 1024  # so that phase 11's shape partitions
+    try:
+        grads = card_grad_check(final, dev, CARD_GRAD_SHARE["final"],
+                                test_rule=False, partition=True)
+    finally:
+        partition.PART_MIN_LANES = floor
+    total_s = time.monotonic() - t_phase
+
+    def cli_text(name):
+        a, b = cli[name, ""], cli[name, "--no-partition"]
+        return (f"CLI {name}: wall {a['wall']:.3f} s partitioned, "
+                f"{b['wall']:.3f} s with --no-partition, PNGs byte-equal "
+                f"(and to phase {9 if name == 'final' else 4}'s); "
+                f"{sched_text(a['sched'])}; launches {a['launches']} "
+                f"({a['partitioned']} partitioned)")
+
+    line = (
+        "K1b masked vs its twin and vs unmasked K1b, bit-equal in t and "
+        "prim on every lane (asserted): "
+        + " | ".join(partitioned_case_text(c) for c in k1b)
+        + " | K1 likewise: " + " | ".join(partitioned_case_text(c)
+                                          for c in k1)
+        + " | sphereflake {}x{}x{} d10 in sweep mode: render_image ".format(
+            *PART_FLAKE_RENDER)
+        + f"{flake_r[True][0]:.3f} s partitioned ({flake_r[True][3]} of "
+        f"{flake_r[True][2]} K1 launches partitioned), "
+        f"{flake_r[False][0]:.3f} s plain, images equal; "
+        f"{sched_text(flake_sched)}"
+        f" | {cli_text('final')} | {cli_text('random')}"
+        f" | by layer, partitioned: {profiles[0]} | plain: {profiles[1]}"
+        f" | train CLI final {W}x{H}x{spp} d{depth}: "
+        f"{train['']['seconds_per_step']:.4f} s/step partitioned (bounces "
+        f"{train['']['partitioned_bounces']}), "
+        f"{train['--no-partition']['seconds_per_step']:.4f} s/step with "
+        f"--no-partition, loss {train['']['loss']!r} both (asserted equal)"
+        f" | partitioned steps: {det} | partitioned card vs CPU at 64x36 "
+        f"2spp d4 (lane floor 1024): {grads}"
+        f" | phase {total_s:.1f} s (its kernel cases {cases_s:.1f} s)")
+    rec = {
+        "typed_sweep": {
+            "partitioned_launches": cli["final", ""]["partitioned"],
+            "partitioned_ms": k1b[0]["ms_c"],
+            "partitioned_bound_ms": k1b[0]["bound_m"][0],
+            "partitioned_bound_by": k1b[0]["bound_m"][1],
+            "partitioned_unmasked_ms": k1b[0]["ms_u"]},
+        "sphere_sweep": {
+            "partitioned_launches": cli["random", ""]["partitioned"],
+            "partitioned_ms": k1[0]["ms_c"],
+            "partitioned_bound_ms": k1[0]["bound_m"][0],
+            "partitioned_bound_by": k1[0]["bound_m"][1],
+            "partitioned_unmasked_ms": k1[0]["ms_u"]}}
+    return line, rec
+
+
 # The record_function ranges of render.trace_paths, and the hand kernels
 # of a render by a substring of their names.
 LAYERS = ("raygen", "trace", "shade", "compaction")
@@ -2449,6 +2806,8 @@ def main(argv=None) -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for w in (sphere_sweep, typed_sweep):  # their partitioned form's
+            w.partitioned = 0
 
     def counts():
         return {name: w.launches for name, w in wrappers.items()}
@@ -2596,6 +2955,7 @@ def main(argv=None) -> int:
         assert random_launches["sphere_sweep"] > 0, \
             "the main path never launched sphere_sweep"
         png = read_png(out)
+        random_png = png
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     assert png.shape == (720, 1280, 3), png.shape
     lum = png.astype(np.float64).mean()
@@ -2879,10 +3239,11 @@ def main(argv=None) -> int:
           + "; ".join(card_grad_check(build_scene(name), dev, share)
                       for name, share in CARD_GRAD_SHARE.items()))
 
-    # Phases 12-13: the train step at bench_grad.py's workload, the counts
-    # set to 0 just before its timed steps and read just after.
+    # Phases 12-13: the train step at bench_grad.py's workload, partitioned
+    # as bench_grad.py's descent and the train CLI are by default, the
+    # counts set to 0 just before its timed steps and read just after.
     random_train = train_run(build_scene("random"), dev, TRAIN_SHAPE, 3,
-                             reset_counts, counts)
+                             reset_counts, counts, partition=True)
     for kname in ("sphere_sweep", "segment_sum"):
         assert random_train["launched"][kname] > 0, \
             f"the random train step missed {kname}"
@@ -2893,7 +3254,7 @@ def main(argv=None) -> int:
     phase(12, "train step " + train_line("random", TRAIN_SHAPE,
                                          random_train))
     final_train = train_run(final, dev, TRAIN_SHAPE, 3, reset_counts,
-                            counts)
+                            counts, partition=True)
     for kname in ("typed_sweep", "turbulence", "turbulence_bwd",
                   "segment_sum"):
         assert final_train["launched"][kname] > 0, \
@@ -3055,6 +3416,12 @@ def main(argv=None) -> int:
         resources(ptxas["cluster_sweep"]))
     phase(24, k5_text)
 
+    # Phase 25: the partitioned sweep (K1b's and K1's masked forms, the
+    # CLIs with and without --no-partition).
+    part_text, part_record = partition_phase(
+        dev, kinds, reset_counts, counts, final_sweep_png, random_png)
+    phase(25, part_text)
+
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/sphere_sweep.cu",
@@ -3062,14 +3429,14 @@ def main(argv=None) -> int:
          "launches": random_launches["sphere_sweep"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound[0], "bound_by": k1_bound[1],
-         "library_ms": None},
+         "library_ms": None, **part_record["sphere_sweep"]},
         {"name": "typed_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/typed_sweep.cu",
          "replaces": "hyper_ray_tracer_tpu/ops/bvh.py:273",
          "launches": final_launches["typed_sweep"],
          "max_abs_err": k1b_err, "ms": k1b_ms, "plain_ms": k1b_plain_ms,
          "bound_ms": k1b_bound_main[0], "bound_by": k1b_bound_main[1],
-         "library_ms": None},
+         "library_ms": None, **part_record["typed_sweep"]},
         {"name": "turbulence", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/turbulence.cu",
          "replaces": "tools/prof_tex.py:69",

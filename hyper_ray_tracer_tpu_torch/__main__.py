@@ -4,10 +4,12 @@ Keeps the reference's six flags and defaults (arguments.rs:21-47:
 --width 1280 --height 720 --samples 100 --depth 10 --tile-size 80
 --scene random) plus the JAX package's CLI extras under the same names
 and defaults: --output, --seed, --spp-chunk, --intersector, --leaf-size,
---checkpoint, --preview, --profile, --watch, --verbosity, --cpu, and the
-two it keeps for old command lines, --no-bvh (deprecated) and
---no-partition (the port never partitions).  The device is CUDA; without
-a card the program stops with an error unless ``--cpu`` asks for the
+--checkpoint, --preview, --profile, --watch, --verbosity, --no-partition,
+--cpu, and --no-bvh (deprecated, kept for old command lines).
+--no-partition runs every bounce's sweep plain; by default the sweep
+partitions the bounces where it pays (``RenderSettings.partition``), and
+the PNG is byte-identical either way.  The device is CUDA; without a
+card the program stops with an error unless ``--cpu`` asks for the
 plain-PyTorch CPU path.
 """
 
@@ -52,9 +54,11 @@ def main(argv=None) -> int:
                         help="Deprecated, and does nothing: auto picks the "
                              "mode (--intersector sweep forces the sweeps)")
     parser.add_argument("--no-partition", action="store_true",
-                        help="Accepted for the JAX CLI's sake: the port "
-                             "never partitions its sweep, so its renders "
-                             "are always the exact plain-sweep ones")
+                        help="Run every bounce's sweep plain.  By default "
+                             "the sweep mode partitions a scene's large "
+                             "primitive groups where that skips enough "
+                             "pairs; the image is bit-identical either "
+                             "way")
     parser.add_argument("--leaf-size", type=int, default=4,
                         help="Primitives per BVH leaf (1-8)")
     parser.add_argument("--checkpoint", default=None,
@@ -124,7 +128,7 @@ def main(argv=None) -> int:
             samples=eff["samples"], depth=eff["depth"], seed=eff["seed"],
             spp_chunk=eff["spp_chunk"], intersector=mode,
             leaf_size=args.leaf_size, checkpoint_path=args.checkpoint,
-            preview_path=args.preview)
+            preview_path=args.preview, partition=not args.no_partition)
         t0 = time.monotonic()
 
         def progress(done, total):

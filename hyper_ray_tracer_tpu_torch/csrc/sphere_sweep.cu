@@ -41,6 +41,9 @@
 // - stages kStage-sphere records in a double-buffered ring filled by
 //   cp.async, stage k + 1 in flight while stage k is folded; a scene with
 //   no moving sphere copies and reads only the geo half of each record.
+// The partitioned form (sweep_sphere.cuh): the stages are cut at the
+// groups' bounds, a block stages no group that none of its rays needs,
+// and in a group's stages the rays whose mask lacks the group are parked.
 // Registers, shared memory and spills per instantiation: the ptxas report
 // (chip_smoke.py phases 1 and 2).
 
@@ -60,31 +63,40 @@ sphere_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                     const float4* __restrict__ geo,
                     const float4* __restrict__ aux, int p,
                     const float2* __restrict__ shutter, float t_min,
+                    const hrt::GroupArgs groups,
                     float* __restrict__ t_out, int* __restrict__ best_out) {
   __shared__ float4 s_geo[2][kStage];
   __shared__ float4 s_aux[kMotion ? 2 : 1][kMotion ? kStage : 1];
+  using Cursor = hrt::Cursor<kStage>;
 
   hrt::Packet<R> pk;
   hrt::load_packet<R>(pk, o, d, active, n);
+  hrt::load_masks<R>(pk, groups.mask);
+  hrt::plan_segments(groups, p);
 
-  const int n_stages = (p + kStage - 1) / kStage;
-  auto stage = [&](int q) {  // issue the copies of stage q into slot q & 1
-    const int lo = q * kStage, count = min(kStage, p - lo), buf = q & 1;
+  auto stage = [&](const Cursor& c, int buf) {  // issue a stage's copies
+    const int lo = c.lo, count = c.hi() - lo;
     for (int j = threadIdx.x; j < count; j += kThreads) {
       hrt::cp_async16(&s_geo[buf][j], geo + lo + j);
       if constexpr (kMotion) hrt::cp_async16(&s_aux[buf][j], aux + lo + j);
     }
   };
-  stage(0);
+  Cursor cur = Cursor::first();
+  if (cur.valid()) stage(cur, 0);
   hrt::cp_async_commit();
   // Every thread, live or not, runs every stage: each has two barriers.
-  for (int q = 0; q < n_stages; ++q) {
-    if (q + 1 < n_stages) stage(q + 1);
+  for (int q = 0; cur.valid(); ++q) {
+    const int buf = q & 1;
+    {
+      const Cursor nxt = cur.next();
+      if (nxt.valid()) stage(nxt, buf ^ 1);
+    }
     hrt::cp_async_commit();  // possibly empty: keeps one group per stage
-    hrt::cp_async_wait<1>();  // stage q has landed (this thread's copies)
+    hrt::cp_async_wait<1>();  // this stage has landed (this thread's copies)
     __syncthreads();          // ... and every other thread's
-    if (pk.live) {
-      const int lo = q * kStage, count = min(kStage, p - lo), buf = q & 1;
+    const int group = cur.group();
+    if (pk.live && (group < 0 || hrt::park<R>(pk, groups, group))) {
+      const int lo = cur.lo, count = cur.hi() - lo;
 #pragma unroll 1
       for (int j = 0; j < count; ++j) {
         const float4 g = s_geo[buf][j];
@@ -92,8 +104,10 @@ sphere_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
         if constexpr (kMotion) m = s_aux[buf][j];
         hrt::fold_sphere<R, kMotion>(pk, g, m, lo + j, t_min, shutter, time);
       }
+      if (group >= 0) hrt::unpark<R>(pk);
     }
-    __syncthreads();  // slot q & 1 is read; stage q + 2 may overwrite it
+    __syncthreads();  // this slot is read; the stage after next may refill it
+    cur = cur.next();
   }
   hrt::store_packet<R>(pk, n, t_out, best_out);
 }
@@ -102,10 +116,12 @@ template <int R, bool kMotion>
 int launch(const float* o, const float* d, const float* time,
            const unsigned char* active, int n, const float4* geo,
            const float4* aux, int p, const float2* shutter, float t_min,
-           float* t_out, int* best_out, cudaStream_t stream) {
+           const hrt::GroupArgs& groups, float* t_out, int* best_out,
+           cudaStream_t stream) {
   const int blocks = (n + kThreads * R - 1) / (kThreads * R);
   sphere_sweep_kernel<R, kMotion><<<blocks, kThreads, 0, stream>>>(
-      o, d, time, active, n, geo, aux, p, shutter, t_min, t_out, best_out);
+      o, d, time, active, n, geo, aux, p, shutter, t_min, groups, t_out,
+      best_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -115,21 +131,32 @@ int launch(const float* o, const float* d, const float* time,
 // contiguous tensors: rays o, d [n,3], time [n] float32, active [n] (bool
 // as bytes); sphere records geo, aux [p] float4 and the shutter table
 // [slots] float2 (sweep_sphere.cuh; aux and shutter are read only when
-// has_motion); outputs t_out [n] float32 and best_out [n] int32.  Launches
-// on `stream` and returns cudaGetLastError() (0 on success); it never
-// synchronises.
+// has_motion); the partitioned form's lane masks [n] uint8 (nullptr for
+// the plain sweep) and n_groups <= 2 groups [g0_start, g0_end), [g1_start,
+// g1_end) (sweep_sphere.cuh); outputs t_out [n] float32 and best_out [n]
+// int32.  A mask without groups, or groups without a mask, is refused.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); it
+// never synchronises.
 extern "C" int hrt_sphere_sweep(const float* o, const float* d,
                                 const float* time,
                                 const unsigned char* active, int n,
                                 const float4* geo, const float4* aux, int p,
                                 const float2* shutter, int has_motion,
-                                float t_min, float* t_out, int* best_out,
-                                void* stream) {
-  if (n <= 0 || p <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                float t_min, const unsigned char* mask,
+                                int n_groups, int g0_start, int g0_end,
+                                int g1_start, int g1_end, float* t_out,
+                                int* best_out, void* stream) {
+  if (n <= 0 || p <= 0 || n_groups < 0 || n_groups > hrt::kMaxGroups ||
+      (mask == nullptr) != (n_groups == 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const hrt::GroupArgs groups{mask, n_groups, {g0_start, g1_start},
+                              {g0_end, g1_end}};
   const auto s = static_cast<cudaStream_t>(stream);
   return has_motion != 0
              ? launch<hrt::kRays, true>(o, d, time, active, n, geo, aux, p,
-                                        shutter, t_min, t_out, best_out, s)
+                                        shutter, t_min, groups, t_out,
+                                        best_out, s)
              : launch<hrt::kRays, false>(o, d, time, active, n, geo, aux, p,
-                                         shutter, t_min, t_out, best_out, s);
+                                         shutter, t_min, groups, t_out,
+                                         best_out, s);
 }

@@ -37,6 +37,21 @@
 // slot is the same for every thread of the block (every thread reads the
 // same record), so that branch never diverges.
 //
+// The partitioned form (ops/partition.py).  A lane carries a mask whose bit
+// G-1-i says that its segment may meet group i's box (G <= kMaxGroups
+// groups, each a range [start, end) of the primitives); the lane folds
+// group i's records only when that bit is set, and every other record as
+// before.  Each block cuts [0, p) at the groups' bounds into segments
+// (plan_segments), leaves out the segments of a group that no ray of the
+// block needs (__syncthreads_or of the rays' bits: no copy, no fold) and
+// stages the rest in order, a stage never crossing a segment's bound.  In
+// a group's stage a thread none of whose rays has the bit skips the fold;
+// otherwise the rays without it are parked for the stage (park): their
+// running best is -kBig, so no candidate passes their range test or
+// replaces their best, exactly as the plain version's update is masked
+// off for them, and it is restored after.  With no mask there is one
+// segment, [0, p).
+//
 // Rounding: every step is one IEEE round-to-nearest operation (__fadd_rn,
 // __fsub_rn, __fmul_rn, __fdiv_rn, __fsqrt_rn) in the plain version's
 // order, so nvcc cannot contract a * b + c into an FMA and no reciprocal
@@ -56,6 +71,8 @@ namespace hrt {
 
 constexpr int kThreads = 128;  // threads per block of both sweeps
 constexpr int kRays = 4;       // rays per thread, the packet size R
+constexpr int kMaxGroups = 2;  // partition groups (ops/partition.py)
+constexpr int kMaxSegments = 2 * kMaxGroups + 1;
 
 // Per-ray words in shared memory: ray r of this thread's packet at
 // word(r), so that a warp's accesses hit 32 banks.
@@ -68,6 +85,27 @@ __device__ __forceinline__ int word(int r) {
 // register; the running best t, which every second phase reads, stays in
 // registers.
 __shared__ int s_best[kRays * kThreads];
+
+// A parked ray's running best (park), at word(r).
+__shared__ float s_park[kRays * kThreads];
+// Each thread's rays' lane masks (load_masks), kept out of the registers.
+__shared__ unsigned s_masks[kThreads];
+
+// The partitioned form's arguments: each lane's mask [n] (nullptr for the
+// plain sweep) and the groups' ranges.
+struct GroupArgs {
+  const unsigned char* mask;
+  int n;  // groups, 0 with no mask
+  int start[kMaxGroups], end[kMaxGroups];
+};
+
+// The block's segments (plan_segments): [lo, hi) in order, each with its
+// group or -1.
+struct Segments {
+  int lo[kMaxSegments], hi[kMaxSegments], group[kMaxSegments];
+  int n;
+};
+__shared__ Segments s_seg;
 
 // 16-byte asynchronous copy global -> shared (cp.async.cg: through L2 only).
 __device__ __forceinline__ void cp_async16(float4* dst, const float4* src) {
@@ -140,6 +178,120 @@ __device__ __forceinline__ void store_packet(const Packet<R>& pk, int n,
       best_out[ray] = pk.on[r] ? s_best[word(r)] : -1;
     }
   }
+}
+
+// Each ray's lane mask into s_masks[threadIdx.x], 8 bits a ray (ray r's at
+// bit 8r), 0 for a ray that is off or with no mask.
+template <int R>
+__device__ __forceinline__ void load_masks(
+    const Packet<R>& pk, const unsigned char* __restrict__ mask) {
+  unsigned m = 0u;
+  if (mask != nullptr) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (pk.on[r])
+        m |= static_cast<unsigned>(mask[packet_ray<R>(r)]) << (8 * r);
+  }
+  s_masks[threadIdx.x] = m;
+}
+
+// Group i's bit in a lane's mask.
+__device__ __forceinline__ unsigned group_bit(const GroupArgs& g, int i) {
+  return 1u << (g.n - 1 - i);
+}
+
+// Whether some ray of this thread's packet has mask bit `bit`.
+__device__ __forceinline__ bool thread_has(unsigned masks, unsigned bit) {
+  return (masks & (bit * 0x01010101u)) != 0u;
+}
+
+// Cut [0, p) at the groups' bounds into s_seg, leaving out the segments of
+// a group that no ray of the block needs.  Every thread of the block calls
+// it, after load_masks; it ends on a barrier.
+__device__ __forceinline__ void plan_segments(const GroupArgs& g, int p) {
+  const unsigned masks = s_masks[threadIdx.x];
+  bool need[kMaxGroups];
+#pragma unroll
+  for (int i = 0; i < kMaxGroups; ++i)  // g.n is the same for every thread
+    need[i] = i < g.n && __syncthreads_or(thread_has(masks, group_bit(g, i)));
+  if (threadIdx.x == 0) {
+    int cuts[2 * kMaxGroups + 2];
+    int nc = 0;
+    cuts[nc++] = 0;
+    cuts[nc++] = p;
+    for (int i = 0; i < g.n; ++i) {
+      cuts[nc++] = min(max(g.start[i], 0), p);
+      cuts[nc++] = min(max(g.end[i], 0), p);
+    }
+    for (int i = 1; i < nc; ++i)  // insertion sort of at most 6
+      for (int j = i; j > 0 && cuts[j - 1] > cuts[j]; --j) {
+        const int c = cuts[j];
+        cuts[j] = cuts[j - 1];
+        cuts[j - 1] = c;
+      }
+    int n = 0;
+    for (int k = 0; k + 1 < nc; ++k) {
+      const int lo = cuts[k], hi = cuts[k + 1];
+      if (hi <= lo) continue;
+      int group = -1;
+      for (int i = 0; i < g.n; ++i)
+        if (g.start[i] <= lo && lo < g.end[i]) group = i;
+      if (group >= 0 && !need[group]) continue;
+      s_seg.lo[n] = lo;
+      s_seg.hi[n] = hi;
+      s_seg.group[n] = group;
+      ++n;
+    }
+    s_seg.n = n;
+  }
+  __syncthreads();
+}
+
+// A stage of the block's ring: [lo, hi()) of segment seg, at most kStage
+// records.
+template <int kStage>
+struct Cursor {
+  int seg, lo;
+  __device__ __forceinline__ static Cursor first() {
+    return Cursor{0, s_seg.n > 0 ? s_seg.lo[0] : 0};
+  }
+  __device__ __forceinline__ bool valid() const { return seg < s_seg.n; }
+  __device__ __forceinline__ int hi() const {
+    return min(lo + kStage, s_seg.hi[seg]);
+  }
+  __device__ __forceinline__ int group() const { return s_seg.group[seg]; }
+  __device__ __forceinline__ Cursor next() const {
+    const int h = hi();
+    if (h < s_seg.hi[seg]) return Cursor{seg, h};
+    return Cursor{seg + 1, seg + 1 < s_seg.n ? s_seg.lo[seg + 1] : 0};
+  }
+};
+
+// Before a stage of group `group`: whether this thread folds it (some ray
+// of its packet has the group's bit), and if so, park the rays whose mask
+// lacks the bit (see "The partitioned form").
+template <int R>
+__device__ __forceinline__ bool park(Packet<R>& pk, const GroupArgs& g,
+                                     int group) {
+  const unsigned masks = s_masks[threadIdx.x], bit = group_bit(g, group);
+  if (!thread_has(masks, bit)) return false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (((masks >> (8 * r)) & bit) == 0u) {
+      s_park[word(r)] = pk.t_best[r];
+      pk.t_best[r] = -kBig;
+    }
+  }
+  return true;
+}
+
+// After the stage: restore the parked rays, the only ones whose running
+// best is -kBig (a fold never lowers a best below t_min).
+template <int R>
+__device__ __forceinline__ void unpark(Packet<R>& pk) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (pk.t_best[r] == -kBig) pk.t_best[r] = s_park[word(r)];
 }
 
 // The lerp factor of every ray of the packet for shutter slot `slot`

@@ -70,6 +70,11 @@
 //   folded.  Stages are cut from the canonical order regardless of plan
 //   tiles: a stage folds the segments of every tile it overlaps, and a
 //   medium tile that spans stages keeps its start bound across them.
+// The partitioned form (sweep_sphere.cuh): the plan is cut at the groups'
+// bounds (a tile lies in one group at most), so are the stages; a block
+// stages and folds no group that none of its rays needs, and in a group's
+// stages the rays whose mask lacks the group are parked.  The plan walk
+// skips the tiles of a group that was left out.
 // Registers, shared memory and spills per instantiation: the ptxas report
 // (chip_smoke.py phases 1 and 5).
 
@@ -283,20 +288,24 @@ __device__ __forceinline__ void fold_segment(
   }
 }
 
-// Issue the cp.async copies of stage q (records [q * kStage, ...)) into
-// ring slot q & 1, walking the plan from tile `tile` (the first tile that
-// overlaps the stage; left at the first tile that overlaps the next).
-// Only the records a tile's type reads are copied.
+// Issue the cp.async copies of the stage [lo, hi) into ring slot buf,
+// walking the plan from tile `tile` (past the tiles that end at or before
+// lo, which a left-out group's stages skip; left at the first tile that
+// goes on past hi).  Only the records a tile's type reads are copied.
 __device__ __forceinline__ void stage_copy(
-    const Ring& ring, int q, int p, int& tile, const int4* __restrict__ plan,
-    int n_tiles, const float4* __restrict__ geo,
-    const float4* __restrict__ aux, const float4* __restrict__ xf) {
-  const int lo = q * kStage, hi = min(lo + kStage, p), buf = q & 1;
+    const Ring& ring, int lo, int hi, int buf, int& tile,
+    const int4* __restrict__ plan, int n_tiles,
+    const float4* __restrict__ geo, const float4* __restrict__ aux,
+    const float4* __restrict__ xf) {
   float4* sg = ring.geo + buf * kStage;
   float4* sa = ring.aux + buf * kStage;
   float4* sx = ring.xf + buf * 3 * kStage;
   while (tile < n_tiles) {
     const Tile t = load_tile(plan, tile);
+    if (t.start + t.width <= lo) {
+      ++tile;
+      continue;
+    }
     if (t.start >= hi) break;
     const int a = max(lo, t.start), b = min(hi, t.start + t.width);
     const bool need_aux = t.type != kSphere || t.motion;
@@ -309,21 +318,24 @@ __device__ __forceinline__ void stage_copy(
       for (int j = threadIdx.x; j < 3 * (b - a); j += kThreads)
         hrt::cp_async16(sx + 3 * (a - lo) + j, src + j);
     }
-    if (t.start + t.width > hi) break;  // the tile goes on in stage q + 1
+    if (t.start + t.width > hi) break;  // the tile goes on in the next stage
     ++tile;
   }
 }
 
-// Fold ring slot q & 1 (stage q) into the packet, tile segment by tile
-// segment, from tile `tile` on (left as in stage_copy).
+// Fold ring slot buf (the stage [lo, hi)) into the packet, tile segment by
+// tile segment, from tile `tile` on (walked as in stage_copy).
 template <int R>
 __device__ __forceinline__ void fold_stage(
-    hrt::Packet<R>& pk, const RayInputs& in, const Ring& ring, int q, int p,
-    int& tile, const int4* __restrict__ plan, int n_tiles, float t_min,
-    const float2* __restrict__ shutter) {
-  const int lo = q * kStage, hi = min(lo + kStage, p), buf = q & 1;
+    hrt::Packet<R>& pk, const RayInputs& in, const Ring& ring, int lo,
+    int hi, int buf, int& tile, const int4* __restrict__ plan, int n_tiles,
+    float t_min, const float2* __restrict__ shutter) {
   while (tile < n_tiles) {
     const Tile t = load_tile(plan, tile);
+    if (t.start + t.width <= lo) {
+      ++tile;
+      continue;
+    }
     if (t.start >= hi) break;
     if (t.start >= lo && (t.type == kMediumSphere || t.type == kMediumBox)) {
       // A medium tile begins here: scan_all's stale t_max.
@@ -370,7 +382,7 @@ __device__ __forceinline__ void fold_stage(
         break;
     }
 #undef HRT_FOLD
-    if (t.start + t.width > hi) break;  // the tile goes on in stage q + 1
+    if (t.start + t.width > hi) break;  // the tile goes on in the next stage
     ++tile;
   }
 }
@@ -386,31 +398,46 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float4* __restrict__ xf,
                    const int4* __restrict__ plan, int n_tiles, int p,
                    const float2* __restrict__ shutter, float t_min,
+                   const hrt::GroupArgs groups,
                    float* __restrict__ t_out, int* __restrict__ best_out) {
   extern __shared__ float4 smem[];
   // xf points past the geo and aux slots; with no transformed tile it is
   // never written or read.
   const Ring ring{smem, smem + 2 * kStage, smem + 4 * kStage};
+  using Cursor = hrt::Cursor<kStage>;
 
   hrt::Packet<R> pk;
   hrt::load_packet<R>(pk, o, d, active, n);
+  hrt::load_masks<R>(pk, groups.mask);
+  hrt::plan_segments(groups, p);
   const RayInputs in{time, bits};
 
-  const int n_stages = (p + kStage - 1) / kStage;
   int copy_tile = 0, fold_tile = 0;
-  stage_copy(ring, 0, p, copy_tile, plan, n_tiles, geo, aux, xf);
+  Cursor cur = Cursor::first();
+  if (cur.valid())
+    stage_copy(ring, cur.lo, cur.hi(), 0, copy_tile, plan, n_tiles, geo,
+               aux, xf);
   hrt::cp_async_commit();
   // Every thread, live or not, runs every stage: each has two barriers.
-  for (int q = 0; q < n_stages; ++q) {
-    if (q + 1 < n_stages)
-      stage_copy(ring, q + 1, p, copy_tile, plan, n_tiles, geo, aux, xf);
+  for (int q = 0; cur.valid(); ++q) {
+    const int buf = q & 1;
+    {
+      const Cursor nxt = cur.next();
+      if (nxt.valid())
+        stage_copy(ring, nxt.lo, nxt.hi(), buf ^ 1, copy_tile, plan,
+                   n_tiles, geo, aux, xf);
+    }
     hrt::cp_async_commit();  // possibly empty: keeps one group per stage
-    hrt::cp_async_wait<1>();  // stage q has landed (this thread's copies)
+    hrt::cp_async_wait<1>();  // this stage has landed (this thread's copies)
     __syncthreads();          // ... and every other thread's
-    if (pk.live)
-      fold_stage(pk, in, ring, q, p, fold_tile, plan, n_tiles, t_min,
-                 shutter);
-    __syncthreads();  // slot q & 1 is read; stage q + 2 may overwrite it
+    const int group = cur.group();
+    if (pk.live && (group < 0 || hrt::park<R>(pk, groups, group))) {
+      fold_stage(pk, in, ring, cur.lo, cur.hi(), buf, fold_tile, plan,
+                 n_tiles, t_min, shutter);
+      if (group >= 0) hrt::unpark<R>(pk);
+    }
+    __syncthreads();  // this slot is read; the stage after next may refill it
+    cur = cur.next();
   }
   hrt::store_packet<R>(pk, n, t_out, best_out);
 }
@@ -420,13 +447,13 @@ int launch(const float* o, const float* d, const float* time,
            const unsigned char* active, const long long* bits, int n,
            const float4* geo, const float4* aux, const float4* xf,
            const int4* plan, int n_tiles, int p, const float2* shutter,
-           bool has_xf, float t_min, float* t_out, int* best_out,
-           cudaStream_t stream) {
+           bool has_xf, float t_min, const hrt::GroupArgs& groups,
+           float* t_out, int* best_out, cudaStream_t stream) {
   const size_t smem = sizeof(float4) * kStage * (has_xf ? 10 : 4);
   const int blocks = (n + kThreads * R - 1) / (kThreads * R);
   typed_sweep_kernel<R><<<blocks, kThreads, smem, stream>>>(
       o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p, shutter,
-      t_min, t_out, best_out);
+      t_min, groups, t_out, best_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -436,23 +463,32 @@ int launch(const float* o, const float* d, const float* time,
 // contiguous tensors: rays o, d [n,3], time [n] float32, active [n] (bool
 // as bytes), bits [n] int64 words; records geo, aux [p] float4, xf
 // [x,3] float4 (the transformed tiles' primitives), plan [n_tiles,8]
-// int32 (start, width, type, motion, transform, rect axis, xf offset, 0),
-// the shutter table [slots] float2; outputs t_out [n] float32 and
-// best_out [n] int32.  has_xf: some tile is transformed.  Launches on
-// `stream` and returns cudaGetLastError() (0 on success); it never
-// synchronises.
+// int32 (start, width, type, motion, transform, rect axis, xf offset,
+// group), the shutter table [slots] float2; the partitioned form's lane
+// masks [n] uint8 (nullptr for the plain sweep) and n_groups <= 2 groups
+// [g0_start, g0_end), [g1_start, g1_end) (sweep_sphere.cuh; the plan's
+// tiles are cut at their bounds); outputs t_out [n] float32 and best_out
+// [n] int32.  has_xf: some tile is transformed.  A mask without groups,
+// or groups without a mask, is refused.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); it never synchronises.
 extern "C" int hrt_typed_sweep(const float* o, const float* d,
                                const float* time, const unsigned char* active,
                                const long long* bits, int n,
                                const float4* geo, const float4* aux,
                                const float4* xf, const int* plan,
                                int n_tiles, int p, const float2* shutter,
-                               int has_xf, float t_min, float* t_out,
-                               int* best_out, void* stream) {
-  if (n <= 0 || n_tiles <= 0 || p <= 0)
+                               int has_xf, float t_min,
+                               const unsigned char* mask, int n_groups,
+                               int g0_start, int g0_end, int g1_start,
+                               int g1_end, float* t_out, int* best_out,
+                               void* stream) {
+  if (n <= 0 || n_tiles <= 0 || p <= 0 || n_groups < 0 ||
+      n_groups > hrt::kMaxGroups || (mask == nullptr) != (n_groups == 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  const hrt::GroupArgs groups{mask, n_groups, {g0_start, g1_start},
+                              {g0_end, g1_end}};
   return launch<hrt::kRays>(o, d, time, active, bits, n, geo, aux, xf,
                             reinterpret_cast<const int4*>(plan), n_tiles, p,
-                            shutter, has_xf != 0, t_min, t_out, best_out,
-                            static_cast<cudaStream_t>(stream));
+                            shutter, has_xf != 0, t_min, groups, t_out,
+                            best_out, static_cast<cudaStream_t>(stream));
 }

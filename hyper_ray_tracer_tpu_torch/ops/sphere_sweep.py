@@ -22,7 +22,11 @@ rays ``o`` [N,3], unnormalised ``d`` [N,3], ``time`` [N] float32 and
 ``radius`` [P] float32.
 Returns ``t_best`` [N] float32 and ``best`` [N] int32: the closest hit in
 [t_min, inf) and its sphere index, ties to the lowest index, (BIG, -1) for
-a miss or an inactive ray.
+a miss or an inactive ray.  The partitioned form (``mask``, ``groups``:
+at most 2 partition groups of ``ops/partition.py``, each lane's uint8
+mask with bit G-1-i for group i): a lane folds group i's spheres only
+when its mask has that bit, and every other sphere as before; since the
+masks are conservative, it returns what the plain form does.
 
 The two agree bit for bit: the kernel performs the plain version's IEEE
 operations in the same order, with no FMA contraction and true divisions.
@@ -43,6 +47,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils import cuda_build
 from .intersect import BIG, PrimFields, sphere_t
+from .partition import check_mask, group_bit, group_bounds
 
 PLAIN_TILE = 128  # spheres per step of the plain version
 
@@ -119,27 +124,49 @@ def device_sphere_records(p0, p1, time0, time1, radius):
     return rec
 
 
+def _segments(p: int, groups):
+    """[0, p) cut at the bounds of ``groups``: (start, end, group index or
+    -1) in order."""
+    cuts = sorted({0, p} | {c for g in groups for c in (g.start, g.end)
+                            if 0 < c < p})
+    return [(a, b, next((i for i, g in enumerate(groups)
+                         if g.start <= a < g.end), -1))
+            for a, b in zip(cuts[:-1], cuts[1:])]
+
+
 def sphere_sweep_plain(p0, p1, time0, time1, radius, o, d, time, active,
-                       t_min: float = 1.0e-3):
+                       t_min: float = 1.0e-3, mask=None, groups=()):
     """Plain-torch sweep; the fold is ``scan_all``'s: per tile of spheres,
     candidate t's against the running best as inclusive bound, the first
-    in-tile minimum, and a strict < across tiles."""
+    in-tile minimum, and a strict < across tiles.  The partitioned form
+    (``mask`` uint8 [N] with ``groups``, ``ops/partition.py``): the tiles
+    are cut at the groups' bounds, and a tile of group i updates only the
+    lanes whose mask has group i's bit."""
     n = o.shape[0]
+    check_mask("sphere_sweep_plain", mask, groups, n)
     t_best = torch.where(active, BIG, -BIG).to(torch.float32)
     best = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     o_b, d_b, time_b = o[:, None, :], d[:, None, :], time[:, None]
-    for start in range(0, p0.shape[0], PLAIN_TILE):
-        sl = slice(start, start + PLAIN_TILE)
-        pf = PrimFields(p0=p0[None, sl], p1=p1[None, sl],
-                        radius=radius[None, sl],
-                        time0=time0[None, sl], time1=time1[None, sl])
-        # has_motion=True is exact for static spheres too: p1 - p0 == 0.
-        t = sphere_t(pf, o_b, d_b, time_b, t_min, t_best[:, None],
-                     has_motion=True)  # [N, tile]
-        tt, j = torch.min(t, dim=1)  # first index of the minimum
-        upd = tt < t_best
-        t_best = torch.where(upd, tt, t_best)
-        best = torch.where(upd, (start + j).to(torch.int32), best)
+    p = p0.shape[0]
+    for a, b, group in (_segments(p, groups) if mask is not None
+                        else [(0, p, -1)]):
+        lanes = None
+        if group >= 0:
+            lanes = (mask & group_bit(len(groups), group)) != 0
+        for start in range(a, b, PLAIN_TILE):
+            sl = slice(start, min(start + PLAIN_TILE, b))
+            pf = PrimFields(p0=p0[None, sl], p1=p1[None, sl],
+                            radius=radius[None, sl],
+                            time0=time0[None, sl], time1=time1[None, sl])
+            # has_motion=True is exact for static spheres too: p1 - p0 == 0.
+            t = sphere_t(pf, o_b, d_b, time_b, t_min, t_best[:, None],
+                         has_motion=True)  # [N, tile]
+            tt, j = torch.min(t, dim=1)  # first index of the minimum
+            upd = tt < t_best
+            if lanes is not None:
+                upd = upd & lanes
+            t_best = torch.where(upd, tt, t_best)
+            best = torch.where(upd, (start + j).to(torch.int32), best)
     return torch.where(active, t_best, BIG), best
 
 
@@ -147,30 +174,39 @@ def _bind(lib):
     fn = lib.hrt_sphere_sweep
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [ptr, ptr, ptr, ptr, c_int, ptr, ptr, c_int, ptr, c_int,
-                   ctypes.c_float, ptr, ptr, ptr]
+                   ctypes.c_float, ptr, c_int, c_int, c_int, c_int, c_int,
+                   ptr, ptr, ptr]
     fn.restype = c_int
     return fn
 
 
 def sphere_sweep(p0, p1, time0, time1, radius, o, d, time, active,
-                 t_min: float = 1.0e-3):
+                 t_min: float = 1.0e-3, mask=None, groups=()):
     """Closest sphere hit per ray.  A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel (building it on first use) or
-    raises.  Counts its kernel launches in ``sphere_sweep.launches``."""
+    raises.  ``mask`` / ``groups``: the partitioned form (see
+    ``sphere_sweep_plain``); one without the other raises.  Counts its
+    kernel launches in ``sphere_sweep.launches``, those of the
+    partitioned form also in ``sphere_sweep.partitioned``."""
     device = o.device
+    n, p = o.shape[0], p0.shape[0]
+    check_mask("sphere_sweep", mask, groups, n)
+    if groups and mask is None:
+        raise ValueError("sphere_sweep: partition groups without a mask")
     if device.type == "cpu":
         return sphere_sweep_plain(p0, p1, time0, time1, radius, o, d, time,
-                                  active, t_min)
+                                  active, t_min, mask, groups)
     if device.type != "cuda":
         raise ValueError(f"sphere_sweep: unsupported device {device}")
-    n, p = o.shape[0], p0.shape[0]
     f32 = torch.float32
     for name, x, shape, dtype in (
             ("o", o, (n, 3), f32), ("d", d, (n, 3), f32),
             ("time", time, (n,), f32), ("active", active, (n,), torch.bool),
             ("p0", p0, (p, 3), f32), ("p1", p1, (p, 3), f32),
             ("time0", time0, (p,), f32), ("time1", time1, (p,), f32),
-            ("radius", radius, (p,), f32)):
+            ("radius", radius, (p,), f32),
+            *((("mask", mask, (n,), torch.uint8),) if mask is not None
+              else ())):
         cuda_build.check_arg("sphere_sweep", name, x, shape, dtype, device)
     if p == 0:
         raise ValueError("sphere_sweep: no spheres")
@@ -187,9 +223,14 @@ def sphere_sweep(p0, p1, time0, time1, radius, o, d, time, active,
         "sphere_sweep", fn, device, o.data_ptr(), d.data_ptr(),
         time.data_ptr(), active.data_ptr(), n, rec.geo.data_ptr(),
         rec.aux.data_ptr(), p, rec.shutter.data_ptr(), int(rec.has_motion),
-        float(t_min), t_best.data_ptr(), best.data_ptr())
+        float(t_min), None if mask is None else mask.data_ptr(),
+        len(groups), *group_bounds(groups), t_best.data_ptr(),
+        best.data_ptr())
     sphere_sweep.launches += 1
+    if mask is not None:
+        sphere_sweep.partitioned += 1
     return t_best, best
 
 
 sphere_sweep.launches = 0
+sphere_sweep.partitioned = 0  # of which in the partitioned form

@@ -33,6 +33,18 @@ Rays: ``o``, ``d`` [N,3] and ``time`` [N] float32, ``active`` [N] bool,
 ``bits`` [N] int64 bounce words (values below 2**32).  Returns ``t_best``
 [N] float32 and ``best`` [N] int32, (BIG, -1) for a miss or an inactive
 ray.  The two implementations agree bit for bit.
+
+The partitioned form (``mask``, the partitioned sweep of
+``ops/partition.py``): the plan is cut at the bounds of the scene's
+partition groups (``SweepScene.groups``, at most 2), each tile tagged
+with its group, and each lane carries a uint8 mask whose bit G-1-i says
+that it may meet group i.  A lane folds group i's tiles only when that
+bit is set; every other tile it folds as before (tiles outside every
+group, media with their tile-start bound, ties to the lowest index).
+``mask=None`` is the plain sweep.  A mask on a scene without groups
+raises.  Since a lane whose mask lacks a group's bit cannot hit that
+group (``overlap_masks`` is conservative), the partitioned form returns
+what the plain form does on every lane.
 """
 
 from __future__ import annotations
@@ -53,13 +65,14 @@ from ..models.scene import (
     PT_SPHERE,
 )
 from .intersect import BIG, PrimFields, prim_hit_t
+from .partition import check_mask, group_bit, group_bounds
 from .sphere_sweep import sphere_records
 
 SCAN_TILE = 512  # primitives per plan tile (the JAX package's tile width)
 PLAIN_TILE = 128  # primitives per step of the plain version
 # A plan row as the kernel reads it: 8 int32 (two int4 loads).
 PLAN_COLUMNS = ("start", "width", "ptype", "motion", "xform", "rect_axis",
-                "xf_offset", "pad")
+                "xf_offset", "group")
 
 
 def _prim_flags(geom, n_prims: int):
@@ -101,21 +114,24 @@ def type_runs(geom, n_prims: int):
     return runs
 
 
-def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE):
-    """The plan of the sweep: each of ``type_runs``' runs cut to
-    ``max_tile`` primitives, each tile with its own motion and transform
-    flags.  The JAX package's ``ops/bvh.py:_tile_plan`` (without
-    partition cuts), copied.  Returns [(start, width, types, motion,
-    xform, rect_axis)] covering [0, n_prims).  Unlike the JAX package,
-    the port always follows the plan (it is data, not unrolled code),
-    however many tiles it has."""
+def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE, cuts=()):
+    """The plan of the sweep: each of ``type_runs``' runs cut at the
+    primitive indices ``cuts`` (the partition groups' bounds: a tile
+    belongs to at most one group) and into tiles of at most ``max_tile``
+    primitives, each tile with its own motion and transform flags.  The
+    JAX package's ``ops/bvh.py:_tile_plan``, copied.  Returns [(start,
+    width, types, motion, xform, rect_axis)] covering [0, n_prims).
+    Unlike the JAX package, the port always follows the plan (it is
+    data, not unrolled code), however many tiles it has."""
     _, _, has_xf, moving, _ = _prim_flags(geom, n_prims)
     plan = []
     for a, b, types, _, _, rect_axis in type_runs(geom, n_prims):
-        for s in range(a, b, max_tile):
-            sl = slice(s, min(s + max_tile, b))
-            plan.append((s, sl.stop - s, types, bool(moving[sl].any()),
-                         bool(has_xf[sl].any()), rect_axis))
+        bounds = sorted({a, b} | {c for c in cuts if a < c < b})
+        for a2, b2 in zip(bounds[:-1], bounds[1:]):
+            for s in range(a2, b2, max_tile):
+                sl = slice(s, min(s + max_tile, b2))
+                plan.append((s, sl.stop - s, types, bool(moving[sl].any()),
+                             bool(has_xf[sl].any()), rect_axis))
     return plan
 
 
@@ -126,6 +142,7 @@ class PlanTile(NamedTuple):
     motion: bool
     xform: bool
     rect_axis: int  # plane tag of a rect tile, else -1
+    group: int = -1  # the partition group the tile belongs to, else -1
 
 
 class SweepScene(NamedTuple):
@@ -138,6 +155,9 @@ class SweepScene(NamedTuple):
     aux: torch.Tensor  # [P, 4] float32
     xf: torch.Tensor  # [X, 12] float32, the transformed tiles' primitives
     shutter: torch.Tensor  # [S, 2] float32 (time0, time1 - time0) per slot
+    # The partition groups (ops/partition.PartGroup) whose bounds cut the
+    # plan; the tiles of group i carry group = i.
+    groups: tuple = ()
 
 
 def prim_records(geom_np, n_prims: int, lerp):
@@ -198,7 +218,7 @@ def typed_records(geom_np, plan, n_prims: int):
     n_xf = 0
     for t in plan:
         rows.append([t.start, t.width, t.ptype, int(t.motion), int(t.xform),
-                     t.rect_axis, n_xf if t.xform else 0, 0])
+                     t.rect_axis, n_xf if t.xform else 0, t.group])
         if t.xform:
             xf.append(xform[t.start:t.start + t.width])
             n_xf += t.width
@@ -207,27 +227,33 @@ def typed_records(geom_np, plan, n_prims: int):
             np.ascontiguousarray(xf, np.float32), shutter)
 
 
-def sweep_plan(geom_np, n_prims: int) -> tuple:
-    """The plan of ``tile_plan`` as PlanTiles (every tile of one type)."""
+def sweep_plan(geom_np, n_prims: int, groups=()) -> tuple:
+    """The plan of ``tile_plan`` as PlanTiles (every tile of one type),
+    cut at the bounds of the partition groups ``groups`` and each tile
+    tagged with the group it lies in."""
+    cuts = tuple(c for g in groups for c in (g.start, g.end))
     plan = []
-    for s, w, types, motion, xform, rect_axis in tile_plan(geom_np,
-                                                           n_prims):
+    for s, w, types, motion, xform, rect_axis in tile_plan(
+            geom_np, n_prims, cuts=cuts):
         if len(types) != 1:
             raise ValueError(f"plan tile at {s} holds types {set(types)}")
+        group = next((i for i, g in enumerate(groups)
+                      if g.start <= s < g.end), -1)
         plan.append(PlanTile(s, w, next(iter(types)), motion, xform,
-                             -1 if rect_axis is None else rect_axis))
+                             -1 if rect_axis is None else rect_axis, group))
     return tuple(plan)
 
 
-def sweep_scene(geom_np, geom, n_prims: int, plan=None) -> SweepScene:
+def sweep_scene(geom_np, geom, n_prims: int, plan=None,
+                groups=()) -> SweepScene:
     """Build the kernel's records from the NumPy geometry ``geom_np`` and
     slice the device tensors ``geom`` (the same GeometrySoA as tensors).
     ``plan``: the PlanTiles to follow, by default ``sweep_plan`` of
-    ``geom_np``; a train step passes the plan of the scene as built, so
-    that each tile keeps its motion and transform flags while the
-    geometry moves."""
+    ``geom_np`` cut at the partition groups ``groups``; a train step
+    passes the plan of the scene as built, so that each tile keeps its
+    motion and transform flags while the geometry moves."""
     if plan is None:
-        plan = sweep_plan(geom_np, n_prims)
+        plan = sweep_plan(geom_np, n_prims, groups)
     device = geom.p0.device
     rows, geo, aux, xf, shutter = (
         torch.from_numpy(x).to(device)
@@ -241,15 +267,19 @@ def sweep_scene(geom_np, geom, n_prims: int, plan=None) -> SweepScene:
         rot=geom.rot[:n_prims], trans=geom.trans[:n_prims])
     prims = PrimFields(*(x.contiguous() for x in prims))
     return SweepScene(plan=tuple(plan), plan_rows=rows, prims=prims,
-                      geo=geo, aux=aux, xf=xf, shutter=shutter)
+                      geo=geo, aux=aux, xf=xf, shutter=shutter,
+                      groups=tuple(groups))
 
 
 def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
-                      t_min: float = 1.0e-3):
+                      t_min: float = 1.0e-3, mask=None):
     """Plain-torch typed sweep: ``scan_all``'s fold over the plan tiles,
     each tile in steps of ``PLAIN_TILE`` primitives so memory stays
-    bounded (the steps of one tile share its start bound)."""
+    bounded (the steps of one tile share its start bound).  ``mask``
+    (uint8 [N], ``ops/partition.group_mask``): a tile of group i updates
+    only the lanes whose mask has group i's bit."""
     n = o.shape[0]
+    check_mask("typed_sweep_plain", mask, sw.groups, n)
     t_best = torch.where(active, BIG, -BIG).to(torch.float32)
     best = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     o_b, d_b, time_b, bits_b = o[:, None], d[:, None], time[:, None], \
@@ -257,6 +287,9 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
     for tile in sw.plan:
         bound = t_best[:, None]  # the tile's stale t_max
         end = tile.start + tile.width
+        lanes = None
+        if mask is not None and tile.group >= 0:
+            lanes = (mask & group_bit(len(sw.groups), tile.group)) != 0
         for s in range(tile.start, end, PLAIN_TILE):
             sl = slice(s, min(s + PLAIN_TILE, end))
             pf = PrimFields(*(x[None, sl] for x in sw.prims))
@@ -267,6 +300,8 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
                            else tile.rect_axis)
             tt, j = torch.min(t, dim=1)  # first index of the minimum
             upd = tt < t_best
+            if lanes is not None:
+                upd = upd & lanes
             t_best = torch.where(upd, tt, t_best)
             best = torch.where(upd, (s + j).to(torch.int32), best)
     return torch.where(active, t_best, BIG), best
@@ -276,24 +311,28 @@ def _bind(lib):
     fn = lib.hrt_typed_sweep
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([ptr] * 5 + [c_int] + [ptr] * 4 + [c_int, c_int, ptr]
-                   + [c_int, ctypes.c_float, ptr, ptr, ptr])
+                   + [c_int, ctypes.c_float, ptr, c_int] + [c_int] * 4
+                   + [ptr, ptr, ptr])
     fn.restype = c_int
     return fn
 
 
 def typed_sweep(sw: SweepScene, o, d, time, active, bits,
-                t_min: float = 1.0e-3):
+                t_min: float = 1.0e-3, mask=None):
     """Closest hit per ray over every primitive type.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (building it on
-    first use) or raises.  Counts its kernel launches in
-    ``typed_sweep.launches``."""
+    first use) or raises.  ``mask``: the partitioned form (see
+    ``typed_sweep_plain``), which needs a scene whose plan has groups.
+    Counts its kernel launches in ``typed_sweep.launches``, those
+    of the partitioned form also in ``typed_sweep.partitioned``."""
     device = o.device
+    n = o.shape[0]
+    check_mask("typed_sweep", mask, sw.groups, n)
     if device.type == "cpu":
-        return typed_sweep_plain(sw, o, d, time, active, bits, t_min)
+        return typed_sweep_plain(sw, o, d, time, active, bits, t_min, mask)
     if device.type != "cuda":
         raise ValueError(f"typed_sweep: unsupported device {device}")
-    n, p, f32, i32 = o.shape[0], sw.geo.shape[0], torch.float32, \
-        torch.int32
+    p, f32, i32 = sw.geo.shape[0], torch.float32, torch.int32
     n_xf = sw.xf.shape[0]
     for name, x, shape, dtype in (
             ("o", o, (n, 3), f32), ("d", d, (n, 3), f32),
@@ -303,7 +342,9 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
             ("xf", sw.xf, (n_xf, 12), f32),
             ("plan_rows", sw.plan_rows, (len(sw.plan), len(PLAN_COLUMNS)),
              i32),
-            ("shutter", sw.shutter, (sw.shutter.shape[0], 2), f32)):
+            ("shutter", sw.shutter, (sw.shutter.shape[0], 2), f32),
+            *((("mask", mask, (n,), torch.uint8),) if mask is not None
+              else ())):
         cuda_build.check_arg("typed_sweep", name, x, shape, dtype, device)
     if p == 0 or not sw.plan:
         raise ValueError("typed_sweep: no primitives")
@@ -316,14 +357,20 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
         return t_best, best
     fn = _bind(cuda_build.load("typed_sweep"))
     has_xf = any(t.xform for t in sw.plan)
+    groups = sw.groups if mask is not None else ()
     cuda_build.launch(
         "typed_sweep", fn, device, o.data_ptr(), d.data_ptr(),
         time.data_ptr(), active.data_ptr(), bits.data_ptr(), n,
         sw.geo.data_ptr(), sw.aux.data_ptr(), sw.xf.data_ptr(),
         sw.plan_rows.data_ptr(), len(sw.plan), p, sw.shutter.data_ptr(),
-        int(has_xf), float(t_min), t_best.data_ptr(), best.data_ptr())
+        int(has_xf), float(t_min),
+        None if mask is None else mask.data_ptr(), len(groups),
+        *group_bounds(groups), t_best.data_ptr(), best.data_ptr())
     typed_sweep.launches += 1
+    if mask is not None:
+        typed_sweep.partitioned += 1
     return t_best, best
 
 
 typed_sweep.launches = 0
+typed_sweep.partitioned = 0  # of which in the partitioned form

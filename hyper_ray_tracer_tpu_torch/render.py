@@ -40,6 +40,14 @@ its launch slot, and only the ``alive.nonzero()`` lanes, in launch order,
 go on to the next bounce.  Every lane carries its own RNG base and shutter
 time, so dropping finished lanes changes no lane's result.
 
+The partitioned sweep (``RenderSettings.partition``, ``PartitionSchedule``;
+the JAX package's ``render.py:812-1131``, ``ops/partition.py``): in sweep
+mode, on a bounce that pays, the lanes go on in the order of their
+group-overlap category, and the sweep folds each partition group's
+primitives only into the lanes whose segment may meet its box.  The test
+is conservative and the kernels exact, so the image is bit-identical to
+the plain sweep's (the JAX package's only statistically).
+
 The layers of a chunk run inside ``torch.profiler.record_function`` ranges
 named ``raygen``, ``trace``, ``shade`` and ``compaction``, so that a
 profile of a render attributes its device time to them.  With no profiler
@@ -70,6 +78,7 @@ from .ops.intersect import (
     hit_detail,
     prim_hit_t_lanes,
 )
+from .ops import partition
 from .ops.materials import shade
 from .ops.sphere_sweep import sphere_sweep
 from .ops.typed_sweep import typed_sweep
@@ -125,6 +134,13 @@ class RenderSettings:
     # Chunks between snapshots (checkpoint and preview; None: every chunk
     # with a preview, else every 8), plus the final one.
     snapshot_every: Optional[int] = None
+    # The partitioned sweep (ops/partition.py; PartitionSchedule): in sweep
+    # mode, on a scene with partition groups, the bounces whose wavefront
+    # has at least PART_MIN_LANES lanes and skips at least PART_SAVED_MIN
+    # of the pairs order their lanes by group overlap and fold each
+    # group's primitives only into the lanes that may meet it.  The image
+    # is bit-identical either way; False runs every bounce plain.
+    partition: bool = True
 
 
 class WavefrontState(NamedTuple):
@@ -216,13 +232,17 @@ def block_order(width: int, height: int, block_w: int = 64,
     return pid[np.argsort(key, kind="stable")].astype(np.int32)
 
 
-def trace(scene: SceneTensors, state: WavefrontState, bb):
+def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None):
     """The trace step: each lane's closest hit (t, primitive index; BIG
     and -1 for a miss or a dead lane).  A scene in BVH mode walks its
     tree (K4), one in cluster mode sweeps its clusters (K5); otherwise
     sphere-only scenes go through the sphere sweep (K1), every other
     scene through the typed sweep (K1b).  Media draw their free flight
-    from the bounce words ``bb``."""
+    from the bounce words ``bb``.  ``mask`` (uint8 [N],
+    ``ops/partition.group_mask``): the sweeps' partitioned form over the
+    scene's groups; BVH and cluster mode have none."""
+    if mask is not None and scene.mode != "sweep":
+        raise ValueError(f"{scene.mode} mode has no partitioned form")
     if scene.mode == "bvh":
         return bvh_traverse(scene.bvh, state.o, state.d, state.time,
                             state.alive, bb, T_MIN)
@@ -231,9 +251,10 @@ def trace(scene: SceneTensors, state: WavefrontState, bb):
                              state.alive, bb, T_MIN)
     if scene.sphere_only:
         return sphere_sweep(*scene.spheres, state.o, state.d, state.time,
-                            state.alive, T_MIN)
+                            state.alive, T_MIN, mask=mask,
+                            groups=scene.groups if mask is not None else ())
     return typed_sweep(scene.sweep, state.o, state.d, state.time,
-                       state.alive, bb, T_MIN)
+                       state.alive, bb, T_MIN, mask=mask)
 
 
 def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
@@ -287,42 +308,96 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
 
 
 def bounce_step(scene: SceneTensors, background, state: WavefrontState,
-                bounce_idx: int, differentiable: bool = False
+                bounce_idx: int, differentiable: bool = False, mask=None
                 ) -> WavefrontState:
     """One wavefront bounce (the JAX ``bounce_step``).  ``differentiable``:
     trace the detached rays with no graph, then recompute the winner's t
-    with gradients (``shade_hits``)."""
+    with gradients (``shade_hits``).  ``mask``: the lanes' group masks
+    of a partitioned bounce (``trace``)."""
     with record_function("trace"):
         bb = prng.bounce_base(state.base, bounce_idx)
         if differentiable:
             with torch.no_grad():
                 t_hit, prim = trace(scene, state._replace(
-                    o=state.o.detach(), d=state.d.detach()), bb)
+                    o=state.o.detach(), d=state.d.detach()), bb, mask)
         else:
-            t_hit, prim = trace(scene, state, bb)
+            t_hit, prim = trace(scene, state, bb, mask)
     with record_function("shade"):
         return shade_hits(scene, background, state, bb, t_hit, prim,
                           differentiable)
 
 
+class PartitionSchedule:
+    """Which bounces of a render (or of a train step's forward) run the
+    partitioned sweep (``ops/partition.py``), decided once, as the JAX
+    package's probe decides (``schedule_from_cat_counts``): the first
+    wavefront traced with it (the probe) computes each bounce's category
+    counts, bounce 0's from the camera rays and bounce b + 1's from the
+    lanes alive after bounce b, and decides each bounce by
+    ``partition.worth``; every later wavefront reuses the decisions, and
+    computes no mask for a bounce that runs plain.  The decisions change
+    speed only: a partitioned bounce returns what a plain one does.
+
+    ``decisions``: a bool per bounce once the probe ran, else None;
+    ``counts``: the probe's category counts by bounce (None for a
+    bounce whose wavefront was below ``PART_MIN_LANES``, which runs plain
+    and computes no mask, or that had no lanes left)."""
+
+    def __init__(self, groups):
+        self.groups = tuple(groups)
+        self.decisions = None
+        self.counts = None
+
+    def lanes(self, scene: SceneTensors, o, d, bounce: int, probe: bool):
+        """The partitioned layout of the wavefront (o, d) for ``bounce``:
+        (order, mask) with ``order`` the stable category sort of its
+        lanes and ``mask`` their group masks in that order, or (None,
+        None) when the bounce runs plain.  ``probe``: decide it now."""
+        if probe:
+            n = o.shape[0]
+            if n < partition.PART_MIN_LANES:
+                self.counts.append(None)
+                self.decisions.append(False)
+                return None, None
+        elif not self.decisions[bounce]:
+            return None, None
+        with torch.no_grad():
+            mask = partition.group_mask(self.groups, o.detach(), d.detach(),
+                                        scene.group_aabbs)
+            cat = partition.category(mask, len(self.groups))
+        if probe:
+            counts = torch.bincount(cat, minlength=1 << len(self.groups))
+            counts = counts.cpu().numpy()
+            self.counts.append(counts.tolist())
+            self.decisions.append(partition.worth(
+                counts, self.groups, scene.static.n_prims))
+            if not self.decisions[-1]:
+                return None, None
+        order = torch.sort(cat, stable=True).indices
+        return order, mask[order].contiguous()
+
+
 def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
                 width: int, height: int, pixel_ids, sample_ids, seed: int,
                 depth: int, differentiable: bool = False,
-                remat: bool = False, coherent: bool = False):
+                remat: bool = False, coherent: bool = False,
+                schedule: Optional[PartitionSchedule] = None):
     """Per-lane radiance [N,3] (pre-gamma, pre-averaging) of the camera
     rays (pixel_ids[i], sample_ids[i]), in launch order, with dead lanes
-    compacted out after every bounce.  ``differentiable``, ``remat`` and
-    ``coherent``: see ``render_radiance`` and ``bounce_paths``."""
+    compacted out after every bounce.  ``differentiable``, ``remat``,
+    ``coherent`` and ``schedule``: see ``render_radiance`` and
+    ``bounce_paths``."""
     with record_function("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
     return bounce_paths(scene, background, state, depth, differentiable,
-                        remat, coherent)
+                        remat, coherent, schedule)
 
 
 def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
                  depth: int, differentiable: bool = False,
-                 remat: bool = False, coherent: bool = False):
+                 remat: bool = False, coherent: bool = False,
+                 schedule: Optional[PartitionSchedule] = None):
     """Per-lane radiance [N,3] of the wavefront ``state`` after ``depth``
     bounces numbered from 0, in ``state``'s lane order: the JAX package's
     ``bounce_scan(arrays, bvh, state, 0, depth)``, for a wavefront built
@@ -333,18 +408,38 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
     ``coherent`` (cluster mode's render): the survivors go on in the
     order of their coherence key (one stable sort; the JAX package's
     ``compact_wavefront_sorted``), not in launch order; the result is the
-    same, lane for lane."""
+    same, lane for lane.  ``schedule`` (sweep mode, a scene with
+    partition groups): the partitioned sweep (``PartitionSchedule``); on
+    a bounce that partitions, the wavefront goes on in stable category
+    order (one permutation, as the coherence sort; bounce 0's camera
+    rays included) and the sweep reads each lane's group mask; on the
+    other bounces the survivors stay in launch order.  The result is the
+    same, lane for lane.  A wavefront whose schedule is not decided yet
+    is its probe."""
     key = scene.cluster.key if coherent and scene.cluster is not None \
         else None
+    if schedule is not None and key is not None:
+        raise ValueError("cluster mode has no partitioned form")
     out = state.radiance.clone()
     slot = torch.arange(state.o.shape[0], device=state.o.device)
+    probe = schedule is not None and schedule.decisions is None
+    if probe:
+        schedule.decisions, schedule.counts = [], []
+    mask = None
+    if schedule is not None:
+        with record_function("compaction"):
+            order, mask = schedule.lanes(scene, state.o, state.d, 0, probe)
+            if order is not None:
+                state = WavefrontState(*(x.index_select(0, order)
+                                         for x in state))
+                slot = slot[order]
     for bounce in range(depth):
         if remat:
             state = checkpoint(bounce_step, scene, background, state, bounce,
-                               differentiable, use_reentrant=False)
+                               differentiable, mask, use_reentrant=False)
         else:
             state = bounce_step(scene, background, state, bounce,
-                                differentiable)
+                                differentiable, mask)
         with record_function("compaction"):
             # A lane's radiance no longer changes once it is dead, so the
             # value written here is final for every lane that stops now.
@@ -352,11 +447,19 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
             keep = state.alive.nonzero().squeeze(1)  # launch order kept
             if keep.numel() == 0:
                 break
+            order = mask = None
+            if schedule is not None and bounce + 1 < depth:
+                order, mask = schedule.lanes(
+                    scene, state.o.index_select(0, keep),
+                    state.d.index_select(0, keep), bounce + 1, probe)
+                if order is not None:
+                    keep = keep[order]
             if key is not None:
                 k = key(state.o.index_select(0, keep),
                         state.d.index_select(0, keep))
                 keep = keep[torch.sort(k, stable=True).indices]
-            if key is not None or keep.numel() < slot.numel():
+            if (key is not None or order is not None
+                    or keep.numel() < slot.numel()):
                 # index_select: its backward is index_add_, exact here
                 # because ``keep`` is unique: each lane's gradient is one
                 # addend onto 0, whatever the atomics' order
@@ -365,12 +468,16 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
                 state = WavefrontState(*(x.index_select(0, keep)
                                          for x in state))
                 slot = slot[keep]
+    if probe:  # the bounces the wavefront never reached run plain
+        schedule.decisions += [False] * (depth - len(schedule.decisions))
+        schedule.counts += [None] * (depth - len(schedule.counts))
     return out
 
 
 def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
                     width: int, height: int, pixel_ids, sample_ids,
-                    seed: int, depth: int, remat: bool = False):
+                    seed: int, depth: int, remat: bool = False,
+                    schedule: Optional[PartitionSchedule] = None):
     """Per-lane radiance [N,3] with gradients to the scene's parameters
     (bind them with ``scene_tensors.bind_params``): ``trace_paths`` with
     differentiable bounces.  Compaction stays eager: ``index_copy_`` and
@@ -381,10 +488,12 @@ def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
     and recompute the bounce there (``torch.utils.checkpoint``; the JAX
     package's ``jax.checkpoint`` at ``render.py:457-466``).  The
     counter-based RNG and the deterministic kernels make the recompute
-    exact."""
+    exact.  ``schedule``: the partitioned sweep (``bounce_paths``), the
+    groups' boxes the scene's ``group_aabbs`` (``bind_params`` computes
+    them from the bound parameters)."""
     return trace_paths(scene, background, basis, width, height, pixel_ids,
                        sample_ids, seed, depth, differentiable=True,
-                       remat=remat)
+                       remat=remat, schedule=schedule)
 
 
 def _gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:
@@ -418,7 +527,10 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     ``leaf_size`` pick the trace's mode (``prepare_scene``); in cluster
     mode the lanes trace the pixels in ``block_order`` and each
     compaction orders its survivors by the coherence key, which leaves
-    every pixel's sum as it is.
+    every pixel's sum as it is.  ``settings.partition`` (sweep mode, a
+    scene with partition groups): the first chunk is the probe of a
+    ``PartitionSchedule`` that every later chunk reuses; the image is
+    bit-identical to ``partition=False``.
     ``progress_cb(samples_done, samples)`` is called after every chunk.
 
     Snapshots: every ``snapshot_every`` chunks and after the last, the
@@ -426,8 +538,9 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     (``utils/checkpoint.py``) and as the gamma image of the samples so
     far to ``preview_path``.  A render with ``checkpoint_path`` starts
     from the checkpoint there when its identity matches (scene, size,
-    depth, seed, the resolved intersector and its leaf size,
-    ``RENDER_FORMAT``) and it holds at most ``samples`` samples, and
+    depth, seed, the resolved intersector and its leaf size, the
+    ``partition`` flag, ``RENDER_FORMAT``) and it holds at most
+    ``samples`` samples, and
     otherwise starts fresh with a warning.  The guarantee: a resumed
     render is bit-identical to an uninterrupted one with the same chunk
     boundaries, because every lane's RNG words are a function of its
@@ -455,13 +568,16 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     else:
         pix = torch.arange(n_pix, dtype=torch.int64, device=device)
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+    schedule = None
+    if settings.partition and mode == "sweep" and scene_t.groups:
+        schedule = PartitionSchedule(scene_t.groups)
 
-    # The port never partitions its sweep nor rounds hits to bf16: those
-    # identity keys of the JAX package's meta are always false here.
+    # As the JAX package's meta: the partition flag as effective (the port
+    # always compacts); the port never rounds hits to bf16.
     meta = dict(scene=scene.name, width=W, height=H, depth=settings.depth,
                 seed=settings.seed, format=RENDER_FORMAT, intersector=mode,
                 leaf_size=settings.leaf_size if mode == "bvh" else None,
-                partition=False, bf16_hits=False)
+                partition=bool(settings.partition), bf16_hits=False)
     s = 0
     if settings.checkpoint_path:
         state = ckpt.load_state(settings.checkpoint_path)
@@ -489,7 +605,7 @@ def render_image(scene: Scene, settings: RenderSettings, device,
                                   device=device).repeat_interleave(n_pix)
         rad = trace_paths(scene_t, scene.background, basis, W, H, pixel_ids,
                           sample_ids, settings.seed, settings.depth,
-                          coherent=coherent)
+                          coherent=coherent, schedule=schedule)
         per_lane = rad.reshape(ns, n_pix, 3).sum(0)
         acc += per_lane[inv] if coherent else per_lane
         s += ns
@@ -507,6 +623,10 @@ def render_image(scene: Scene, settings: RenderSettings, device,
             progress_cb(s, settings.samples)
     dt = timer.elapsed(acc)
     acc_np = acc.cpu().numpy()
+    if schedule is not None and schedule.decisions is not None:
+        log.info("partitioned bounces %s (probe category counts %s)",
+                 [b for b, on in enumerate(schedule.decisions) if on],
+                 schedule.counts)
     if rays_done and dt > 0:
         log.debug("%s", RayStats(camera_rays=rays_done, depth=settings.depth,
                                  seconds=dt).summary())

@@ -13,7 +13,10 @@ in the padded cluster order (``models/clusters.build_clusters``: more
 slots than ``static.n_prims``, NaN geometry on the pads), and
 ``to_device`` uploads the layout's groups and boxes and the records K5
 reads (``ops/cluster_sweep.cluster_scene``); every table indexed by a
-primitive (the shade rows, the parameters) has a row per slot.
+primitive (the shade rows, the parameters) has a row per slot.  In sweep
+mode ``to_device`` also picks the partitioned sweep's groups
+(``ops/partition.partition_groups``), cuts the typed sweep's plan at
+their bounds and keeps their baked boxes.
 
 A train step splits the result by what changes.  What stays fixed per
 scene: the sweep's plan (taken from the geometry as built, as the JAX
@@ -39,6 +42,7 @@ from .models.scene import PT_SPHERE, GeometrySoA, SceneStatic
 from .ops.bvh import BVHScene, bvh_leaf_records, bvh_scene
 from .ops.cluster_sweep import ClusterScene, cluster_records, cluster_scene
 from .ops.intersect import pack_prim_shade
+from .ops.partition import baked_aabbs, device_group_aabbs, partition_groups
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
 from .ops.typed_sweep import SweepScene, sweep_scene
@@ -86,6 +90,10 @@ class SceneTensors(NamedTuple):
     host_geom: GeometrySoA  # the geometry as built, NumPy (the plan's)
     bvh: Optional[BVHScene] = None  # BVH mode's tree and records
     cluster: Optional[ClusterScene] = None  # cluster mode's layout, records
+    # Each partition group's (bmin, bmax) float32 [3] tensors (``groups``):
+    # as baked into the scene, or after ``bind_params`` from the bound
+    # parameters (None there when a group is not ``dynamic_ok``).
+    group_aabbs: Optional[tuple] = None
 
     @property
     def mode(self) -> str:
@@ -94,6 +102,12 @@ class SceneTensors(NamedTuple):
         if self.bvh is not None:
             return "bvh"
         return "sweep" if self.cluster is None else "cluster"
+
+    @property
+    def groups(self) -> tuple:
+        """Sweep mode's partition groups (``ops/partition.PartGroup``, at
+        most 2; the typed sweep's plan is cut at their bounds), else ()."""
+        return () if self.sweep is None else self.sweep.groups
 
 
 def _tensor(x, device):
@@ -140,12 +154,14 @@ def to_device(arrays, static: SceneStatic, device, bvh=None,
                            perlin_keys=key_ints(arrays.perlin.keys),
                            perlin=t.perlin)
     host = GeometrySoA(*(np.asarray(x) for x in arrays.geom))
+    sweep_mode = bvh is None and clusters is None
+    groups = partition_groups(host, n) if sweep_mode else ()
     return SceneTensors(
         arrays=t, static=static,
         sphere_only=sphere_only(static, arrays.geom.ptype),
         spheres=spheres,
-        sweep=(sweep_scene(host, g, n) if bvh is None and clusters is None
-               else None),
+        sweep=sweep_scene(host, g, n, groups=groups) if sweep_mode else None,
+        group_aabbs=baked_aabbs(groups, device),
         fpack=fpack, ipack=ipack, tables=tables, host_geom=host,
         bvh=None if bvh is None else bvh_scene(bvh, host, g, static),
         cluster=(None if clusters is None
@@ -189,8 +205,11 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     built: neither refit nor rebuilt, as in the JAX package, whose walk
     reads the merged parameters inside the boxes of the tree it was given.
     In cluster mode K5's slot records are rebuilt and the layout's boxes
-    kept, likewise.  The int rows, the plan and the Perlin tables are
-    ``scene_t``'s own."""
+    kept, likewise.  In sweep mode the partition groups' boxes are
+    recomputed from the moved parameters (``ops/partition.
+    device_group_aabbs``), so that a partitioned step never reads a
+    stale box; None when some group has no such box.  The int rows, the
+    plan, the groups and the Perlin tables are ``scene_t``'s own."""
     static = scene_t.static
     n = static.n_prims
     arrays = merge_params(scene_t.arrays, params)
@@ -226,6 +245,11 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     spheres = SphereFields(g.p0[:n], p1, g.time0[:n], g.time1[:n],
                            g.radius[:n])
     sweep = sweep_scene(host, scene_t.arrays.geom._replace(**moved), n,
-                        plan=scene_t.sweep.plan)
+                        plan=scene_t.sweep.plan, groups=scene_t.groups)
+    aabbs = None
+    if all(gr.dynamic_ok for gr in scene_t.groups):
+        with torch.no_grad():
+            aabbs = device_group_aabbs(
+                scene_t.groups, scene_t.arrays.geom._replace(**moved))
     return scene_t._replace(arrays=arrays, spheres=spheres, sweep=sweep,
-                            fpack=fpack, tables=tables)
+                            fpack=fpack, tables=tables, group_aabbs=aabbs)

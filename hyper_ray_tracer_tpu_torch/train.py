@@ -15,8 +15,8 @@ attenuations), not through decision boundaries.
 
 Run a train step's timing (one JSON line) with
 ``python -m hyper_ray_tracer_tpu_torch.train [scene] [W] [H] [SPP]
-[DEPTH] [--intersector auto|sweep|cluster|bvh] [--silhouette]``; on the
-CPU add ``--cpu`` and a small shape.
+[DEPTH] [--intersector auto|sweep|cluster|bvh] [--silhouette]
+[--no-partition]``; on the CPU add ``--cpu`` and a small shape.
 """
 
 from __future__ import annotations
@@ -35,7 +35,12 @@ from torch.profiler import record_function
 from .camera import make_basis
 from .models.scene import Scene
 from .ops.edges import make_silhouette_correction
-from .render import prepare_scene, render_radiance, resolve_intersector
+from .render import (
+    PartitionSchedule,
+    prepare_scene,
+    render_radiance,
+    resolve_intersector,
+)
 from .scene_tensors import (  # noqa: F401  (PARAM_PATHS is re-exported)
     PARAM_PATHS,
     bind_params,
@@ -43,6 +48,7 @@ from .scene_tensors import (  # noqa: F401  (PARAM_PATHS is re-exported)
     merge_params,
     to_device,
 )
+from .utils.logging import get as get_logger
 
 # optax.adam's defaults; its eps_root is 0, which torch's Adam has no
 # term for.
@@ -74,7 +80,7 @@ def pixel_lanes(W: int, H: int, spp: int, device):
 
 def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
                  intersector=None, leaf_size: int = 4, remat: bool = False,
-                 silhouette: bool = False):
+                 silhouette: bool = False, partition: bool = False):
     """loss(params, scene_t, basis, pixel_ids, sample_ids, seed, target):
     the mean squared error between each pixel's mean radiance over the
     [S, W*H] launch and ``target`` ([W*H, 3], linear radiance, bottom-up
@@ -91,13 +97,24 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
     (``ops/edges.py``, with the JAX package's defaults, built at the
     first call from the geometry ``scene_t`` was uploaded from), so that
     geometry gradients also see occlusion boundaries move; it needs
-    ``pixel_ids`` to cover the whole frame."""
+    ``pixel_ids`` to cover the whole frame.
+    ``partition=True`` (sweep mode, a scene with partition groups) runs
+    the forward's trace as the partitioned sweep (the JAX package's
+    ``partition_sched``): its bounces are decided at the first call
+    (``render.PartitionSchedule``) and kept, so that two calls from one
+    state are bit-equal, and the groups' boxes come from the bound
+    parameters of each call (``bind_params``), never stale.  If a group
+    has no box computable from the parameters, the loss runs plain and
+    logs it.  The loss equals the plain one bit for bit; the gradients
+    part only by the order in which K3 sums a row's addends."""
     mode = resolve_intersector(scene, intersector)
     correction = None
+    schedule = None  # made at the first call, when partition engages
+    engage = partition and mode == "sweep"
 
     def loss_fn(params, scene_t, basis, pixel_ids, sample_ids, seed,
                 target):
-        nonlocal correction
+        nonlocal correction, schedule, engage
         if scene_t.mode != mode:
             raise ValueError(f"make_loss_fn: the scene is uploaded in "
                              f"{scene_t.mode} mode, the loss traces in "
@@ -106,11 +123,19 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
             raise ValueError(f"make_loss_fn: the scene is uploaded at leaf "
                              f"size {scene_t.bvh.leaf_size}, the loss's is "
                              f"{leaf_size}")
+        if engage and scene_t.groups:
+            if all(g.dynamic_ok for g in scene_t.groups):
+                schedule = PartitionSchedule(scene_t.groups)
+            else:
+                get_logger().info(
+                    "partition groups without boxes computable from the "
+                    "parameters: the train step runs plain")
+        engage = False
         bound = bind_params(scene_t, params)
         s_blk = pixel_ids.shape[0]
         rad = render_radiance(bound, scene.background, basis, W, H,
                               pixel_ids.reshape(-1), sample_ids.reshape(-1),
-                              seed, depth, remat=remat)
+                              seed, depth, remat=remat, schedule=schedule)
         mean_rad = rad.reshape(s_blk, W * H, 3).mean(0)
         if silhouette:
             if correction is None:
@@ -120,22 +145,26 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
                 mean_rad = mean_rad + correction(bound, basis, seed)
         return ((mean_rad - target) ** 2).mean()
 
+    loss_fn.schedule = lambda: schedule
     return loss_fn
 
 
 def make_train_step(scene: Scene, W: int, H: int, depth: int,
                     intersector=None, leaf_size: int = 4,
                     learning_rate: float = 1e-2, remat: bool = False,
-                    silhouette: bool = False):
+                    silhouette: bool = False, partition: bool = False):
     """(init, step): ``init(scene_t)`` copies the scene's parameters into
     leaf tensors with an adam optimizer; ``step(state, scene_t, basis,
     pixel_ids, sample_ids, seed, target)`` runs the forward render, the
     backward pass and one adam update in place, and returns (state, the
     loss before the update).  The step's parts run in the
     ``record_function`` ranges ``forward`` (the correction inside it in
-    ``silhouette``), ``backward`` and ``optimizer``."""
+    ``silhouette``), ``backward`` and ``optimizer``.  ``partition``: see
+    ``make_loss_fn``; ``step.schedule()`` is its ``PartitionSchedule``
+    once the first step made one, else None."""
     loss_fn = make_loss_fn(scene, W, H, depth, intersector, leaf_size,
-                           remat=remat, silhouette=silhouette)
+                           remat=remat, silhouette=silhouette,
+                           partition=partition)
 
     def init(scene_t) -> TrainState:
         params = {k: v.detach().clone().requires_grad_()
@@ -161,6 +190,7 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
             state.optimizer.step()
         return state, loss.detach()
 
+    step.schedule = loss_fn.schedule
     return init, step
 
 
@@ -191,7 +221,10 @@ def main(argv=None) -> int:
     the initial state: the parameters and the optimizer's state are
     restored before it, outside the timer.  The loss printed is the
     first step's, the loss at the initial parameters.  Compaction is
-    always on (eager); the partitioned descent is not ported."""
+    always on (eager).  The trace runs partitioned by default, as
+    bench_grad.py's descent does (``--no-partition`` turns it off): its
+    bounces are decided by the warm-up step and kept for the timed
+    ones."""
     from .models.builders import build_scene
 
     ap = argparse.ArgumentParser(prog="hyper_ray_tracer_tpu_torch.train")
@@ -212,6 +245,10 @@ def main(argv=None) -> int:
     ap.add_argument("--silhouette", action="store_true",
                     help="add the edge-sampled silhouette term to the "
                          "loss")
+    ap.add_argument("--no-partition", dest="partition",
+                    action="store_false", default=True,
+                    help="run every bounce's sweep plain, not partitioned "
+                         "(the loss is the same either way)")
     ap.add_argument("--steps", type=int, default=5,
                     help="timed steps after one warm-up step")
     ap.add_argument("--cpu", action="store_true",
@@ -235,7 +272,8 @@ def main(argv=None) -> int:
     pix, sam = pixel_lanes(W, H, spp, device)
     target = torch.zeros((W * H, 3), dtype=torch.float32, device=device)
     init, step = make_train_step(scene, W, H, depth, mode, a.leaf_size,
-                                 remat=remat, silhouette=a.silhouette)
+                                 remat=remat, silhouette=a.silhouette,
+                                 partition=a.partition)
     state = init(scene_t)
     start = snapshot(state)
     best = float("inf")
@@ -250,6 +288,7 @@ def main(argv=None) -> int:
             first_loss = value
         else:
             best = min(best, time.perf_counter() - t0)
+    schedule = step.schedule()
     print(json.dumps({
         "metric": f"{a.scene}_fwd_bwd_camera_mrays_per_s_depth{depth}",
         "value": W * H * spp / best / 1e6,
@@ -259,6 +298,10 @@ def main(argv=None) -> int:
         "remat": remat,
         "intersector": mode,
         "silhouette": a.silhouette,
+        "partition": schedule is not None,
+        "partitioned_bounces": ([] if schedule is None else
+                                [b for b, on in enumerate(schedule.decisions)
+                                 if on]),
         "device": str(device),
     }))
     return 0

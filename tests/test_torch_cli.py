@@ -66,16 +66,28 @@ def test_cli_reference_flags_accepted(tmp_path):
     assert out.exists()
 
 
-def test_cli_jax_compatibility_flags(tmp_path, caplog):
-    """--no-bvh warns that it is deprecated; --no-partition is accepted and
-    changes nothing (the port never partitions its sweep)."""
-    common = ["--scene", "two-spheres", "--width", "16", "--height", "9",
-              "--samples", "1", "--depth", "2", "--verbosity", "0", "--cpu"]
+def test_cli_jax_compatibility_flags(tmp_path, caplog, monkeypatch):
+    """--no-bvh warns that it is deprecated; --no-partition runs every
+    bounce plain, and on a render that does partition (`final`, the lane
+    floor lowered to this size) it leaves the PNG unchanged: the port's
+    partitioned sweep is exact."""
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    monkeypatch.setattr(partition, "PART_MIN_LANES", 256)
+    made = []
+    init = render_mod.PartitionSchedule.__init__
+    monkeypatch.setattr(render_mod.PartitionSchedule, "__init__",
+                        lambda self, *a: (made.append(self), init(self, *a))
+                        and None)
+    common = ["--scene", "final", "--width", "32", "--height", "18",
+              "--samples", "1", "--depth", "3", "--verbosity", "0", "--cpu"]
     plain, flagged = tmp_path / "a.png", tmp_path / "b.png"
     assert main([*common, "--output", str(plain)]) == 0
+    assert len(made) == 1 and any(made[0].decisions), made[0].decisions
     with caplog.at_level(logging.WARNING):
         assert main([*common, "--no-bvh", "--no-partition",
                      "--output", str(flagged)]) == 0
+    assert len(made) == 1  # --no-partition made no schedule
     assert "--no-bvh is deprecated" in caplog.text
     np.testing.assert_array_equal(_png(plain), _png(flagged))
 

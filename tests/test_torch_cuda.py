@@ -964,3 +964,151 @@ def test_cluster_render_on_card_equals_sweep(cuda, name):
     sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
                          cuda)
     np.testing.assert_array_equal(clus, sweep)
+
+
+# The partitioned form of K1b and K1 (ops/partition.py): each lane's group
+# mask; a lane folds a group's primitives only when its mask has the
+# group's bit.  The kernels equal their twins on any mask, and on the
+# box test's masks also the unmasked kernels.
+
+
+def _masked(kernel, plain, args, mask, **kw):
+    t_m, b_m = kernel(*args, mask=mask, **kw)
+    torch.cuda.synchronize()
+    t_p, b_p = plain(*args, mask=mask, **kw)
+    return t_m, b_m, t_p, b_p
+
+
+@pytest.mark.parametrize("order", ["launch", "category"])
+@pytest.mark.parametrize("bounces", [0, 1, 2])
+def test_partitioned_typed_sweep_equals_plain(cuda, bounces, order):
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    scene = build_scene("final")
+    st = to_device(scene.arrays, scene.static, cuda)
+    s = _rays(scene, st, 160, 90, cuda, bounces)
+    mask = partition.group_mask(st.groups, s.o, s.d, st.group_aabbs)
+    bits = prng.bounce_base(s.base, bounces)
+    if order == "category":
+        idx = torch.sort(3 - mask.int(), stable=True).indices
+        s, mask, bits = type(s)(*(x[idx] for x in s)), mask[idx], bits[idx]
+    args = (st.sweep, s.o.contiguous(), s.d.contiguous(),
+            s.time.contiguous(), s.alive.contiguous(), bits.contiguous())
+    t_m, b_m, t_p, b_p = _masked(typed_sweep, typed_sweep_plain, args,
+                                 mask.contiguous())
+    assert torch.equal(b_m, b_p) and torch.equal(t_m, t_p)
+    t_k, b_k = typed_sweep(*args)
+    assert torch.equal(b_m, b_k) and torch.equal(t_m, t_k)
+    assert (mask != 3).any() and (b_k >= 0).any()
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 513, 4097])
+def test_partitioned_typed_sweep_any_mask(cuda, n):
+    """The lane-level contract on random masks and inactive rays: the
+    kernel equals its twin whatever the masks say."""
+    scene = build_scene("final")
+    st = to_device(scene.arrays, scene.static, cuda)
+    s = _rays(scene, st, 160, 90, cuda, 1)
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    idx = torch.randperm(s.o.shape[0], device=cuda, generator=gen)[:n]
+    s = type(s)(*(x[idx] for x in s))
+    active = torch.rand(n, device=cuda, generator=gen) < 0.7
+    mask = torch.randint(0, 4, (n,), device=cuda, generator=gen,
+                         dtype=torch.uint8)
+    args = (st.sweep, s.o.contiguous(), s.d.contiguous(),
+            s.time.contiguous(), active, prng.bounce_base(s.base, 1))
+    t_m, b_m, t_p, b_p = _masked(typed_sweep, typed_sweep_plain, args, mask)
+    assert torch.equal(b_m, b_p) and torch.equal(t_m, t_p)
+    assert (b_m[~active] == -1).all()
+
+
+def _two_sphere_groups(st):
+    from hyper_ray_tracer_tpu_torch.ops.partition import PartGroup
+
+    p0 = st.spheres.p0.cpu().numpy()
+    r = np.abs(st.spheres.radius.cpu().numpy())[:, None]
+    return tuple(PartGroup(a, b, tuple(float(v) for v in
+                                       (p0[a:b] - r[a:b]).min(0)),
+                           tuple(float(v) for v in
+                                 (p0[a:b] + r[a:b]).max(0)), True)
+                 for a, b in ((96, 300), (300, 486)))
+
+
+@pytest.mark.parametrize("case", ["random", "random-two-groups",
+                                  "random-any-mask", "sphereflake"])
+@pytest.mark.parametrize("bounces", [0, 1])
+def test_partitioned_sphere_sweep_equals_plain(cuda, case, bounces):
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    scene = build_scene(case.split("-")[0])
+    st = to_device(scene.arrays, scene.static, cuda)
+    W, H = (96, 54) if case == "sphereflake" else (320, 180)
+    s = _rays(scene, st, W, H, cuda, bounces)
+    sph, groups = st.spheres, st.groups
+    if case == "random-two-groups":  # static centers inside the boxes
+        sph, groups = sph._replace(p1=sph.p0), _two_sphere_groups(st)
+    mask = partition.group_mask(groups, s.o, s.d)
+    if case == "random-any-mask":
+        gen = torch.Generator(device=cuda).manual_seed(bounces)
+        mask = torch.randint(0, 2, mask.shape, device=cuda, generator=gen,
+                             dtype=torch.uint8)
+    args = (*sph, s.o.contiguous(), s.d.contiguous(), s.time.contiguous(),
+            s.alive.contiguous())
+    t_m, b_m, t_p, b_p = _masked(sphere_sweep, sphere_sweep_plain, args,
+                                 mask, groups=groups)
+    assert torch.equal(b_m, b_p) and torch.equal(t_m, t_p)
+    if case != "random-any-mask":
+        t_k, b_k = sphere_sweep(*args)
+        assert torch.equal(b_m, b_k) and torch.equal(t_m, t_k)
+
+
+@pytest.mark.parametrize("name", ["final", "random"])
+def test_partitioned_render_on_card_equals_plain(cuda, name, monkeypatch):
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    monkeypatch.setattr(partition, "PART_MIN_LANES", 1024)
+    monkeypatch.setattr(partition, "PART_SAVED_MIN", 0.0)
+    scene = build_scene(name)
+    s = dict(width=64, height=36, samples=2, depth=6, spp_chunk=1)
+    before = (typed_sweep.partitioned, sphere_sweep.partitioned)
+    img = render_image(scene, RenderSettings(**s), cuda)
+    assert (typed_sweep.partitioned, sphere_sweep.partitioned) != before
+    plain = render_image(scene, RenderSettings(**s, partition=False), cuda)
+    np.testing.assert_array_equal(img, plain)
+
+
+def test_partitioned_train_step_on_card(cuda, monkeypatch):
+    """A partitioned step's loss equals the plain one's, its gradients
+    within 1e-5 of each key's largest (K3's addend order), and two calls
+    from one state are bit-equal."""
+    from hyper_ray_tracer_tpu_torch.ops import partition
+
+    monkeypatch.setattr(partition, "PART_MIN_LANES", 1024)
+    scene = build_scene("final")
+    st = to_device(scene.arrays, scene.static, cuda)
+    W, H, spp, depth = 64, 36, 2, 4
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = pixel_lanes(W, H, spp, cuda)
+    target = torch.zeros((W * H, 3), device=cuda)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+
+    def run(loss_fn):
+        for p in params.values():
+            p.grad = None
+        loss = loss_fn(params, st, basis, pix, sam, 0, target)
+        loss.backward()
+        return loss.detach(), {k: p.grad.clone() for k, p in params.items()
+                               if p.grad is not None}
+
+    part = make_loss_fn(scene, W, H, depth, partition=True)
+    l_p, g_p = run(part)
+    assert any(part.schedule().decisions)
+    l_0, g_0 = run(make_loss_fn(scene, W, H, depth))
+    assert torch.equal(l_p, l_0)
+    for k in g_0:
+        scale = g_0[k].abs().max()
+        assert ((g_p[k] - g_0[k]).abs().max() <= 1e-5 * scale).item(), k
+    l_2, g_2 = run(part)
+    assert torch.equal(l_2, l_p)
+    assert all(torch.equal(g_2[k], g_p[k]) for k in g_p)
