@@ -64,8 +64,19 @@ probe's category counts), `final`'s render profiled by layer both ways;
 the train CLI on `final` at bench_grad.py's shape both ways (the losses
 bit-equal), two partitioned steps from one state, and card against CPU
 gradients of a partitioned step.  With the partition on by default,
-phases 4, 8, 9 and 12-13 run through it too.  Each
-phase prints one line; any failure ends the run with a non-zero exit.
+phases 4, 8, 9 and 12-13 run through it too.  Multi-GPU (phase 26,
+``hyper_ray_tracer_tpu_torch/parallel/``, ranks spawned with
+``torch.multiprocessing`` that load the kernels built here): the CLI
+default through the sharded renderer in a group of one under nccl,
+byte-equal to ``render_image``; two ranks on the card under gloo
+rendering the CLI default, the bench workload and `sphereflake` in
+cluster mode on a rays mesh (byte-equal) and the CLI default on an spp
+mesh (within 2e-6, byte-equal run to run); the sharded train step
+(losses and gradients against the single process's, the ranks'
+parameters bit-equal after two steps); on a machine with several cards,
+nccl across up to four of them and the scaling points.  Each phase
+prints one line, with its seconds; any failure ends the run with a
+non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -74,7 +85,8 @@ one JSON object with a record per kernel, and
 archive`` of the parent) makes phase 15 build that checkout's K3 design
 (``csrc/segment_sum.cu`` with torch.sort around it) and time it in turns
 with this one on the same inputs; the kernels line's ``parent_ms`` is
-then that time, else null.
+then that time, else null.  ``--only-parallel`` builds the kernels and
+runs phase 26 alone, without the result lines.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -82,6 +94,7 @@ when the port's package is not beside this script.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -194,8 +207,15 @@ K2B_SHARE = 1e-4
 CARD_GRAD_SHARE = {"three-spheres": 2e-4, "final": 5e-2}
 
 
+_PHASE_CLOCK = [time.monotonic()]
+
+
 def phase(n, msg):
-    print(f"[phase {n}] {msg}", flush=True)
+    """Print phase ``n``'s line with the seconds since the previous
+    phase's line (phase 1's: since the script started)."""
+    now = time.monotonic()
+    print(f"[phase {n}] ({now - _PHASE_CLOCK[0]:.1f} s) {msg}", flush=True)
+    _PHASE_CLOCK[0] = now
 
 
 def nvidia_smi():
@@ -2737,6 +2757,454 @@ def render_profile(dev, name, settings):
     return text + f"; lanes per bounce (first chunk) {lanes[:depth]}"
 
 
+# Phase 26: multi-GPU through torch.distributed (the port's parallel/).
+# Its workloads (scene, width, height, spp, depth): the render CLI's
+# default, the bench workload, `sphereflake` in cluster mode, and
+# bench_grad.py's train step.
+PARALLEL_SIZES = {"cli": ("random", 1280, 720, 100, 10),
+                  "bench": ("final", 400, 225, 16, 10),
+                  "cluster": ("sphereflake", 640, 360, 4, 10),
+                  "train": ("random", *TRAIN_SHAPE)}
+# A sharded image against the single render, both at the gamma image: an
+# spp-sharded mesh adds its ranks' partial sums in rank order, which moves
+# the low bits (tests/test_sharding.py's bound on the JAX package).
+SPP_SHARD_TOL = 2e-6
+# Sharded gradients and losses against the single process's
+# (tests/test_sharding.py's bound on the JAX package).
+SHARD_GRAD_RTOL, SHARD_GRAD_ATOL = 1e-4, 1e-6
+# The seconds a spawn of ranks may take before it is stopped.
+SPAWN_TIMEOUT_S = 300
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def sharded_render_case(dev, wrappers, workload, intersector, shape, runs):
+    """``runs`` renders of ``workload`` (PARALLEL_SIZES' form) through the
+    sharded renderer on a mesh of ``shape``, started together on every
+    rank (a barrier), each timed to its synchronised end: the first from
+    before the scene's upload, as ``render_image``'s wall counts it, the
+    others from the end of the one before.  The launch counts are set to
+    0 before them and read after."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.parallel.mesh import make_render_mesh
+    from hyper_ray_tracer_tpu_torch.parallel.render_sharded import (
+        make_sharded_renderer,
+    )
+
+    name, W, H, spp, depth = workload
+    scene = build_scene(name)
+    mesh = make_render_mesh(*shape)
+    sums, walls = [], []
+    reset_launches(wrappers)
+    dist.barrier()
+    sync(dev)
+    t0 = time.monotonic()
+    st, mode = upload(scene, dev, intersector)
+    run = make_sharded_renderer(scene, W, H, depth, mesh, mode)
+    basis = make_basis(scene.camera, W, H)
+    for _ in range(runs):
+        total = run(st, basis, 0, spp, 0)
+        sync(dev)
+        walls.append(time.monotonic() - t0)
+        sums.append(total.cpu().numpy())
+        t0 = time.monotonic()
+    sched = run.schedule()
+    return dict(sums=sums if dist.get_rank() == 0 else None,
+                digests=[hashlib.sha256(a.tobytes()).hexdigest()
+                         for a in sums],
+                walls=walls, launches=read_launches(wrappers),
+                partitioned=(None if sched is None else
+                             [b for b, on in enumerate(sched.decisions)
+                              if on]))
+
+
+def train_setup(scene, dev, workload):
+    """(scene tensors, mode, a train step's arguments after the state):
+    the whole launch of ``workload`` against a zero target."""
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.train import pixel_lanes
+
+    _, W, H, spp, _ = workload
+    st, mode = upload(scene, dev)
+    return st, mode, (st, make_basis(scene.camera, W, H),
+                      *pixel_lanes(W, H, spp, dev), 0,
+                      torch.zeros((W * H, 3), device=dev))
+
+
+def timed_steps(step, state, start, args, dev, n, barrier=None):
+    """Seconds of ``n`` steps, each from the state ``start``
+    (``train.restore``), each after ``barrier()`` when given."""
+    from hyper_ray_tracer_tpu_torch.train import restore
+
+    secs = []
+    for _ in range(n):
+        restore(state, start)
+        if barrier is not None:
+            barrier()
+        sync(dev)
+        t0 = time.monotonic()
+        state, loss = step(state, *args)
+        loss.item()
+        secs.append(time.monotonic() - t0)
+    return secs
+
+
+def sharded_train_case(dev, wrappers, workload, shape, n_timed):
+    """The sharded adam step on ``workload`` on a mesh of ``shape``: the
+    first step's loss and folded gradients (the launch counts set to 0
+    before it and read after), the parameters after a second step, then
+    ``n_timed`` steps from the initial state, each started together on
+    every rank."""
+    import torch.distributed as dist
+
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.parallel.mesh import make_render_mesh
+    from hyper_ray_tracer_tpu_torch.parallel.render_sharded import (
+        make_sharded_train_step,
+    )
+    from hyper_ray_tracer_tpu_torch.train import snapshot
+
+    name, W, H, _, depth = workload
+    scene = build_scene(name)
+    st, mode, args = train_setup(scene, dev, workload)
+    init, step = make_sharded_train_step(scene, W, H, depth,
+                                         make_render_mesh(*shape), mode)
+    state = init(st)
+    start = snapshot(state)
+    reset_launches(wrappers)
+    state, loss = step(state, *args)
+    sync(dev)
+    launches = read_launches(wrappers)
+    grads = {k: p.grad.cpu().numpy() for k, p in state.params.items()}
+    state, _ = step(state, *args)
+    params = {k: p.detach().cpu().numpy() for k, p in state.params.items()}
+    return dict(loss=loss.item(), grads=grads, params=params,
+                launches=launches,
+                secs=timed_steps(step, state, start, args, dev, n_timed,
+                                 dist.barrier))
+
+
+def scaling_case(dev, wrappers, workload, reps):
+    """``parallel.scaling.measure_scaling`` on ``workload``."""
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.parallel.scaling import measure_scaling
+
+    name, W, H, spp, depth = workload
+    return dict(points=[dataclasses.asdict(p) for p in measure_scaling(
+        build_scene(name), W, H, depth, spp, reps=reps, device=dev)])
+
+
+PARALLEL_CASES = {"render": sharded_render_case, "train": sharded_train_case,
+                  "scaling": scaling_case}
+
+
+def parallel_rank(r, world, init_method, backend, devices, out_dir, cases):
+    """A rank of phase 26, in a process of its own (``spawn_ranks``):
+    starts the process group, runs ``cases`` (tuples: a key of
+    ``PARALLEL_CASES`` and its arguments) in order and saves what they
+    gave to ``out_dir``.  The kernels are loaded as the parent built
+    them (``utils/cuda_build.py`` finds each library by its hash)."""
+    from hyper_ray_tracer_tpu_torch.parallel.mesh import dist, init_distributed
+
+    _, _, dev = init_distributed(devices[r], backend=backend,
+                                 init_method=init_method, rank=r,
+                                 world_size=world)
+    try:
+        wrappers = kernel_wrappers()
+        out = [PARALLEL_CASES[c[0]](dev, wrappers, *c[1:]) for c in cases]
+        torch.save(out, Path(out_dir) / f"rank{r}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, backend, devices, cases):
+    """Run ``parallel_rank`` in ``world`` fresh processes (rank r on
+    ``devices[r]``, a file rendezvous) and return each rank's results;
+    raises if a rank fails, and stops them all after
+    ``SPAWN_TIMEOUT_S``."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.start_processes(
+            parallel_rank, nprocs=world, join=False, start_method="spawn",
+            args=(world, f"file://{tmp}/rendezvous", backend, devices, tmp,
+                  cases))
+        deadline = time.monotonic() + SPAWN_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks ({backend}) still "
+                                       f"running after {SPAWN_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                proc.join()
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+
+
+def parallel_phase(dev, reset_counts, counts, smi, sizes=PARALLEL_SIZES):
+    """Phase 26: the port's parallel/ on ``dev`` (``sizes``: the
+    workloads).  (1) A group of one (nccl on a card): the CLI default
+    through the sharded renderer on a 1x1 mesh, byte-equal to
+    render_image's image; (2) two ranks on the one device under gloo
+    (NCCL refuses two ranks on one card): the CLI default, `final` at the
+    bench shape and `sphereflake` in cluster mode on a 2x1 rays mesh,
+    byte-equal to the single render; the CLI default on a 1x2 spp mesh
+    twice, within SPP_SHARD_TOL of it and byte-equal run to run; (3) the
+    sharded train step on 2x1 and 1x2 meshes: the loss and gradients
+    against the single process's, the parameters after two steps
+    bit-equal across ranks, seconds a step beside the single step's;
+    (4) on a machine with two cards or more, nccl across min(4, count)
+    cards: the CLI default on an (n, 1) and an (n/2, 2) mesh, and the
+    scaling points.  Returns the phase's text."""
+    import os
+
+    from hyper_ray_tracer_tpu_torch import RenderSettings, build_scene
+    from hyper_ray_tracer_tpu_torch import render_image
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.parallel.collectives import gather_fold
+    from hyper_ray_tracer_tpu_torch.parallel.mesh import (
+        dist,
+        init_distributed,
+        make_render_mesh,
+    )
+    from hyper_ray_tracer_tpu_torch.parallel.render_sharded import (
+        finish_image,
+        make_sharded_renderer,
+    )
+    from hyper_ray_tracer_tpu_torch.render import gamma_image
+    from hyper_ray_tracer_tpu_torch.train import make_train_step, snapshot
+
+    # The ranks share this host: their rendezvous and NCCL's bootstrap go
+    # over the loopback device.
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t_phase = time.monotonic()
+    cli = sizes["cli"]
+    name, W, H, spp, depth = cli
+    rays = W * H * spp
+
+    def single(workload, intersector=None):
+        """render_image's image and wall (the scene built before it, as
+        the sharded cases build theirs before their timer)."""
+        scene_name, W_, H_, spp_, depth_ = workload
+        scene = build_scene(scene_name)
+        sync(dev)
+        t0 = time.monotonic()
+        img = render_image(scene, RenderSettings(
+            W_, H_, spp_, depth_, intersector=intersector), dev)
+        return img, time.monotonic() - t0
+
+    def label(workload):
+        return "{} {}x{}x{} d{}".format(*workload)
+
+    # (1) A group of one; a small render first, so that neither timed
+    # render pays the process's first launches.
+    single((name, 160, 90, 2, depth))
+    ref, ref_s = single(cli)
+    init_distributed(dev)
+    try:
+        backend = dist.get_backend()
+        assert backend == ("nccl" if dev.type == "cuda" else "gloo"), backend
+        scene = build_scene(name)
+        sync(dev)
+        reset_counts()
+        t0 = time.monotonic()
+        st, mode = upload(scene, dev)
+        run = make_sharded_renderer(scene, W, H, depth,
+                                    make_render_mesh(1, 1), mode)
+        total = run(st, make_basis(scene.camera, W, H), 0, spp, 0)
+        sync(dev)
+        one_s = time.monotonic() - t0
+        one_launches = counts()
+        assert one_launches["sphere_sweep"] > 0, one_launches
+        assert torch.equal(gather_fold(total, dist.group.WORLD), total)
+        assert np.array_equal(gamma_image(total.cpu().numpy(), spp, W, H),
+                              ref), "1x1 mesh: not byte-equal"
+    finally:
+        dist.destroy_process_group()
+    text = (f"(1) {backend}, world 1, 1x1 mesh, {label(cli)}: byte-equal "
+            f"to render_image; {one_s:.3f} s ({rays / one_s / 1e6:.3f} "
+            f"Mrays/s) against render_image's {ref_s:.3f} s; K1 "
+            f"{one_launches['sphere_sweep']} launches")
+
+    # (2)-(3) Two ranks on the one device.  The single process's
+    # references first, on a quiet device.
+    bench, flake, train = sizes["bench"], sizes["cluster"], sizes["train"]
+    bench_ref, bench_s = single(bench)
+    flake_ref, flake_s = single(flake, "cluster")
+    tscene = build_scene(train[0])
+    _, tmode, targs = train_setup(tscene, dev, train)
+    init, step = make_train_step(tscene, *train[1:3], train[4], tmode)
+    state = init(targs[0])
+    start = snapshot(state)
+    state, loss = step(state, *targs)
+    t_loss = loss.item()
+    t_grads = {k: p.grad.cpu().numpy() for k, p in state.params.items()}
+    t_secs = timed_steps(step, state, start, targs, dev, 3)
+    cases = [("render", cli, "sweep", (2, 1), 1),
+             ("render", bench, "sweep", (2, 1), 1),
+             ("render", flake, "cluster", (2, 1), 1),
+             ("render", cli, "sweep", (1, 2), 2),
+             ("train", train, (2, 1), 3), ("train", train, (1, 2), 3)]
+    t0 = time.monotonic()
+    got = spawn_ranks(2, "gloo", [str(dev)] * 2, cases)
+    spawn_s = time.monotonic() - t0
+
+    def by_rank(c, *keys):
+        return [tuple(g[c]["launches"][k] for k in keys) for g in got]
+
+    def wall(c, run=0):
+        return max(g[c]["walls"][run] for g in got)
+
+    for c in range(4):
+        for g in got[1:]:
+            assert g[c]["digests"] == got[0][c]["digests"], cases[c]
+    for c, want, kernels in ((0, ref, ("sphere_sweep",)),
+                             (1, bench_ref, ("typed_sweep", "turbulence")),
+                             (2, flake_ref, ("cluster_sweep",))):
+        workload = cases[c][1]
+        img = gamma_image(got[0][c]["sums"][0], workload[3], workload[1],
+                          workload[2])
+        assert np.array_equal(img, want), \
+            f"2x1 mesh {label(workload)}: not byte-equal"
+        for g in got:
+            for k in kernels:
+                assert g[c]["launches"][k] > 0, (workload, k, g[c])
+    spp_mesh = got[0][3]
+    assert spp_mesh["digests"][0] == spp_mesh["digests"][1], \
+        "1x2 mesh: two runs differ"
+    spp_err = float(np.abs(finish_image(spp_mesh["sums"][0].astype(
+        np.float64), spp, W, H) - ref).max())
+    assert spp_err <= SPP_SHARD_TOL, spp_err
+    text += (f" | (2) gloo, 2 ranks on {dev} (spawned and joined in "
+             f"{spawn_s:.1f} s), byte-equal to the single render on a 2x1 "
+             f"mesh (walls from the scene's upload to the gathered sum, "
+             f"as render_image's count): {label(cli)} {wall(0):.3f} s "
+             f"({rays / wall(0) / 1e6:.3f} Mrays/s; single {ref_s:.3f} s), "
+             f"K1 launches by rank {by_rank(0, 'sphere_sweep')}, "
+             f"partitioned bounces by rank "
+             f"{[g[0]['partitioned'] for g in got]}; {label(bench)} {wall(1):.3f} s (single {bench_s:.3f} s), "
+             f"K1b / K2 launches by rank "
+             f"{by_rank(1, 'typed_sweep', 'turbulence')}, partitioned "
+             f"bounces by rank {[g[1]['partitioned'] for g in got]}; "
+             f"{label(flake)} in cluster mode {wall(2):.3f} s (single "
+             f"{flake_s:.3f} s), K5 launches by rank "
+             f"{by_rank(2, 'cluster_sweep')}; 1x2 spp mesh {label(cli)}: "
+             f"two runs byte-equal ({wall(3, 0):.3f}, {wall(3, 1):.3f} s), "
+             f"max |gamma - single| {spp_err:.3e} (bound {SPP_SHARD_TOL})")
+
+    for c in (4, 5):
+        shape = cases[c][2]
+        res = [g[c] for g in got]
+        for r in res[1:]:
+            for k, v in r["params"].items():
+                assert np.array_equal(v, res[0]["params"][k]), \
+                    f"train {shape}: parameter {k} differs across ranks"
+        worst = 0.0
+        for r in res:
+            np.testing.assert_allclose(r["loss"], t_loss,
+                                       rtol=SHARD_GRAD_RTOL,
+                                       atol=SHARD_GRAD_ATOL)
+            for k, want in t_grads.items():
+                np.testing.assert_allclose(
+                    r["grads"][k], want, rtol=SHARD_GRAD_RTOL,
+                    atol=SHARD_GRAD_ATOL, err_msg=f"train {shape} {k}")
+                worst = max(worst, float(np.abs(r["grads"][k] - want).max()))
+            assert r["launches"]["sphere_sweep"] > 0 \
+                and r["launches"]["segment_sum"] > 0, r["launches"]
+        step_s = min(max(r["secs"][i] for r in res)
+                     for i in range(len(res[0]["secs"])))
+        text += (f" | (3) sharded train step {label(train)} on a "
+                 f"{shape[0]}x{shape[1]} mesh: loss {res[0]['loss']:.9f} "
+                 f"(single {t_loss:.9f}), gradients within rtol "
+                 f"{SHARD_GRAD_RTOL} atol {SHARD_GRAD_ATOL} (max |diff| "
+                 f"{worst:.3e}), parameters bit-equal across ranks after two "
+                 f"steps; {step_s:.4f} s a step (single {min(t_secs):.4f} "
+                 f"s); K1 / K3 launches a step by rank "
+                 f"{by_rank(c, 'sphere_sweep', 'segment_sum')}")
+
+    # (4) Several cards.
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards < 2:
+        text += (f" | (4) several cards: this machine has {n_cards}; nccl "
+                 "across cards needs two or more and did not run")
+    else:
+        n = min(4, n_cards)
+        shapes = [(n, 1), (n // 2, 2)]
+        cases = [("render", cli, "sweep", sh, 1) for sh in shapes] \
+            + [("scaling", cli, 2)]
+        t0 = time.monotonic()
+        got = spawn_ranks(n, "nccl", [f"cuda:{r}" for r in range(n)], cases)
+        spawn_s = time.monotonic() - t0
+        parts = []
+        for c, sh in enumerate(shapes):
+            for g in got[1:]:
+                assert g[c]["digests"] == got[0][c]["digests"], sh
+            total = got[0][c]["sums"][0]
+            if sh[1] == 1:
+                assert np.array_equal(gamma_image(total, spp, W, H), ref), \
+                    f"nccl {sh}: not byte-equal"
+                err = 0.0
+            else:
+                err = float(np.abs(finish_image(total.astype(np.float64),
+                                                spp, W, H) - ref).max())
+                assert err <= SPP_SHARD_TOL, (sh, err)
+            parts.append(f"{sh[0]}x{sh[1]} {wall(c):.3f} s "
+                         f"({rays / wall(c) / 1e6:.3f} Mrays/s), max |gamma "
+                         f"- single| {err:.3e}")
+        points = got[0][len(shapes)]["points"]
+        text += (f" | (4) nccl across {n} cards (spawned and joined in "
+                 f"{spawn_s:.1f} s), {label(cli)}: " + "; ".join(parts)
+                 + "; scaling (best of 2) "
+                 + ", ".join(f"{p['n_devices']} cards {p['seconds']:.3f} s "
+                             f"{p['mrays_per_s']:.3f} Mrays/s efficiency "
+                             f"{p['efficiency']:.3f}" for p in points))
+    return (f"multi-GPU ({'; '.join(smi.splitlines())}; "
+            f"{time.monotonic() - t_phase:.1f} s): " + text)
+
+
+def kernel_wrappers():
+    """Each hand kernel's wrapper by name: each adds one to its
+    ``launches`` where it launches its kernel."""
+    from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
+    from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import cluster_sweep
+    from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
+    from hyper_ray_tracer_tpu_torch.ops.turbulence import (
+        noise_texture,
+        noise_texture_grad,
+    )
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import typed_sweep
+
+    return {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
+            "turbulence": noise_texture,
+            "turbulence_bwd": noise_texture_grad,
+            "segment_sum": segment_sum, "bvh_traverse": bvh_traverse,
+            "cluster_sweep": cluster_sweep}
+
+
+def reset_launches(wrappers):
+    for w in wrappers.values():
+        w.launches = 0
+    for name in ("sphere_sweep", "typed_sweep"):  # their partitioned form's
+        wrappers[name].partitioned = 0
+
+
+def read_launches(wrappers):
+    return {name: w.launches for name, w in wrappers.items()}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2744,7 +3212,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: phase 15 then "
                          "times its K3 design in turns with this one")
-    parent = ap.parse_args(argv).parent
+    ap.add_argument("--only-parallel", action="store_true",
+                    help="build the kernels and run phase 26 alone (no "
+                         "result line): the multi-GPU phase on a machine "
+                         "with several cards")
+    args = ap.parse_args(argv)
+    parent = args.parent
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -2763,9 +3236,6 @@ def main(argv=None) -> int:
         TT_SOLID,
     )
     from hyper_ray_tracer_tpu_torch.ops import rng as prng
-    from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
-    from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import cluster_sweep
-    from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
     from hyper_ray_tracer_tpu_torch.ops.intersect import (
         gather_prim_shade_packed,
         hit_detail,
@@ -2776,7 +3246,6 @@ def main(argv=None) -> int:
     )
     from hyper_ray_tracer_tpu_torch.ops.turbulence import (
         noise_texture,
-        noise_texture_grad,
         noise_texture_plain,
     )
     from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
@@ -2797,20 +3266,13 @@ def main(argv=None) -> int:
              PT_BOX: "box", PT_MEDIUM_BOX: "box"}
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    wrappers = {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
-                "turbulence": noise_texture,
-                "turbulence_bwd": noise_texture_grad,
-                "segment_sum": segment_sum, "bvh_traverse": bvh_traverse,
-                "cluster_sweep": cluster_sweep}
+    wrappers = kernel_wrappers()
 
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        for w in (sphere_sweep, typed_sweep):  # their partitioned form's
-            w.partitioned = 0
+        reset_launches(wrappers)
 
     def counts():
-        return {name: w.launches for name, w in wrappers.items()}
+        return read_launches(wrappers)
 
     # Phase 1: device and kernel builds, one nvcc per source, all at once.
     t0 = time.monotonic()
@@ -2848,6 +3310,11 @@ def main(argv=None) -> int:
     phase(1, f"device {kind!r} count {torch.cuda.device_count()} | "
           f"nvidia-smi: {smi} | {len(sources)} sources ({', '.join(sources)})"
           f" built in {build_s:.2f} s | " + " | ".join(notes))
+    if args.only_parallel:
+        phase(26, parallel_phase(dev, reset_counts, counts, smi))
+        print(smi)
+        print("chip_smoke --only-parallel: phases 2-25 not run; no result")
+        return 0
 
     def camera(scene, W, H, pixel_ids, sample_ids):
         return init_state(make_basis(scene.camera, W, H), W, H, pixel_ids,
@@ -3421,6 +3888,9 @@ def main(argv=None) -> int:
     part_text, part_record = partition_phase(
         dev, kinds, reset_counts, counts, final_sweep_png, random_png)
     phase(25, part_text)
+
+    # Phase 26: multi-GPU rendering and training through torch.distributed.
+    phase(26, parallel_phase(dev, reset_counts, counts, smi))
 
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",

@@ -217,6 +217,17 @@ def prepare_scene(scene: Scene, intersector=None, leaf_size: int = 4):
     return scene.arrays._replace(geom=geom), bvh, mode
 
 
+def check_upload(scene: SceneTensors, mode: str, leaf_size: int) -> None:
+    """Raise ``ValueError`` unless ``scene`` was uploaded in ``mode``
+    (``prepare_scene``'s) and, in BVH mode, at ``leaf_size``."""
+    if scene.mode != mode:
+        raise ValueError(f"the scene is uploaded in {scene.mode} mode, the "
+                         f"trace runs in {mode} mode")
+    if mode == "bvh" and scene.bvh.leaf_size != leaf_size:
+        raise ValueError(f"the scene is uploaded at leaf size "
+                         f"{scene.bvh.leaf_size}, the trace's is {leaf_size}")
+
+
 def block_order(width: int, height: int, block_w: int = 64,
                 block_h: int = 32) -> np.ndarray:
     """Pixel launch permutation of cluster mode (the JAX package's
@@ -496,8 +507,9 @@ def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
                        remat=remat, schedule=schedule)
 
 
-def _gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:
-    """sqrt-gamma (application.rs:451-453), bottom-up rows -> top-down."""
+def gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:
+    """sqrt-gamma (application.rs:451-453), bottom-up rows -> top-down:
+    ``render_image``'s finish of its float32 accumulator."""
     img = np.sqrt(np.maximum(acc / samples, 0.0)).astype(np.float32)
     return img.reshape(H, W, 3)[::-1]
 
@@ -516,14 +528,49 @@ def spp_per_chunk(settings: RenderSettings) -> int:
     return chunk
 
 
+def accumulate_samples(acc, scene: SceneTensors, background,
+                       basis: CameraBasis, width: int, height: int, pix,
+                       sample0: int, samples: int, chunk: int, seed: int,
+                       depth: int, coherent: bool = False,
+                       schedule: Optional[PartitionSchedule] = None):
+    """Trace the camera rays of the lanes ``pix`` (pixel ids, int64 [n] on
+    the scene's device) for the samples ``sample0`` .. ``samples - 1``,
+    ``chunk`` samples at a time (lane = sample * n + i traces pixel
+    ``pix[i]``), and add each lane's radiance to ``acc[i]`` ([n, 3]
+    float32, in place); a generator that yields the samples done after
+    every chunk.  ``coherent`` and ``schedule``: see ``bounce_paths``.
+
+    The samples go into ``acc`` one after the other, so that every
+    pixel's sum is the same left-to-right fold of its samples whatever
+    the chunk boundaries and the number of lanes: torch's ``sum(0)``
+    orders its adds by the shape of what it reduces.  ``render_image``
+    and the sharded renderer (``parallel/render_sharded.py``) share this
+    loop."""
+    n = pix.numel()
+    s = sample0
+    while s < samples:
+        ns = min(chunk, samples - s)
+        rad = trace_paths(scene, background, basis, width, height,
+                          pix.repeat(ns),
+                          torch.arange(s, s + ns, dtype=torch.int64,
+                                       device=pix.device
+                                       ).repeat_interleave(n),
+                          seed, depth, coherent=coherent, schedule=schedule)
+        for sample in rad.reshape(ns, n, 3):
+            acc.add_(sample)
+        s += ns
+        yield s
+
+
 def render_image(scene: Scene, settings: RenderSettings, device,
                  progress_cb=None) -> np.ndarray:
     """Render a full image on ``device``; returns [H, W, 3] float32,
     gamma-corrected (sqrt), rows top-down.
 
     Samples are traced in chunks of ``spp_per_chunk`` samples over every
-    pixel (lane = sample * W * H + pixel) and summed per pixel into one
-    float32 accumulator on the device.  ``settings.intersector`` /
+    pixel (lane = sample * W * H + pixel) and added per pixel, one sample
+    after the other, into one float32 accumulator on the device
+    (``accumulate_samples``).  ``settings.intersector`` /
     ``leaf_size`` pick the trace's mode (``prepare_scene``); in cluster
     mode the lanes trace the pixels in ``block_order`` and each
     compaction orders its survivors by the coherence key, which leaves
@@ -542,14 +589,13 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     ``partition`` flag, ``RENDER_FORMAT``) and it holds at most
     ``samples`` samples, and
     otherwise starts fresh with a warning.  The guarantee: a resumed
-    render is bit-identical to an uninterrupted one with the same chunk
-    boundaries, because every lane's RNG words are a function of its
-    (pixel, sample) alone and the chunks after the resume add the same
-    sums to the same float32 accumulator.  The samples are not part of
-    the identity: a checkpoint at k spp resumes toward any target >= k.
-    Other chunk boundaries (another ``spp_chunk``, or a preview's cap)
-    sum the same samples in another order: the image's low bits may move
-    (tests/test_torch_cli.py bounds it).
+    render is bit-identical to an uninterrupted one, because every lane's
+    RNG words are a function of its (pixel, sample) alone and the samples
+    after the resume are added to the same float32 accumulator in the
+    same order.  The samples are not part of the identity: a checkpoint at
+    k spp resumes toward any target >= k.  Neither are the chunk
+    boundaries (another ``spp_chunk``, or a preview's cap): they change
+    the image not at all (tests/test_torch_cli.py).
     """
     log = get_logger()
     device = torch.device(device)
@@ -567,7 +613,12 @@ def render_image(scene: Scene, settings: RenderSettings, device,
         inv = torch.from_numpy(np.argsort(perm)).to(device)
     else:
         pix = torch.arange(n_pix, dtype=torch.int64, device=device)
+    # acc[i] is the sum of pixel pix[i]; in pixel order for a snapshot.
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
+
+    def pixel_order(a):
+        return (a[inv] if coherent else a).cpu().numpy()
+
     schedule = None
     if settings.partition and mode == "sweep" and scene_t.groups:
         schedule = PartitionSchedule(scene_t.groups)
@@ -587,6 +638,8 @@ def render_image(scene: Scene, settings: RenderSettings, device,
                     and c_acc.shape == tuple(acc.shape)
                     and c_done <= settings.samples):
                 acc = torch.from_numpy(c_acc.astype(np.float32)).to(device)
+                if coherent:
+                    acc = acc[pix]
                 s = c_done
                 log.info("resumed render at %d/%d spp from %s", s,
                          settings.samples, settings.checkpoint_path)
@@ -597,32 +650,25 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     snapshot_every = settings.snapshot_every or (
         1 if settings.preview_path else 8)
     timer = Timer()
-    rays_done = chunks_done = 0
-    while s < settings.samples:
-        ns = min(chunk, settings.samples - s)
-        pixel_ids = pix.repeat(ns)
-        sample_ids = torch.arange(s, s + ns, dtype=torch.int64,
-                                  device=device).repeat_interleave(n_pix)
-        rad = trace_paths(scene_t, scene.background, basis, W, H, pixel_ids,
-                          sample_ids, settings.seed, settings.depth,
-                          coherent=coherent, schedule=schedule)
-        per_lane = rad.reshape(ns, n_pix, 3).sum(0)
-        acc += per_lane[inv] if coherent else per_lane
-        s += ns
-        rays_done += ns * n_pix
+    rays_done = (settings.samples - s) * n_pix
+    chunks_done = 0
+    for s in accumulate_samples(acc, scene_t, scene.background, basis, W, H,
+                                pix, s, settings.samples, chunk,
+                                settings.seed, settings.depth,
+                                coherent=coherent, schedule=schedule):
         chunks_done += 1
         if (settings.checkpoint_path or settings.preview_path) and (
                 s >= settings.samples or chunks_done % snapshot_every == 0):
-            acc_np = acc.cpu().numpy()
+            acc_np = pixel_order(acc)
             if settings.checkpoint_path:
                 ckpt.save_state(settings.checkpoint_path, acc_np, s, meta)
             if settings.preview_path:
                 write_png(settings.preview_path,
-                          _gamma_image(acc_np, s, W, H))
+                          gamma_image(acc_np, s, W, H))
         if progress_cb is not None:
             progress_cb(s, settings.samples)
     dt = timer.elapsed(acc)
-    acc_np = acc.cpu().numpy()
+    acc_np = pixel_order(acc)
     if schedule is not None and schedule.decisions is not None:
         log.info("partitioned bounces %s (probe category counts %s)",
                  [b for b, on in enumerate(schedule.decisions) if on],
@@ -630,4 +676,4 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     if rays_done and dt > 0:
         log.debug("%s", RayStats(camera_rays=rays_done, depth=settings.depth,
                                  seconds=dt).summary())
-    return _gamma_image(acc_np, settings.samples, W, H)
+    return gamma_image(acc_np, settings.samples, W, H)

@@ -37,6 +37,7 @@ from .models.scene import Scene
 from .ops.edges import make_silhouette_correction
 from .render import (
     PartitionSchedule,
+    check_upload,
     prepare_scene,
     render_radiance,
     resolve_intersector,
@@ -78,6 +79,39 @@ def pixel_lanes(W: int, H: int, spp: int, device):
     return pix.expand(spp, W * H), sam[:, None].expand(spp, W * H)
 
 
+def make_radiance_fn(scene: Scene, W: int, H: int, depth: int,
+                     intersector=None, leaf_size: int = 4,
+                     remat: bool = False, partition: bool = False):
+    """radiance(params, scene_t, basis, pixel_ids, sample_ids, seed) ->
+    (per-lane radiance [N, 3] with gradients to ``params``, the bound
+    scene): the forward render of ``make_loss_fn``, for any lanes of the
+    W x H frame (the sharded loss renders its shard's).  The modes and
+    their checks: see ``make_loss_fn``."""
+    mode = resolve_intersector(scene, intersector)
+    schedule = None  # made at the first call, when partition engages
+    engage = partition and mode == "sweep"
+
+    def radiance(params, scene_t, basis, pixel_ids, sample_ids, seed):
+        nonlocal schedule, engage
+        check_upload(scene_t, mode, leaf_size)
+        if engage and scene_t.groups:
+            if all(g.dynamic_ok for g in scene_t.groups):
+                schedule = PartitionSchedule(scene_t.groups)
+            else:
+                get_logger().info(
+                    "partition groups without boxes computable from the "
+                    "parameters: the train step runs plain")
+        engage = False
+        bound = bind_params(scene_t, params)
+        rad = render_radiance(bound, scene.background, basis, W, H,
+                              pixel_ids.reshape(-1), sample_ids.reshape(-1),
+                              seed, depth, remat=remat, schedule=schedule)
+        return rad, bound
+
+    radiance.schedule = lambda: schedule
+    return radiance
+
+
 def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
                  intersector=None, leaf_size: int = 4, remat: bool = False,
                  silhouette: bool = False, partition: bool = False):
@@ -107,36 +141,16 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
     has no box computable from the parameters, the loss runs plain and
     logs it.  The loss equals the plain one bit for bit; the gradients
     part only by the order in which K3 sums a row's addends."""
-    mode = resolve_intersector(scene, intersector)
+    radiance = make_radiance_fn(scene, W, H, depth, intersector, leaf_size,
+                                remat=remat, partition=partition)
     correction = None
-    schedule = None  # made at the first call, when partition engages
-    engage = partition and mode == "sweep"
 
     def loss_fn(params, scene_t, basis, pixel_ids, sample_ids, seed,
                 target):
-        nonlocal correction, schedule, engage
-        if scene_t.mode != mode:
-            raise ValueError(f"make_loss_fn: the scene is uploaded in "
-                             f"{scene_t.mode} mode, the loss traces in "
-                             f"{mode} mode")
-        if mode == "bvh" and scene_t.bvh.leaf_size != leaf_size:
-            raise ValueError(f"make_loss_fn: the scene is uploaded at leaf "
-                             f"size {scene_t.bvh.leaf_size}, the loss's is "
-                             f"{leaf_size}")
-        if engage and scene_t.groups:
-            if all(g.dynamic_ok for g in scene_t.groups):
-                schedule = PartitionSchedule(scene_t.groups)
-            else:
-                get_logger().info(
-                    "partition groups without boxes computable from the "
-                    "parameters: the train step runs plain")
-        engage = False
-        bound = bind_params(scene_t, params)
-        s_blk = pixel_ids.shape[0]
-        rad = render_radiance(bound, scene.background, basis, W, H,
-                              pixel_ids.reshape(-1), sample_ids.reshape(-1),
-                              seed, depth, remat=remat, schedule=schedule)
-        mean_rad = rad.reshape(s_blk, W * H, 3).mean(0)
+        nonlocal correction
+        rad, bound = radiance(params, scene_t, basis, pixel_ids, sample_ids,
+                              seed)
+        mean_rad = rad.reshape(pixel_ids.shape[0], W * H, 3).mean(0)
         if silhouette:
             if correction is None:
                 correction = make_silhouette_correction(
@@ -145,7 +159,7 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
                 mean_rad = mean_rad + correction(bound, basis, seed)
         return ((mean_rad - target) ** 2).mean()
 
-    loss_fn.schedule = lambda: schedule
+    loss_fn.schedule = radiance.schedule
     return loss_fn
 
 
@@ -162,9 +176,18 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
     ``silhouette``), ``backward`` and ``optimizer``.  ``partition``: see
     ``make_loss_fn``; ``step.schedule()`` is its ``PartitionSchedule``
     once the first step made one, else None."""
-    loss_fn = make_loss_fn(scene, W, H, depth, intersector, leaf_size,
-                           remat=remat, silhouette=silhouette,
-                           partition=partition)
+    return train_step_of(make_loss_fn(scene, W, H, depth, intersector,
+                                      leaf_size, remat=remat,
+                                      silhouette=silhouette,
+                                      partition=partition), learning_rate)
+
+
+def train_step_of(loss_fn, learning_rate: float = 1e-2,
+                  reduce_grads=None):
+    """``make_train_step``'s (init, step) around any ``loss_fn`` of
+    ``make_loss_fn``'s signature.  ``reduce_grads(params)``, when given,
+    runs after the backward pass, every gradient present, and before the
+    adam update (the sharded step folds its ranks' gradients there)."""
 
     def init(scene_t) -> TrainState:
         params = {k: v.detach().clone().requires_grad_()
@@ -187,6 +210,8 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
             for p in state.params.values():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if reduce_grads is not None:
+                reduce_grads(state.params)
             state.optimizer.step()
         return state, loss.detach()
 

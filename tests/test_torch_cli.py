@@ -4,7 +4,7 @@ checkpoints, on the CPU.  The cases of ``tests/test_cli.py`` and
 ``tests/test_utils.py`` at their sizes, then what the port adds: the
 resume is shown to start from a checkpoint that was really written, a
 checkpoint of the JAX package is refused, a bad value in a watch file is
-ignored, and the chunk boundaries' effect on the image is bounded."""
+ignored, and the chunk boundaries leave the image as it is."""
 
 import logging
 import threading
@@ -145,15 +145,17 @@ def test_preview_chunk_granularity(tmp_path, monkeypatch):
 
 
 def test_preview_chunk_cap_moves_only_low_bits():
-    """The preview's cap changes the chunk boundaries, so the samples are
-    summed in another order: measured on three-spheres at 24x14x16 d4,
-    22% of the values move, by at most 1.19e-7 (one float32 ulp near
-    1); bound 1e-6.  With the same boundaries the image is the same."""
+    """The preview's cap changes the chunk boundaries, but every sample
+    is added to the accumulator one after the other whatever the
+    boundaries (``render.accumulate_samples``), so the image is the same
+    bit for bit.  (When each chunk was summed on its own first, 22% of
+    the values moved, by one float32 ulp near 1, on three-spheres at
+    24x14x16 d4.)"""
     scene = build_scene("three-spheres")
     s = dict(width=24, height=14, samples=16, depth=4)
     auto = _render(scene, **s)
     capped = _render(scene, **s, spp_chunk=2)
-    np.testing.assert_allclose(capped, auto, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(capped, auto)
     np.testing.assert_array_equal(capped, _render(scene, **s, spp_chunk=2))
 
 

@@ -562,7 +562,9 @@ def test_step_runs_plain_without_parameter_boxes(small_lanes, caplog):
     groups = tuple(g._replace(dynamic_ok=False) for g in st.groups)
     st2 = st._replace(sweep=st.sweep._replace(groups=groups))
     loss_fn = make_loss_fn(scene, 16, 9, 2, partition=True)
-    with caplog.at_level(logging.INFO):
+    # The port's own logger: a CLI run earlier in the process leaves it
+    # at its verbosity's level, above INFO.
+    with caplog.at_level(logging.INFO, logger="hyper_ray_tracer_tpu_torch"):
         _loss_and_grads(loss_fn, st2, _fresh_params(st2), (16, 9, 1, 2))
     assert loss_fn.schedule() is None
     assert "runs plain" in caplog.text
