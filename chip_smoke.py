@@ -74,9 +74,16 @@ cluster mode on a rays mesh (byte-equal) and the CLI default on an spp
 mesh (within 2e-6, byte-equal run to run); the sharded train step
 (losses and gradients against the single process's, the ranks'
 parameters bit-equal after two steps); on a machine with several cards,
-nccl across up to four of them and the scaling points.  Each phase
-prints one line, with its seconds; any failure ends the run with a
-non-zero exit.
+nccl across up to four of them and the scaling points.  K1b's bf16 form
+(phase 27, ``RenderSettings.bf16_hits``): bit-equal to its twin on the
+camera rays of `three-spheres`, `final`'s bench and `sphereflake` in
+sweep mode, masked too, its pair loop's SASS free of fused HFMA2 and
+of FFMAs but the dots' (which add exact products), timed beside K1b
+float32 and K1 on `sphereflake`'s camera rays, the images' drift
+against float32, `sphereflake`'s mean radiance both ways, and F6's
+repair (the card's camera rays bit-equal to the
+CPU's).  Each phase prints one line, with its seconds; any failure ends
+the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -86,7 +93,8 @@ archive`` of the parent) makes phase 15 build that checkout's K3 design
 (``csrc/segment_sum.cu`` with torch.sort around it) and time it in turns
 with this one on the same inputs; the kernels line's ``parent_ms`` is
 then that time, else null.  ``--only-parallel`` builds the kernels and
-runs phase 26 alone, without the result lines.
+runs phase 26 alone, without the result lines; ``--only-bf16`` phase
+27 alone.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -387,7 +395,7 @@ def sweep_fp_ops(sw, kinds):
     return ops + sum(per_ray.values()) + SWEEP_SHUTTER_OPS * len(slots)
 
 
-def sass_pair_ops(sass, kernel, rays):
+def sass_pair_ops(sass, kernel, rays, opcodes=None, lines=None):
     """Instructions per ray-primitive pair of the pair loop of the function
     whose name contains ``kernel`` in the SASS text ``sass``: its innermost
     loop with the most instructions, which folds one record into ``rays``
@@ -397,7 +405,10 @@ def sass_pair_ops(sass, kernel, rays):
     out), ``all`` (every instruction, loads and branches included); and
     ``branch``: all instructions of the blocks a branch inside the loop
     may skip (the roots of a sphere the ray's line meets, a moving
-    sphere's lerp, the slow paths of a division)."""
+    sphere's lerp, the slow paths of a division).  ``opcodes``: a dict
+    that gets each opcode's count in the code every trip issues,
+    modifiers included; ``lines``: a list that gets that code's
+    instructions as text."""
     func = next(f for f in sass.split("Function : ")[1:]
                 if kernel in f.splitlines()[0])
     ins = [(int(a, 16), op) for a, _, op in re.findall(
@@ -426,6 +437,11 @@ def sass_pair_ops(sass, kernel, rays):
         if any(g < a < t for g, t in guards):
             out["branch"] += 1
             continue
+        if opcodes is not None:
+            opcodes[op] = opcodes.get(op, 0) + 1
+        if lines is not None:
+            lines.append(re.search(rf"/\*{a:04x}\*/\s*([^;]*);", func)
+                         .group(1).strip())
         base = op.split(".")[0]
         out["fp32"] += SASS_FP32.get(base, 0)
         out["int"] += base in SASS_INT and not op.startswith("IMAD.MOV")
@@ -758,7 +774,7 @@ def k3_line(k3, ptxas_note):
             + f"; ptxas: {ptxas_note}")
 
 
-def k3_step_cost(scene, dev, shape, rounds=2, steps=5):
+def k3_step_cost(scene, dev, shape, rounds=1, steps=5):
     """K3's cost in a train step: the step as it ships against the same
     step with the gathers' backward through ``index_add_``
     (``gather_rows`` swapped for ``index_select`` in ``ops/intersect``
@@ -1070,6 +1086,14 @@ SIL_NO_SHELL_SHARE = 2e-4
 # between the devices (``kept_loss_grads``) at phase 11's 2e-4; the whole
 # frame at 2e-2, the 1-2-5 step at least 3x the 4.22e-3 measured (H100,
 # PERF.md), as `final`'s flips are in CARD_GRAD_SHARE (ROADMAP F5).
+# The parting lanes (F6, ROADMAP: each torch call's values of the lanes
+# recorded on both devices): four parted from the
+# camera ray on, where torch's CUDA division by a Python number
+# multiplied by the reciprocal (``render.init_state`` now divides by a
+# tensor, ``ops/math.div_rn``); the lane that may still part does so
+# through torch's own CUDA rounding of cos, sin and atan2 and of a
+# three-term sum(-1) (added (a + c) + b on the card), an ulp that a
+# grazing hit on the r = 1000 ground turns into another path.
 FLAKE_SMALL_SHARE = 2e-2
 FLAKE_KEPT_SHARE = 2e-4
 # A lane parts between the devices when its radiance differs by more
@@ -3174,6 +3198,215 @@ def parallel_phase(dev, reset_counts, counts, smi, sizes=PARALLEL_SIZES):
             f"{time.monotonic() - t_phase:.1f} s): " + text)
 
 
+# Phase 27: K1b's bf16 form.  The camera rays it is held to its twin on
+# (the bench's and the images' shapes; `sphereflake` in sweep mode at the
+# CLI default's 1280x720), and the images whose drift it reports.
+BF16_RAYS = (("three-spheres", 320, 180, 16), ("final", 400, 225, 16),
+             ("sphereflake", 1280, 720, 1))
+BF16_IMAGES = (("three-spheres", 320, 180, 16, 10),
+               ("final", 400, 225, 16, 10))
+BF16_FLAKE_RENDER = (640, 360, 4, 10)
+# The bf16 form's operations per ray-primitive pair of a bf16 tile
+# (csrc/typed_sweep.cu fold_sphere_pair_bf16): float32, oc's 3
+# differences and the dots half_b and oc.oc, 5 each (a product and two
+# FFMAs); bf16, c 1 (r^2 is the record's), disc 3 and the test 1.  Per
+# ray once: a's 5 float32 and 1/a's division.  The roots, as in
+# SWEEP_PAIR_OPS, are left out.  bf16 at the card's packed rate: 133.8
+# TFLOP/s of bf16 outside the tensor cores on the H100 SXM, twice the
+# FP32 rate (NVIDIA H100 Tensor Core GPU Architecture white paper, table
+# of peak rates: "Peak BF16 (non-Tensor)").
+BF16_PAIR_OPS = {"fp32": 13, "bf16": 5}
+BF16_RAY_OPS = {"fp32": 6, "bf16": 0}
+BF16_OPS_S = 133.8e12
+
+
+def bf16_bound(sw, kinds, n):
+    """(bound_ms, bound_by) of the bf16 form on ``n`` rays over the plan of
+    ``sw``: its float32 tiles by ``sweep_fp_ops``' counts, its bf16 tiles
+    by BF16_PAIR_OPS, each kind of operation over its rate; bytes as the
+    float32 sweep's (45 a ray)."""
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import bf16_tile
+
+    f32 = sw._replace(plan=tuple(t for t in sw.plan if not bf16_tile(t)))
+    low = sum(t.width for t in sw.plan if bf16_tile(t))
+    fp32 = (sweep_fp_ops(f32, kinds) if f32.plan else 0) \
+        + low * BF16_PAIR_OPS["fp32"] + BF16_RAY_OPS["fp32"]
+    bf16 = low * BF16_PAIR_OPS["bf16"] + BF16_RAY_OPS["bf16"]
+    times = {"bytes": n * 45 / HBM_BYTES_S,
+             "operations": n * (fp32 / FP32_OPS_S + bf16 / BF16_OPS_S)}
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
+               packet=4, reps=3):
+    """Phase 27: K1b's bf16 form against its twin, bit for bit, unmasked
+    and (on scenes with partition groups) masked, on the camera rays of
+    BF16_RAYS, with the share of lanes whose winner differs from the
+    float32 sweep's; K1b bf16, K1b float32 and K1 timed on `sphereflake`'s
+    camera rays beside the bf16 form's bound; the images of BF16_IMAGES
+    with and without bf16_hits (mean |dI|), `sphereflake` in sweep mode
+    both ways (its mean radiance, a finding); with ``probe_sass``
+    (the SASS of csrc/sweep_probe.cu), the bf16 pair loop's instructions
+    by opcode (``packet`` rays a thread).  Returns (text, the
+    kernels-line record)."""
+    from hyper_ray_tracer_tpu_torch import RenderSettings, build_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import partition
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        bf16_engages,
+        bf16_tile,
+        typed_sweep,
+        typed_sweep_plain,
+    )
+    from hyper_ray_tracer_tpu_torch.render import init_state, render_image
+
+    texts, record = [], {}
+    if probe_sass is not None:
+        # The code every trip issues (the roots' branch aside: there the
+        # square root's own FFMA refinement): no HFMA2 whose three
+        # operands are all registers (a product and a sum fused; nvcc
+        # writes a bf16 add as HFMA2 by 1 and a move as HFMA2.MMA of
+        # zeros), and no FFMA but the dots' two each, which add products
+        # exact in float32.
+        ops, code = {}, []
+        per = sass_pair_ops(probe_sass, "fold_probe_bf16", 2 * packet, ops,
+                            code)
+        fused = [c for c in code if c.startswith("HFMA2")
+                 and not re.search(r"(-?RZ|\b-?[0-9.]+\b|0x[0-9a-f]+)"
+                                   r"(,|$)", c.split(None, 1)[1])]
+        assert not fused, fused
+        ffma = sum(c.startswith("FFMA") for c in code)
+        assert ffma <= 4 * 2 * packet, (ffma, code)
+        texts.append(
+            f"SASS of the bf16 pair loop (two spheres x {packet} rays a "
+            f"trip): {per['all']:.2f} instructions a ray-sphere pair "
+            f"({per['branch']:.2f} more where a root is taken); by opcode "
+            + ", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
+            + f"; no fused HFMA2 and {ffma / (2 * packet):.0f} FFMAs a "
+            "pair, the dots' (at most 4, asserted)")
+    for name, W, H, spp in BF16_RAYS:
+        scene = build_scene(name)
+        st, _ = upload(scene, dev, "sweep")
+        assert bf16_engages(st.sweep), name
+        pix = torch.arange(W * H, dtype=torch.int64, device=dev).repeat(spp)
+        sam = torch.arange(spp, dtype=torch.int64,
+                           device=dev).repeat_interleave(W * H)
+        s = init_state(make_basis(scene.camera, W, H), W, H, pix, sam, 0)
+        bits = prng.bounce_base(s.base, 0)
+        args = (st.sweep, s.o, s.d, s.time, s.alive, bits, T_MIN)
+        t_k, b_k = typed_sweep(*args, bf16=True)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        t_p, b_p = typed_sweep_plain(*args, bf16=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.monotonic() - t0) * 1e3
+        assert torch.equal(t_k, t_p) and torch.equal(b_k, b_p), name
+        masked = ""
+        if st.groups:
+            # A bf16 candidate can pass where the ray misses the group's
+            # float32 box, which the mask then leaves out: the masked form
+            # is held to the masked twin.
+            mask = partition.group_mask(st.groups, s.o, s.d, st.group_aabbs)
+            t_m, b_m = typed_sweep(*args, mask=mask, bf16=True)
+            t_q, b_q = typed_sweep_plain(*args, mask=mask, bf16=True)
+            assert torch.equal(t_m, t_q) and torch.equal(b_m, b_q), name
+            masked = (f", masked too (the masked winner differs from the "
+                      f"unmasked on {int((b_m != b_k).sum())} lanes: bf16 "
+                      f"hits outside a group's box)")
+        t_f, b_f = typed_sweep(*args)
+        n = s.o.shape[0]
+        changed = int((b_f != b_k).sum())
+        low = sum(t.width for t in st.sweep.plan if bf16_tile(t))
+        texts.append(f"{name} {W}x{H}x{spp} ({n} rays, {low} of "
+                     f"{st.static.n_prims} primitives in bf16 tiles): "
+                     f"bit-equal to the twin{masked}; winner differs from "
+                     f"float32 on {changed} lanes ({changed / n:.3e})")
+        if name == "sphereflake":
+            k1b16 = device_ms(lambda *a: typed_sweep(*a, bf16=True), args,
+                              reps)
+            k1b32 = device_ms(lambda *a: typed_sweep(*a), args, reps)
+            k1 = device_ms(sphere_sweep, (*st.spheres, s.o, s.d, s.time,
+                                          s.alive, T_MIN), reps)
+            bnd = bf16_bound(st.sweep, kinds, n)
+            b32 = bound(n * 45, n * sweep_fp_ops(st.sweep, kinds))
+            record = dict(ms=k1b16, plain_ms=plain_ms, bound_ms=bnd[0],
+                          bound_by=bnd[1],
+                          max_abs_err=float((t_k - t_p).abs().max()))
+            texts.append(
+                f"sphereflake camera rays: K1b bf16 {k1b16:.4f} ms, K1b "
+                f"float32 {k1b32:.4f}, K1 {k1:.4f} (device time, {reps} "
+                f"each); the bf16 form's bound {bnd[0]:.4f} ms ({bnd[1]}; "
+                f"{bnd[0] / k1b16:.3f} of it), float32's {b32[0]:.4f} "
+                f"({b32[1]}); its twin {plain_ms:.1f} ms")
+    for name, W, H, spp, depth in BF16_IMAGES:
+        scene = build_scene(name)
+        base = dict(width=W, height=H, samples=spp, depth=depth)
+        img32 = render_image(scene, RenderSettings(**base), dev)
+        reset_counts()
+        img16 = render_image(scene, RenderSettings(**base, bf16_hits=True),
+                             dev)
+        c = counts()
+        assert c["typed_sweep_bf16"] > 0, (name, c)
+        if name == "final":
+            record["launches"] = c["typed_sweep_bf16"]
+        assert np.isfinite(img16).all()
+        texts.append(f"{name} {W}x{H}x{spp} d{depth}: mean |dI| bf16 vs "
+                     f"float32 {np.abs(img16 - img32).mean():.6f} (K1b bf16 "
+                     f"launches {c['typed_sweep_bf16']}, K1 "
+                     f"{c['sphere_sweep']})")
+    W, H, spp, depth = BF16_FLAKE_RENDER
+    flake = build_scene("sphereflake")
+    base = dict(width=W, height=H, samples=spp, depth=depth,
+                intersector="sweep")
+    m32 = render_image(flake, RenderSettings(**base), dev)
+    m16 = render_image(flake, RenderSettings(**base, bf16_hits=True), dev)
+    lin32, lin16 = (np.square(x.astype(np.float64)) for x in (m32, m16))
+    dI = np.abs(m16 - m32)
+    texts.append(f"sphereflake {W}x{H}x{spp} d{depth} sweep mode: mean "
+                 f"radiance float32 {lin32.mean():.6f}, bf16 "
+                 f"{lin16.mean():.6f}; mean |dI| {dI.mean():.6f}; pixels "
+                 f"differing by more than 0.1: "
+                 f"{int((dI.max(-1) > 0.1).sum())} of {W * H}")
+    return " | ".join(texts), record
+
+
+# F6: phase 20's `sphereflake-small` shape (64x36x2 d4), whose lanes
+# parted between the card and the CPU (ROADMAP F6).
+F6_SHAPE = (64, 36, 2, 4)
+
+
+def f6_pin(dev):
+    """F6's repair on the card: `sphereflake-small`'s camera rays at phase
+    20's 64x36x2 bit-equal to the CPU's (asserted), and the lanes' x +
+    jitter that a division by the Python number 63 rounds otherwise on
+    the card than on the CPU (tests/test_torch_cuda.py
+    test_camera_rays_on_card_equal_cpu)."""
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops.math import div_rn
+    from hyper_ray_tracer_tpu_torch.render import init_state
+    from hyper_ray_tracer_tpu_torch.train import pixel_lanes
+
+    x = torch.tensor([28.065364837646484, 40.71052551269531,
+                      27.839258193969727, 22.632497787475586])
+    scalar = int(((x.to(dev) / 63.0).cpu() != x / 63.0).sum())
+    assert torch.equal(div_rn(x.to(dev), 63.0).cpu(), x / 63.0)
+    scene = build_scene("sphereflake-small")
+    W, H, spp, _ = F6_SHAPE
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = (t.reshape(-1) for t in pixel_lanes(W, H, spp, dev))
+    card = init_state(basis, W, H, pix, sam, 0)
+    cpu = init_state(basis, W, H, pix.cpu(), sam.cpu(), 0)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+    return (f"the four lanes' x + jitter over 63: {scalar} of 4 an ulp off "
+            f"the CPU's as x / 63.0 on the card, none through div_rn; "
+            f"sphereflake-small's {W * H * spp} camera rays bit-equal card "
+            f"vs CPU (asserted); the lanes still parting: phase 20's line")
+
+
 def kernel_wrappers():
     """Each hand kernel's wrapper by name: each adds one to its
     ``launches`` where it launches its kernel."""
@@ -3199,10 +3432,12 @@ def reset_launches(wrappers):
         w.launches = 0
     for name in ("sphere_sweep", "typed_sweep"):  # their partitioned form's
         wrappers[name].partitioned = 0
+    wrappers["typed_sweep"].bf16 = 0  # and K1b's bf16 form's
 
 
 def read_launches(wrappers):
-    return {name: w.launches for name, w in wrappers.items()}
+    return {**{name: w.launches for name, w in wrappers.items()},
+            "typed_sweep_bf16": wrappers["typed_sweep"].bf16}
 
 
 def main(argv=None) -> int:
@@ -3216,6 +3451,9 @@ def main(argv=None) -> int:
                     help="build the kernels and run phase 26 alone (no "
                          "result line): the multi-GPU phase on a machine "
                          "with several cards")
+    ap.add_argument("--only-bf16", action="store_true",
+                    help="build the kernels and run phase 27 alone (no "
+                         "result line)")
     args = ap.parse_args(argv)
     parent = args.parent
     if not torch.cuda.is_available():
@@ -3310,6 +3548,13 @@ def main(argv=None) -> int:
     phase(1, f"device {kind!r} count {torch.cuda.device_count()} | "
           f"nvidia-smi: {smi} | {len(sources)} sources ({', '.join(sources)})"
           f" built in {build_s:.2f} s | " + " | ".join(notes))
+    if args.only_bf16:
+        phase(27, bf16_phase(dev, kinds, reset_counts, counts,
+                             sass_of(PROBES), packet)[0]
+              + " | F6: " + f6_pin(dev))
+        print(smi)
+        print("chip_smoke --only-bf16: phases 2-26 not run; no result")
+        return 0
     if args.only_parallel:
         phase(26, parallel_phase(dev, reset_counts, counts, smi))
         print(smi)
@@ -3750,7 +3995,7 @@ def main(argv=None) -> int:
     # Phase 17: what K3 costs a train step against index_add_, in turns.
     phase(17, "train step with the gathers' backward through K3 vs "
           "index_add_ (gather_rows swapped for index_select), in turns "
-          "K3, index_add_, index_add_, K3, twice, each turn the best of 5 "
+          "K3, index_add_, index_add_, K3, each turn the best of 5 "
           "steps from one restored state: " + "; ".join(
               k3_cost_line(name, k3_step_cost(build_scene(name), dev,
                                               TRAIN_SHAPE))
@@ -3892,6 +4137,12 @@ def main(argv=None) -> int:
     # Phase 26: multi-GPU rendering and training through torch.distributed.
     phase(26, parallel_phase(dev, reset_counts, counts, smi))
 
+    # Phase 27: K1b's bf16 form (RenderSettings.bf16_hits); the F6
+    # repair's pin.
+    bf16_text, bf16_record = bf16_phase(dev, kinds, reset_counts, counts,
+                                        sass_of(PROBES), packet)
+    phase(27, bf16_text + " | F6: " + f6_pin(dev))
+
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/sphere_sweep.cu",
@@ -3952,6 +4203,14 @@ def main(argv=None) -> int:
          "old_bound_ms": k4["sphereflake"]["dfs_bound"][0],
          "old_bound_by": k4["sphereflake"]["dfs_bound"][1]},
         k5_record,
+        {"name": "typed_sweep_bf16", "route": "cuda",
+         "source": "hyper_ray_tracer_tpu_torch/csrc/typed_sweep.cu",
+         "replaces": "hyper_ray_tracer_tpu/ops/bvh.py:74",
+         "launches": bf16_record["launches"],
+         "max_abs_err": bf16_record["max_abs_err"],
+         "ms": bf16_record["ms"], "plain_ms": bf16_record["plain_ms"],
+         "bound_ms": bf16_record["bound_ms"],
+         "bound_by": bf16_record["bound_by"], "library_ms": None},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

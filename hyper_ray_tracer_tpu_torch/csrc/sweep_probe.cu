@@ -7,7 +7,8 @@
 // fold_segment runs alone in a kernel of its own, so that chip_smoke.py
 // (phase 5) can count each type's SASS instructions per pair from
 // `cuobjdump -sass` of this library: the innermost loop of fold_probe<...>
-// folds one record into R rays per trip.  The records come from shared
+// folds one record into R rays per trip, that of fold_probe_bf16 two
+// spheres of a bf16 tile (K1b's bf16 form).  The records come from shared
 // memory, as in K1b.
 
 #include "typed_sweep.cu"
@@ -45,3 +46,20 @@ HRT_PROBE(hrt::kRays, kBox, false, false);
 HRT_PROBE(hrt::kRays, kBox, true, false);
 HRT_PROBE(hrt::kRays, kMediumSphere, false, false);
 HRT_PROBE(hrt::kRays, kMediumBox, false, false);
+
+template <int R>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+fold_probe_bf16(const float* __restrict__ o, const float* __restrict__ d,
+                const unsigned char* __restrict__ active, int n, int count,
+                float t_min, float* __restrict__ t_out,
+                int* __restrict__ best_out) {
+  extern __shared__ float4 smem[];
+  hrt::Packet<R> pk;
+  hrt::load_packet<R>(pk, o, d, active, n);
+  fold_segment_bf16<R>(pk, smem, smem + kStage, count, 0, t_min);
+  hrt::store_packet<R>(pk, n, t_out, best_out);
+}
+
+template __global__ void fold_probe_bf16<hrt::kRays>(
+    const float*, const float*, const unsigned char*, int, int, float,
+    float*, int*);

@@ -75,8 +75,37 @@
 // stages and folds no group that none of its rays needs, and in a group's
 // stages the rays whose mask lacks the group are parked.  The plan walk
 // skips the tiles of a group that was left out.
+// The bf16 form (RenderSettings.bf16_hits; the JAX package's
+// make_scan_intersector(..., bf16=True), ops/bvh.py:47-104 and :254-366).
+// A tile of static, untransformed spheres (plan columns type, motion and
+// transform) computes its candidate t's in bfloat16, rounded as the JAX
+// package's jitted XLA rounds them: oc = o - c in float32, then rounded;
+// the three-term dots half_b = oc.d and oc.oc (and a = d.d per ray) as
+// float32 sums, left to right, of products that are exact in float32 (8
+// + 8 bits), each dot rounded to bf16 once; c = oc.oc - bf16(bf16(r)^2),
+// the discriminant and the roots each one rounded bf16 operation; the
+// square root and 1/a in float32, correctly rounded, then rounded to bf16
+// (exact as a bf16 operation: 24 >= 2 * 8 + 2 bits).  The candidate,
+// upcast, replaces the running float32 best only when strictly smaller.
+// Two spheres of a stage go through one __nv_bfloat162 instruction for
+// one ray (the pair's f32 differences and dots each packed by one
+// __floats2bfloat162_rn); __hmul2_rn / __hadd2_rn / __hsub2_rn keep every
+// product and sum rounded on its own (no HFMA2 contraction), and a dot's
+// FFMAs add exact products, so it rounds as a float32 add would
+// (ops/typed_sweep.py sphere_t_bf16, dot3_bf16): the form is bit-equal to
+// its plain twin.  The JAX package bounds a tile's
+// candidates by t_max16 = bf16(the best t at the tile's start); this form
+// takes the nearer root at or above t_min (else the farther) with no
+// upper bound, which picks the same winners: a root above t_max16 =
+// rn(T0) is above rn(T) for the running best T <= T0, and a bfloat16
+// value above rn(T) is above T, so it never passes the strict float32
+// test, nor does the farther root behind it.  Nor does a miss
+// (bf16(3.0e38) in the JAX package, above float32's BIG).  A kBf16 = false
+// instantiation compiles the float32 kernel alone, as before.
 // Registers, shared memory and spills per instantiation: the ptxas report
 // (chip_smoke.py phases 1 and 5).
+
+#include <cuda_bf16.h>
 
 #include "sweep_sphere.cuh"
 
@@ -109,6 +138,20 @@ __device__ __forceinline__ Tile load_tile(const int4* __restrict__ plan,
                                           int k) {
   const int4 a = __ldg(&plan[2 * k]), b = __ldg(&plan[2 * k + 1]);
   return Tile{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
+}
+
+// 4-byte asynchronous copy global -> shared (cp.async.ca: the bf16
+// tiles' squared radii, one float each).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+// Whether plan tile t folds in bf16 (ops/bvh.py:254-256's rule).
+__device__ __forceinline__ bool bf16_tile(const Tile& t) {
+  return t.type == kSphere && !t.motion && !t.xform;
 }
 
 // The media's bound: each ray's best t at the current medium tile's start,
@@ -288,15 +331,143 @@ __device__ __forceinline__ void fold_segment(
   }
 }
 
+// x unchanged, as pin does for a float: a per-ray bf16 term stays out of
+// the pair loop.
+__device__ __forceinline__ __nv_bfloat162 pin2(__nv_bfloat162 x) {
+  unsigned u = *reinterpret_cast<unsigned*>(&x);
+  asm volatile("" : "+r"(u));
+  return *reinterpret_cast<__nv_bfloat162*>(&u);
+}
+
+// dot3 of float32 copies of bf16 values: the products are exact, so each
+// FFMA rounds as the float32 add of the twin's left-to-right sum.
+__device__ __forceinline__ float dot3_exact(float ax, float ay, float az,
+                                            float bx, float by, float bz) {
+  return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
+}
+
+// A ray's bf16 terms: d rounded to bf16 (as float32, for the dots), and a
+// = d.d and 1 / a, each held twice in a pair.
+template <int R>
+struct Bf16Rays {
+  float dx[R], dy[R], dz[R];
+  __nv_bfloat162 a[R], inv_a[R];
+};
+
+template <int R>
+__device__ __forceinline__ void bf16_rays(const hrt::Packet<R>& pk,
+                                          Bf16Rays<R>& br) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    br.dx[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dx[r])));
+    br.dy[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dy[r])));
+    br.dz[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dz[r])));
+    const __nv_bfloat16 a = __float2bfloat16_rn(dot3_exact(
+        br.dx[r], br.dy[r], br.dz[r], br.dx[r], br.dy[r], br.dz[r]));
+    br.a[r] = pin2(__bfloat162bfloat162(a));
+    br.inv_a[r] = pin2(__float2bfloat162_rn(
+        __fdiv_rn(1.0f, __bfloat162float(a))));
+  }
+}
+
+// Ray r's candidate of one sphere: the nearer root at or above t_min16,
+// else the farther; it replaces the best only when strictly smaller.
+template <int R>
+__device__ __forceinline__ void bf16_update(hrt::Packet<R>& pk, int r,
+                                            float disc, float t_near,
+                                            float t_far, int idx,
+                                            float t_min16) {
+  if (disc >= 0.0f) {
+    const float t = t_near >= t_min16 ? t_near
+                    : t_far >= t_min16 ? t_far
+                                       : kBig;
+    hrt::update_best(pk, r, t, idx);
+  }
+}
+
+// Fold spheres idx and idx + 1 (g0, g1; their bf16(r)^2 in rr) into every
+// ray of the packet, one bf16x2 operation for both; two = false: g1 is g0
+// again and only idx is folded.  The second phase runs only when some
+// ray's line meets one of them, as hrt::fold_sphere's.
+template <int R>
+__device__ __forceinline__ void fold_sphere_pair_bf16(
+    hrt::Packet<R>& pk, const Bf16Rays<R>& br, const float4 g0,
+    const float4 g1, const __nv_bfloat162 rr, int idx, bool two,
+    float t_min16) {
+  __nv_bfloat162 half_b[R], disc[R];
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2 ocx = __bfloat1622float2(__floats2bfloat162_rn(
+        __fsub_rn(pk.ox[r], g0.x), __fsub_rn(pk.ox[r], g1.x)));
+    const float2 ocy = __bfloat1622float2(__floats2bfloat162_rn(
+        __fsub_rn(pk.oy[r], g0.y), __fsub_rn(pk.oy[r], g1.y)));
+    const float2 ocz = __bfloat1622float2(__floats2bfloat162_rn(
+        __fsub_rn(pk.oz[r], g0.z), __fsub_rn(pk.oz[r], g1.z)));
+    half_b[r] = __floats2bfloat162_rn(
+        dot3_exact(ocx.x, ocy.x, ocz.x, br.dx[r], br.dy[r], br.dz[r]),
+        dot3_exact(ocx.y, ocy.y, ocz.y, br.dx[r], br.dy[r], br.dz[r]));
+    const __nv_bfloat162 c = __hsub2_rn(
+        __floats2bfloat162_rn(
+            dot3_exact(ocx.x, ocy.x, ocz.x, ocx.x, ocy.x, ocz.x),
+            dot3_exact(ocx.y, ocy.y, ocz.y, ocx.y, ocy.y, ocz.y)),
+        rr);
+    disc[r] = __hsub2_rn(__hmul2_rn(half_b[r], half_b[r]),
+                         __hmul2_rn(br.a[r], c));
+    const float2 df = __bfloat1622float2(disc[r]);
+    any = any || df.x >= 0.0f || df.y >= 0.0f;
+  }
+  if (!any) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float2 df = __bfloat1622float2(disc[r]);
+    if (df.x >= 0.0f || df.y >= 0.0f) {
+      const __nv_bfloat162 sq = __floats2bfloat162_rn(
+          __fsqrt_rn(fmaxf(df.x, 0.0f)), __fsqrt_rn(fmaxf(df.y, 0.0f)));
+      const __nv_bfloat162 nhb = __hneg2(half_b[r]);
+      const float2 tn =
+          __bfloat1622float2(__hmul2_rn(__hsub2_rn(nhb, sq), br.inv_a[r]));
+      const float2 tf =
+          __bfloat1622float2(__hmul2_rn(__hadd2_rn(nhb, sq), br.inv_a[r]));
+      bf16_update(pk, r, df.x, tn.x, tf.x, idx, t_min16);
+      if (two) bf16_update(pk, r, df.y, tn.y, tf.y, idx + 1, t_min16);
+    }
+  }
+}
+
+// Fold `count` staged records of a bf16 tile (first index idx0; the x of
+// each aux record: its bf16(r)^2) into the packet, two spheres a trip.
+template <int R>
+__device__ __forceinline__ void fold_segment_bf16(hrt::Packet<R>& pk,
+                                                  const float4* sg,
+                                                  const float4* sa,
+                                                  int count, int idx0,
+                                                  float t_min) {
+  const float t_min16 = __bfloat162float(__float2bfloat16_rn(t_min));
+  Bf16Rays<R> br;
+  bf16_rays<R>(pk, br);
+#pragma unroll 1
+  for (int j = 0; j < count; j += 2) {
+    const bool two = j + 1 < count;
+    const int k = two ? j + 1 : j;
+    fold_sphere_pair_bf16<R>(pk, br, sg[j], sg[k],
+                             __floats2bfloat162_rn(sa[j].x, sa[k].x),
+                             idx0 + j, two, t_min16);
+  }
+}
+
 // Issue the cp.async copies of the stage [lo, hi) into ring slot buf,
 // walking the plan from tile `tile` (past the tiles that end at or before
 // lo, which a left-out group's stages skip; left at the first tile that
-// goes on past hi).  Only the records a tile's type reads are copied.
+// goes on past hi).  Only the records a tile's type reads are copied; a
+// bf16 tile (kBf16) copies each sphere's rr16 into the x of its aux
+// record, which a static sphere does not read.
+template <bool kBf16>
 __device__ __forceinline__ void stage_copy(
     const Ring& ring, int lo, int hi, int buf, int& tile,
     const int4* __restrict__ plan, int n_tiles,
     const float4* __restrict__ geo, const float4* __restrict__ aux,
-    const float4* __restrict__ xf) {
+    const float4* __restrict__ xf, const float* __restrict__ rr16) {
   float4* sg = ring.geo + buf * kStage;
   float4* sa = ring.aux + buf * kStage;
   float4* sx = ring.xf + buf * 3 * kStage;
@@ -309,9 +480,12 @@ __device__ __forceinline__ void stage_copy(
     if (t.start >= hi) break;
     const int a = max(lo, t.start), b = min(hi, t.start + t.width);
     const bool need_aux = t.type != kSphere || t.motion;
+    const bool need_rr = kBf16 && bf16_tile(t);
     for (int j = threadIdx.x; j < b - a; j += kThreads) {
       hrt::cp_async16(sg + (a - lo) + j, geo + a + j);
       if (need_aux) hrt::cp_async16(sa + (a - lo) + j, aux + a + j);
+      if (need_rr)
+        cp_async4(reinterpret_cast<float*>(sa + (a - lo) + j), rr16 + a + j);
     }
     if (t.xform) {
       const float4* src = xf + 3 * (t.xf_off + a - t.start);
@@ -324,8 +498,9 @@ __device__ __forceinline__ void stage_copy(
 }
 
 // Fold ring slot buf (the stage [lo, hi)) into the packet, tile segment by
-// tile segment, from tile `tile` on (walked as in stage_copy).
-template <int R>
+// tile segment, from tile `tile` on (walked as in stage_copy); kBf16: the
+// bf16 tiles through the bf16 form.
+template <int R, bool kBf16>
 __device__ __forceinline__ void fold_stage(
     hrt::Packet<R>& pk, const RayInputs& in, const Ring& ring, int lo,
     int hi, int buf, int& tile, const int4* __restrict__ plan, int n_tiles,
@@ -354,6 +529,12 @@ __device__ __forceinline__ void fold_stage(
                                 shutter)
     switch (t.type) {
       case kSphere:
+        if constexpr (kBf16) {
+          if (bf16_tile(t)) {
+            fold_segment_bf16<R>(pk, sg, sa, n_seg, a, t_min);
+            break;
+          }
+        }
         if (t.xform) {
           if (t.motion) HRT_FOLD(kSphere, true, true);
           else HRT_FOLD(kSphere, true, false);
@@ -387,7 +568,7 @@ __device__ __forceinline__ void fold_stage(
   }
 }
 
-template <int R>
+template <int R, bool kBf16>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ time,
@@ -399,6 +580,7 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const int4* __restrict__ plan, int n_tiles, int p,
                    const float2* __restrict__ shutter, float t_min,
                    const hrt::GroupArgs groups,
+                   const float* __restrict__ rr16,
                    float* __restrict__ t_out, int* __restrict__ best_out) {
   extern __shared__ float4 smem[];
   // xf points past the geo and aux slots; with no transformed tile it is
@@ -415,8 +597,8 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
   int copy_tile = 0, fold_tile = 0;
   Cursor cur = Cursor::first();
   if (cur.valid())
-    stage_copy(ring, cur.lo, cur.hi(), 0, copy_tile, plan, n_tiles, geo,
-               aux, xf);
+    stage_copy<kBf16>(ring, cur.lo, cur.hi(), 0, copy_tile, plan, n_tiles,
+                      geo, aux, xf, rr16);
   hrt::cp_async_commit();
   // Every thread, live or not, runs every stage: each has two barriers.
   for (int q = 0; cur.valid(); ++q) {
@@ -424,16 +606,16 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
     {
       const Cursor nxt = cur.next();
       if (nxt.valid())
-        stage_copy(ring, nxt.lo, nxt.hi(), buf ^ 1, copy_tile, plan,
-                   n_tiles, geo, aux, xf);
+        stage_copy<kBf16>(ring, nxt.lo, nxt.hi(), buf ^ 1, copy_tile, plan,
+                          n_tiles, geo, aux, xf, rr16);
     }
     hrt::cp_async_commit();  // possibly empty: keeps one group per stage
     hrt::cp_async_wait<1>();  // this stage has landed (this thread's copies)
     __syncthreads();          // ... and every other thread's
     const int group = cur.group();
     if (pk.live && (group < 0 || hrt::park<R>(pk, groups, group))) {
-      fold_stage(pk, in, ring, cur.lo, cur.hi(), buf, fold_tile, plan,
-                 n_tiles, t_min, shutter);
+      fold_stage<R, kBf16>(pk, in, ring, cur.lo, cur.hi(), buf, fold_tile,
+                           plan, n_tiles, t_min, shutter);
       if (group >= 0) hrt::unpark<R>(pk);
     }
     __syncthreads();  // this slot is read; the stage after next may refill it
@@ -448,12 +630,18 @@ int launch(const float* o, const float* d, const float* time,
            const float4* geo, const float4* aux, const float4* xf,
            const int4* plan, int n_tiles, int p, const float2* shutter,
            bool has_xf, float t_min, const hrt::GroupArgs& groups,
-           float* t_out, int* best_out, cudaStream_t stream) {
+           const float* rr16, float* t_out, int* best_out,
+           cudaStream_t stream) {
   const size_t smem = sizeof(float4) * kStage * (has_xf ? 10 : 4);
   const int blocks = (n + kThreads * R - 1) / (kThreads * R);
-  typed_sweep_kernel<R><<<blocks, kThreads, smem, stream>>>(
-      o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p, shutter,
-      t_min, groups, t_out, best_out);
+  if (rr16 != nullptr)
+    typed_sweep_kernel<R, true><<<blocks, kThreads, smem, stream>>>(
+        o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p,
+        shutter, t_min, groups, rr16, t_out, best_out);
+  else
+    typed_sweep_kernel<R, false><<<blocks, kThreads, smem, stream>>>(
+        o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p,
+        shutter, t_min, groups, nullptr, t_out, best_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,7 +656,9 @@ int launch(const float* o, const float* d, const float* time,
 // masks [n] uint8 (nullptr for the plain sweep) and n_groups <= 2 groups
 // [g0_start, g0_end), [g1_start, g1_end) (sweep_sphere.cuh; the plan's
 // tiles are cut at their bounds); outputs t_out [n] float32 and best_out
-// [n] int32.  has_xf: some tile is transformed.  A mask without groups,
+// [n] int32.  has_xf: some tile is transformed.  rr16 [p] float32, each
+// sphere's bf16(bf16(r)^2) (bf16 values), selects the bf16 form; nullptr
+// the float32 sweep.  A mask without groups,
 // or groups without a mask, is refused.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); it never synchronises.
 extern "C" int hrt_typed_sweep(const float* o, const float* d,
@@ -480,8 +670,8 @@ extern "C" int hrt_typed_sweep(const float* o, const float* d,
                                int has_xf, float t_min,
                                const unsigned char* mask, int n_groups,
                                int g0_start, int g0_end, int g1_start,
-                               int g1_end, float* t_out, int* best_out,
-                               void* stream) {
+                               int g1_end, const float* rr16,
+                               float* t_out, int* best_out, void* stream) {
   if (n <= 0 || n_tiles <= 0 || p <= 0 || n_groups < 0 ||
       n_groups > hrt::kMaxGroups || (mask == nullptr) != (n_groups == 0))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -489,6 +679,7 @@ extern "C" int hrt_typed_sweep(const float* o, const float* d,
                               {g0_end, g1_end}};
   return launch<hrt::kRays>(o, d, time, active, bits, n, geo, aux, xf,
                             reinterpret_cast<const int4*>(plan), n_tiles, p,
-                            shutter, has_xf != 0, t_min, groups, t_out,
-                            best_out, static_cast<cudaStream_t>(stream));
+                            shutter, has_xf != 0, t_min, groups, rr16,
+                            t_out, best_out,
+                            static_cast<cudaStream_t>(stream));
 }

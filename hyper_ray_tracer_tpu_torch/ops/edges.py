@@ -73,7 +73,7 @@ from ..models.scene import (
 )
 from . import rng as prng
 from .gather import gather_rows
-from .math import sqrt_capped_grad
+from .math import div_rn, sqrt_capped_grad
 
 _TWO_PI = np.float32(2.0 * np.pi)
 _PROBE_SALT = 0x51E77E00  # the probes' seed word, XORed with the seed
@@ -955,8 +955,8 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
         key their RNG words (``seed ^ salt``, lane, probe).  ``keep``: a
         list that gets each probe's starting wavefront."""
         n = xy.shape[0]
-        s = xy[:, 0] / float(np.float32(W - 1))
-        t = xy[:, 1] / float(np.float32(H - 1))
+        s = div_rn(xy[:, 0], float(np.float32(W - 1)))
+        t = div_rn(xy[:, 1], float(np.float32(H - 1)))
         o = basis.origin.expand(n, 3) + offs
         d = (basis.lower_left + s[:, None] * basis.horizontal
              + t[:, None] * basis.vertical - basis.origin - offs)
@@ -971,7 +971,7 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
             if keep is not None:
                 keep.append(st)
             out = out + bounce_paths(scene_t, background, st, depth)
-        return out / float(np.float32(n_probe))
+        return div_rn(out, float(np.float32(n_probe)))
 
     def finish_part(xy, tau, cen_xy, pre_valid):
         """From sample positions ``xy`` [K,M,2] (with their graph),

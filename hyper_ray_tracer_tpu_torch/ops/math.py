@@ -35,6 +35,15 @@ def sqrt_rn(x):
     return torch.sqrt(x.double()).float()
 
 
+def div_rn(x, c: float):
+    """``x / c`` correctly rounded on every device.  torch's CUDA division
+    by a Python number (or any CPU scalar) multiplies by the number's
+    float32 reciprocal instead (ATen's ``div_true_kernel_cuda``), an ulp
+    off the quotient on many lanes, where the CPU divides; a divisor that
+    lies on ``x``'s own device is divided on both."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 class _SqrtCappedGrad(torch.autograd.Function):
     """sqrt whose derivative is clipped to ``SQRT_GRAD_CAP``.
 

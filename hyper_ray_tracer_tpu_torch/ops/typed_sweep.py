@@ -45,12 +45,23 @@ group, media with their tile-start bound, ties to the lowest index).
 raises.  Since a lane whose mask lacks a group's bit cannot hit that
 group (``overlap_masks`` is conservative), the partitioned form returns
 what the plain form does on every lane.
+
+The bf16 form (``bf16=True``; ``RenderSettings.bf16_hits``, the JAX
+package's ``make_scan_intersector(..., bf16=True)``,
+``hyper_ray_tracer_tpu/ops/bvh.py:47-104, 254-366``): a plan tile of
+static, untransformed spheres (``bf16_tile``) computes its candidate t's
+in bfloat16 (``sphere_t_bf16``), takes the first minimum and replaces a
+lane's float32 best only with a strictly smaller upcast value; every
+other tile folds in float32 as before.  Winners near a tie or at a
+silhouette may differ from the float32 sweep's; the renderer recomputes
+the winner's t in float32.  ``bf16_engages`` says whether a scene has a
+bf16 tile at all.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -65,6 +76,7 @@ from ..models.scene import (
     PT_SPHERE,
 )
 from .intersect import BIG, PrimFields, prim_hit_t
+from .math import sqrt_rn
 from .partition import check_mask, group_bit, group_bounds
 from .sphere_sweep import sphere_records
 
@@ -135,6 +147,76 @@ def tile_plan(geom, n_prims: int, max_tile: int = SCAN_TILE, cuts=()):
     return plan
 
 
+# The bf16 form's miss value, bf16(3.0e38) = 3.0045e38: above float32's
+# BIG, so a tile a lane misses never updates it.
+BF16_BIG = float(torch.tensor(3.0e38).to(torch.bfloat16).float())
+
+
+def bf16_tile(tile) -> bool:
+    """Whether a plan tile folds in bf16 under the bf16 form: static,
+    untransformed spheres only (``hyper_ray_tracer_tpu/ops/bvh.py:254-256``;
+    a rect's interval tests in bf16 were measured there to jitter edges)."""
+    return tile.ptype == PT_SPHERE and not tile.motion and not tile.xform
+
+
+def bf16_engages(sw) -> bool:
+    """Whether the bf16 form changes anything on the SweepScene ``sw``:
+    some plan tile is a ``bf16_tile`` (``ops/bvh.py:270``'s ``use_bf16``)."""
+    return sw is not None and any(bf16_tile(t) for t in sw.plan)
+
+
+def dot3_bf16(a, b):
+    """The three-term dot of bfloat16 vectors ``a``, ``b`` [..., 3] as
+    the JAX package's jitted XLA computes it: each product exact in
+    float32 (8 + 8 bits), the sum left to right in float32, rounded to
+    bfloat16 once."""
+    ax, ay, az = a.float().unbind(-1)
+    bx, by, bz = b.float().unbind(-1)
+    return ((ax * bx + ay * by) + az * bz).to(torch.bfloat16)
+
+
+def bf16_ray_terms(d):
+    """The bf16 form's per-ray terms of directions ``d`` [..., 3]: (d16,
+    a16 = d16.d16 (``dot3_bf16``), inv_a16 = 1 / a16, a float32 division,
+    then rounded), bfloat16 tensors."""
+    d16 = d.to(torch.bfloat16)
+    a16 = dot3_bf16(d16, d16)
+    return d16, a16, (1.0 / a16.float()).to(torch.bfloat16)
+
+
+def sphere_t_bf16(center, rr16, o, d16, a16, inv_a16, t_min16, t_max16):
+    """The bf16 candidate t of spheres (``center`` [..., 3] float32,
+    ``rr16`` = bf16(bf16(r)^2)) against rays ``o`` (float32) with
+    ``bf16_ray_terms`` (d16, a16, inv_a16), inclusive [t_min16, t_max16]
+    (bfloat16): the JAX package's ``_sphere_bf16_core``
+    (``ops/bvh.py:74-99``) as the JAX package's jitted sweep rounds it:
+    ``oc = o - c`` in float32, then rounded; the three-term dots
+    ``dot3_bf16`` (one rounding each); every other product, sum or
+    difference one correctly rounded bf16 operation (torch computes it in
+    float32 and rounds once, exact here: 24 >= 2 * 8 + 2 bits); the square
+    root ``sqrt_rn`` in float32, then rounded.  ``BF16_BIG`` on a miss.
+    Returns a bfloat16 tensor."""
+    oc = (o - center).to(torch.bfloat16)
+    half_b = dot3_bf16(oc, d16)
+    c = dot3_bf16(oc, oc) - rr16
+    disc = half_b * half_b - a16 * c
+    sq = sqrt_rn(torch.clamp(disc.float(), min=0.0)).to(torch.bfloat16)
+    t_near = (-half_b - sq) * inv_a16
+    t_far = (-half_b + sq) * inv_a16
+    exists = disc >= 0.0
+    ok1 = exists & (t_near >= t_min16) & (t_near <= t_max16)
+    ok2 = exists & (t_far >= t_min16) & (t_far <= t_max16)
+    return torch.where(ok1, t_near, torch.where(ok2, t_far, BF16_BIG))
+
+
+def bf16_radius_sq(radius):
+    """bf16(bf16(r) * bf16(r)) per primitive as float32 (the bf16 form's
+    squared radius, the kernel's rr16 record; the same on every
+    device)."""
+    r16 = radius.to(torch.bfloat16)
+    return (r16 * r16).float().contiguous()
+
+
 class PlanTile(NamedTuple):
     start: int
     width: int
@@ -158,6 +240,8 @@ class SweepScene(NamedTuple):
     # The partition groups (ops/partition.PartGroup) whose bounds cut the
     # plan; the tiles of group i carry group = i.
     groups: tuple = ()
+    # [P] float32, bf16(bf16(r)^2) per primitive: the bf16 form's radii.
+    rr16: Optional[torch.Tensor] = None
 
 
 def prim_records(geom_np, n_prims: int, lerp):
@@ -268,24 +352,36 @@ def sweep_scene(geom_np, geom, n_prims: int, plan=None,
     prims = PrimFields(*(x.contiguous() for x in prims))
     return SweepScene(plan=tuple(plan), plan_rows=rows, prims=prims,
                       geo=geo, aux=aux, xf=xf, shutter=shutter,
-                      groups=tuple(groups))
+                      groups=tuple(groups),
+                      rr16=bf16_radius_sq(prims.radius.detach()))
 
 
 def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
-                      t_min: float = 1.0e-3, mask=None):
+                      t_min: float = 1.0e-3, mask=None, bf16: bool = False):
     """Plain-torch typed sweep: ``scan_all``'s fold over the plan tiles,
     each tile in steps of ``PLAIN_TILE`` primitives so memory stays
     bounded (the steps of one tile share its start bound).  ``mask``
     (uint8 [N], ``ops/partition.group_mask``): a tile of group i updates
-    only the lanes whose mask has group i's bit."""
+    only the lanes whose mask has group i's bit.  ``bf16``: the bf16
+    form, the ``bf16_tile`` tiles through ``sphere_t_bf16`` with the
+    tile-start best rounded to bf16 as their t_max (a step's first
+    minimum, upcast, against the running best: the same winner as the
+    JAX package's per-tile argmin)."""
     n = o.shape[0]
     check_mask("typed_sweep_plain", mask, sw.groups, n)
     t_best = torch.where(active, BIG, -BIG).to(torch.float32)
     best = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     o_b, d_b, time_b, bits_b = o[:, None], d[:, None], time[:, None], \
         bits[:, None]
+    if bf16:
+        d16, a16, inv_a16 = bf16_ray_terms(d[:, None])
+        t_min16 = float(torch.tensor(t_min).to(torch.bfloat16))
+        rr16 = sw.rr16.to(torch.bfloat16)
     for tile in sw.plan:
         bound = t_best[:, None]  # the tile's stale t_max
+        low = bf16 and bf16_tile(tile)
+        if low:
+            bound = bound.to(torch.bfloat16)
         end = tile.start + tile.width
         lanes = None
         if mask is not None and tile.group >= 0:
@@ -293,11 +389,15 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
         for s in range(tile.start, end, PLAIN_TILE):
             sl = slice(s, min(s + PLAIN_TILE, end))
             pf = PrimFields(*(x[None, sl] for x in sw.prims))
-            t = prim_hit_t(tile.ptype, pf, o_b, d_b, time_b, t_min, bound,
-                           bits_b, has_motion=tile.motion,
-                           has_xform=tile.xform,
-                           rect_axis=None if tile.rect_axis < 0
-                           else tile.rect_axis)
+            if low:
+                t = sphere_t_bf16(pf.p0, rr16[None, sl], o_b, d16, a16,
+                                  inv_a16, t_min16, bound).float()
+            else:
+                t = prim_hit_t(tile.ptype, pf, o_b, d_b, time_b, t_min,
+                               bound, bits_b, has_motion=tile.motion,
+                               has_xform=tile.xform,
+                               rect_axis=None if tile.rect_axis < 0
+                               else tile.rect_axis)
             tt, j = torch.min(t, dim=1)  # first index of the minimum
             upd = tt < t_best
             if lanes is not None:
@@ -312,24 +412,27 @@ def _bind(lib):
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = ([ptr] * 5 + [c_int] + [ptr] * 4 + [c_int, c_int, ptr]
                    + [c_int, ctypes.c_float, ptr, c_int] + [c_int] * 4
-                   + [ptr, ptr, ptr])
+                   + [ptr, ptr, ptr, ptr])
     fn.restype = c_int
     return fn
 
 
 def typed_sweep(sw: SweepScene, o, d, time, active, bits,
-                t_min: float = 1.0e-3, mask=None):
+                t_min: float = 1.0e-3, mask=None, bf16: bool = False):
     """Closest hit per ray over every primitive type.  A CPU tensor takes
     the plain version; a CUDA tensor launches the kernel (building it on
     first use) or raises.  ``mask``: the partitioned form (see
     ``typed_sweep_plain``), which needs a scene whose plan has groups.
-    Counts its kernel launches in ``typed_sweep.launches``, those
-    of the partitioned form also in ``typed_sweep.partitioned``."""
+    ``bf16``: the bf16 form (the module's notes).  Counts its kernel
+    launches in ``typed_sweep.launches``, those of the partitioned form
+    also in ``typed_sweep.partitioned`` and of the bf16 form in
+    ``typed_sweep.bf16``."""
     device = o.device
     n = o.shape[0]
     check_mask("typed_sweep", mask, sw.groups, n)
     if device.type == "cpu":
-        return typed_sweep_plain(sw, o, d, time, active, bits, t_min, mask)
+        return typed_sweep_plain(sw, o, d, time, active, bits, t_min, mask,
+                                 bf16)
     if device.type != "cuda":
         raise ValueError(f"typed_sweep: unsupported device {device}")
     p, f32, i32 = sw.geo.shape[0], torch.float32, torch.int32
@@ -344,7 +447,8 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
              i32),
             ("shutter", sw.shutter, (sw.shutter.shape[0], 2), f32),
             *((("mask", mask, (n,), torch.uint8),) if mask is not None
-              else ())):
+              else ()),
+            *((("rr16", sw.rr16, (p,), f32),) if bf16 else ())):
         cuda_build.check_arg("typed_sweep", name, x, shape, dtype, device)
     if p == 0 or not sw.plan:
         raise ValueError("typed_sweep: no primitives")
@@ -365,12 +469,16 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
         sw.plan_rows.data_ptr(), len(sw.plan), p, sw.shutter.data_ptr(),
         int(has_xf), float(t_min),
         None if mask is None else mask.data_ptr(), len(groups),
-        *group_bounds(groups), t_best.data_ptr(), best.data_ptr())
+        *group_bounds(groups), sw.rr16.data_ptr() if bf16 else None,
+        t_best.data_ptr(), best.data_ptr())
     typed_sweep.launches += 1
     if mask is not None:
         typed_sweep.partitioned += 1
+    if bf16:
+        typed_sweep.bf16 += 1
     return t_best, best
 
 
 typed_sweep.launches = 0
 typed_sweep.partitioned = 0  # of which in the partitioned form
+typed_sweep.bf16 = 0  # of which in the bf16 form

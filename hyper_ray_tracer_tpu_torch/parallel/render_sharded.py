@@ -46,6 +46,7 @@ import torch
 
 from ..camera import CameraBasis
 from ..models.scene import Scene
+from ..ops.typed_sweep import bf16_engages
 from ..render import (
     PartitionSchedule,
     RenderSettings,
@@ -99,7 +100,8 @@ def place_pixels(n_pix: int, pixels, sums) -> torch.Tensor:
 
 def make_sharded_renderer(scene: Scene, W: int, H: int, depth: int,
                           mesh: RenderMesh, intersector=None,
-                          leaf_size: int = 4, partition: bool = True):
+                          leaf_size: int = 4, partition: bool = True,
+                          bf16_hits: bool = False):
     """run(scene_t, basis, sample0, n_samples, seed) -> the [W*H, 3]
     float32 radiance sum over the samples ``sample0`` ..
     ``sample0 + n_samples - 1``, on every rank of ``mesh``, in pixel order
@@ -112,7 +114,10 @@ def make_sharded_renderer(scene: Scene, W: int, H: int, depth: int,
     pixels, and adds each pixel's samples in turn as ``render_image``
     does (``render.accumulate_samples``).
     ``partition``: the partitioned sweep, decided by this rank's first
-    chunk (``render.PartitionSchedule``).
+    chunk (``render.PartitionSchedule``).  ``bf16_hits``: the bf16
+    candidate tests in sweep mode (``RenderSettings.bf16_hits``), never
+    partitioned, as in ``render_image``, so each lane's the same as
+    there.
 
     ``run.local(scene_t, basis, sample0, n_samples, seed, rank)``: mesh
     rank ``rank``'s own sum, [W*H / n_rays, 3] in the order of its
@@ -128,8 +133,10 @@ def make_sharded_renderer(scene: Scene, W: int, H: int, depth: int,
               seed: int, rank: int) -> torch.Tensor:
         nonlocal schedule
         check_upload(scene_t, mode, leaf_size)
+        bf16 = bf16_hits and mode == "sweep" \
+            and bf16_engages(scene_t.sweep)
         if schedule is None and partition and mode == "sweep" \
-                and scene_t.groups:
+                and scene_t.groups and not bf16:
             schedule = PartitionSchedule(scene_t.groups)
         pixel_ids, sample_ids = shard_lanes(mesh, rank, W, H, sample0,
                                             n_samples, lane_order)
@@ -142,7 +149,7 @@ def make_sharded_renderer(scene: Scene, W: int, H: int, depth: int,
         for _ in accumulate_samples(acc, scene_t, scene.background, basis, W,
                                     H, pix, s0, s0 + s_loc, chunk, seed,
                                     depth, coherent=coherent,
-                                    schedule=schedule):
+                                    schedule=schedule, bf16_hits=bf16):
             pass
         return acc
 

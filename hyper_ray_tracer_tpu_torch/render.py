@@ -57,6 +57,7 @@ operations, four per bounce against the bounce's hundreds.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional, Union
 
@@ -80,8 +81,9 @@ from .ops.intersect import (
 )
 from .ops import partition
 from .ops.materials import shade
+from .ops.math import div_rn
 from .ops.sphere_sweep import sphere_sweep
-from .ops.typed_sweep import typed_sweep
+from .ops.typed_sweep import bf16_engages, typed_sweep
 from .scene_tensors import SceneTensors, to_device
 from .utils import checkpoint as ckpt
 from .utils.image import write_png
@@ -134,6 +136,18 @@ class RenderSettings:
     # Chunks between snapshots (checkpoint and preview; None: every chunk
     # with a preview, else every 8), plus the final one.
     snapshot_every: Optional[int] = None
+    # Dead-ray compaction, taken for the JAX package's field (None auto,
+    # False its fixed-width scan, which XLA's static shapes need): the port
+    # always compacts, and the JAX package's image is the same either way.
+    compaction: Optional[bool] = None
+    # bf16 candidate hit tests (sweep mode; ``ops/typed_sweep.py``'s bf16
+    # form): the plan tiles of static, untransformed spheres pick their
+    # winner in bfloat16, whose t is then recomputed in float32.  Renders
+    # are no longer bit-identical to float32 (near ties and silhouettes);
+    # a bf16 render never partitions (a bf16 hit may lie outside a group's
+    # float32 box, so the partition would change it); BVH and cluster mode
+    # ignore it.
+    bf16_hits: bool = False
     # The partitioned sweep (ops/partition.py; PartitionSchedule): in sweep
     # mode, on a scene with partition groups, the bounces whose wavefront
     # has at least PART_MIN_LANES lanes and skips at least PART_SAVED_MIN
@@ -164,8 +178,9 @@ def init_state(basis: CameraBasis, width: int, height: int, pixel_ids,
     y = (pixel_ids // width).to(torch.float32)
     ju = prng.uniform(base, prng.P_CAM_JITTER_U)
     jv = prng.uniform(base, prng.P_CAM_JITTER_V)
-    s = (x + ju) / float(np.float32(width - 1))  # application.rs:443-446
-    t = (y + jv) / float(np.float32(height - 1))
+    # application.rs:443-446, divided on the card as on the CPU (div_rn)
+    s = div_rn(x + ju, float(np.float32(width - 1)))
+    t = div_rn(y + jv, float(np.float32(height - 1)))
     o, d, time = get_rays(basis, base, s, t)
     return WavefrontState(
         o=o, d=d, time=time, base=base,
@@ -243,7 +258,8 @@ def block_order(width: int, height: int, block_w: int = 64,
     return pid[np.argsort(key, kind="stable")].astype(np.int32)
 
 
-def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None):
+def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None,
+          bf16: bool = False):
     """The trace step: each lane's closest hit (t, primitive index; BIG
     and -1 for a miss or a dead lane).  A scene in BVH mode walks its
     tree (K4), one in cluster mode sweeps its clusters (K5); otherwise
@@ -251,7 +267,9 @@ def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None):
     scene through the typed sweep (K1b).  Media draw their free flight
     from the bounce words ``bb``.  ``mask`` (uint8 [N],
     ``ops/partition.group_mask``): the sweeps' partitioned form over the
-    scene's groups; BVH and cluster mode have none."""
+    scene's groups; BVH and cluster mode have none.  ``bf16``: in sweep
+    mode, on a scene with a bf16 tile (``bf16_engages``), K1b's bf16 form,
+    sphere-only scenes included; otherwise ignored."""
     if mask is not None and scene.mode != "sweep":
         raise ValueError(f"{scene.mode} mode has no partitioned form")
     if scene.mode == "bvh":
@@ -260,6 +278,9 @@ def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None):
     if scene.mode == "cluster":
         return cluster_sweep(scene.cluster, state.o, state.d, state.time,
                              state.alive, bb, T_MIN)
+    if bf16 and bf16_engages(scene.sweep):
+        return typed_sweep(scene.sweep, state.o, state.d, state.time,
+                           state.alive, bb, T_MIN, mask=mask, bf16=True)
     if scene.sphere_only:
         return sphere_sweep(*scene.spheres, state.o, state.d, state.time,
                             state.alive, T_MIN, mask=mask,
@@ -269,12 +290,16 @@ def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None):
 
 
 def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
-               t_hit, prim, differentiable: bool = False) -> WavefrontState:
+               t_hit, prim, differentiable: bool = False,
+               bf16_hits: bool = False) -> WavefrontState:
     """The rest of a bounce after the trace: background on misses, the
     winner's row gather, hit detail, textures and materials, and the
     radiance / throughput update.  ``differentiable``: recompute the
     winner's t from its gathered fields (the JAX package's
-    ``render.py:420-441``), so that t carries gradients."""
+    ``render.py:420-441``), so that t carries gradients.  ``bf16_hits``
+    (sweep mode): recompute it too, without gradients unless
+    ``differentiable``, so that a winner picked in bf16 is shaded at its
+    float32 t (the JAX package's ``render.py:423``)."""
     static = scene.static
     o, d, time = state.o, state.d, state.time
     alive, throughput, radiance = state.alive, state.throughput, \
@@ -294,13 +319,15 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
     pidx = torch.clamp(prim, min=0).long()
     pf, sf = gather_prim_shade_packed(scene.fpack, scene.ipack, pidx,
                                       static)
-    if differentiable:
-        # For the winner the closed form gives the trace's t, now with
-        # gradients.  A grazing hit can recompute to a miss (the
-        # discriminant rounds to the other side of 0): it keeps the
-        # trace's t, gradient-free.  Miss lanes take a finite 1.0: with
-        # BIG the hit point overflows, and 0 * inf in a VJP is NaN.
-        t_re = prim_hit_t_lanes(pf, o, d, time, T_MIN, BIG, bb, static)
+    if differentiable or (bf16_hits and scene.mode == "sweep"):
+        # For the winner the closed form gives the trace's t (in float32
+        # after a bf16 selection), now with gradients.  A grazing hit can
+        # recompute to a miss (the discriminant rounds to the other side
+        # of 0): it keeps the trace's t, gradient-free.  Miss lanes take
+        # a finite 1.0: with BIG the hit point overflows, and 0 * inf in a
+        # VJP is NaN.
+        with contextlib.nullcontext() if differentiable else torch.no_grad():
+            t_re = prim_hit_t_lanes(pf, o, d, time, T_MIN, BIG, bb, static)
         t_hit = torch.where(t_re < 0.5 * BIG, t_re, t_hit)
     t_use = torch.where(hit, t_hit, 1.0)
     det = hit_detail(pf, o, d, time, t_use, static)
@@ -319,23 +346,25 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
 
 
 def bounce_step(scene: SceneTensors, background, state: WavefrontState,
-                bounce_idx: int, differentiable: bool = False, mask=None
-                ) -> WavefrontState:
+                bounce_idx: int, differentiable: bool = False, mask=None,
+                bf16_hits: bool = False) -> WavefrontState:
     """One wavefront bounce (the JAX ``bounce_step``).  ``differentiable``:
     trace the detached rays with no graph, then recompute the winner's t
     with gradients (``shade_hits``).  ``mask``: the lanes' group masks
-    of a partitioned bounce (``trace``)."""
+    of a partitioned bounce (``trace``).  ``bf16_hits``: the bf16
+    candidate tests (``trace``, ``shade_hits``)."""
     with record_function("trace"):
         bb = prng.bounce_base(state.base, bounce_idx)
         if differentiable:
             with torch.no_grad():
                 t_hit, prim = trace(scene, state._replace(
-                    o=state.o.detach(), d=state.d.detach()), bb, mask)
+                    o=state.o.detach(), d=state.d.detach()), bb, mask,
+                    bf16_hits)
         else:
-            t_hit, prim = trace(scene, state, bb, mask)
+            t_hit, prim = trace(scene, state, bb, mask, bf16_hits)
     with record_function("shade"):
         return shade_hits(scene, background, state, bb, t_hit, prim,
-                          differentiable)
+                          differentiable, bf16_hits)
 
 
 class PartitionSchedule:
@@ -392,23 +421,25 @@ def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
                 width: int, height: int, pixel_ids, sample_ids, seed: int,
                 depth: int, differentiable: bool = False,
                 remat: bool = False, coherent: bool = False,
-                schedule: Optional[PartitionSchedule] = None):
+                schedule: Optional[PartitionSchedule] = None,
+                bf16_hits: bool = False):
     """Per-lane radiance [N,3] (pre-gamma, pre-averaging) of the camera
     rays (pixel_ids[i], sample_ids[i]), in launch order, with dead lanes
     compacted out after every bounce.  ``differentiable``, ``remat``,
-    ``coherent`` and ``schedule``: see ``render_radiance`` and
-    ``bounce_paths``."""
+    ``coherent``, ``schedule`` and ``bf16_hits``: see ``render_radiance``
+    and ``bounce_paths``."""
     with record_function("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
     return bounce_paths(scene, background, state, depth, differentiable,
-                        remat, coherent, schedule)
+                        remat, coherent, schedule, bf16_hits)
 
 
 def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
                  depth: int, differentiable: bool = False,
                  remat: bool = False, coherent: bool = False,
-                 schedule: Optional[PartitionSchedule] = None):
+                 schedule: Optional[PartitionSchedule] = None,
+                 bf16_hits: bool = False):
     """Per-lane radiance [N,3] of the wavefront ``state`` after ``depth``
     bounces numbered from 0, in ``state``'s lane order: the JAX package's
     ``bounce_scan(arrays, bvh, state, 0, depth)``, for a wavefront built
@@ -426,7 +457,8 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
     rays included) and the sweep reads each lane's group mask; on the
     other bounces the survivors stay in launch order.  The result is the
     same, lane for lane.  A wavefront whose schedule is not decided yet
-    is its probe."""
+    is its probe.  ``bf16_hits``: the bf16 candidate tests
+    (``bounce_step``)."""
     key = scene.cluster.key if coherent and scene.cluster is not None \
         else None
     if schedule is not None and key is not None:
@@ -447,10 +479,11 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
     for bounce in range(depth):
         if remat:
             state = checkpoint(bounce_step, scene, background, state, bounce,
-                               differentiable, mask, use_reentrant=False)
+                               differentiable, mask, bf16_hits,
+                               use_reentrant=False)
         else:
             state = bounce_step(scene, background, state, bounce,
-                                differentiable, mask)
+                                differentiable, mask, bf16_hits)
         with record_function("compaction"):
             # A lane's radiance no longer changes once it is dead, so the
             # value written here is final for every lane that stops now.
@@ -488,7 +521,8 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
 def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
                     width: int, height: int, pixel_ids, sample_ids,
                     seed: int, depth: int, remat: bool = False,
-                    schedule: Optional[PartitionSchedule] = None):
+                    schedule: Optional[PartitionSchedule] = None,
+                    bf16_hits: bool = False):
     """Per-lane radiance [N,3] with gradients to the scene's parameters
     (bind them with ``scene_tensors.bind_params``): ``trace_paths`` with
     differentiable bounces.  Compaction stays eager: ``index_copy_`` and
@@ -501,10 +535,12 @@ def render_radiance(scene: SceneTensors, background, basis: CameraBasis,
     counter-based RNG and the deterministic kernels make the recompute
     exact.  ``schedule``: the partitioned sweep (``bounce_paths``), the
     groups' boxes the scene's ``group_aabbs`` (``bind_params`` computes
-    them from the bound parameters)."""
+    them from the bound parameters).  ``bf16_hits``: the bf16 candidate
+    tests; the selection is then a fixed decision, and the selected
+    primitive gets float32 gradients through the recompute."""
     return trace_paths(scene, background, basis, width, height, pixel_ids,
                        sample_ids, seed, depth, differentiable=True,
-                       remat=remat, schedule=schedule)
+                       remat=remat, schedule=schedule, bf16_hits=bf16_hits)
 
 
 def gamma_image(acc: np.ndarray, samples: int, W: int, H: int) -> np.ndarray:
@@ -532,13 +568,15 @@ def accumulate_samples(acc, scene: SceneTensors, background,
                        basis: CameraBasis, width: int, height: int, pix,
                        sample0: int, samples: int, chunk: int, seed: int,
                        depth: int, coherent: bool = False,
-                       schedule: Optional[PartitionSchedule] = None):
+                       schedule: Optional[PartitionSchedule] = None,
+                       bf16_hits: bool = False):
     """Trace the camera rays of the lanes ``pix`` (pixel ids, int64 [n] on
     the scene's device) for the samples ``sample0`` .. ``samples - 1``,
     ``chunk`` samples at a time (lane = sample * n + i traces pixel
     ``pix[i]``), and add each lane's radiance to ``acc[i]`` ([n, 3]
     float32, in place); a generator that yields the samples done after
-    every chunk.  ``coherent`` and ``schedule``: see ``bounce_paths``.
+    every chunk.  ``coherent``, ``schedule`` and ``bf16_hits``: see
+    ``bounce_paths``.
 
     The samples go into ``acc`` one after the other, so that every
     pixel's sum is the same left-to-right fold of its samples whatever
@@ -555,7 +593,8 @@ def accumulate_samples(acc, scene: SceneTensors, background,
                           torch.arange(s, s + ns, dtype=torch.int64,
                                        device=pix.device
                                        ).repeat_interleave(n),
-                          seed, depth, coherent=coherent, schedule=schedule)
+                          seed, depth, coherent=coherent, schedule=schedule,
+                          bf16_hits=bf16_hits)
         for sample in rad.reshape(ns, n, 3):
             acc.add_(sample)
         s += ns
@@ -577,7 +616,11 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     every pixel's sum as it is.  ``settings.partition`` (sweep mode, a
     scene with partition groups): the first chunk is the probe of a
     ``PartitionSchedule`` that every later chunk reuses; the image is
-    bit-identical to ``partition=False``.
+    bit-identical to ``partition=False``.  ``settings.bf16_hits``: the
+    bf16 candidate tests in sweep mode, never partitioned, so that a bf16
+    image does not depend on which chunk probed the schedule (ignored in
+    BVH and cluster mode).  ``settings.compaction`` is taken and ignored:
+    the port always compacts.
     ``progress_cb(samples_done, samples)`` is called after every chunk.
 
     Snapshots: every ``snapshot_every`` chunks and after the last, the
@@ -586,7 +629,8 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     far to ``preview_path``.  A render with ``checkpoint_path`` starts
     from the checkpoint there when its identity matches (scene, size,
     depth, seed, the resolved intersector and its leaf size, the
-    ``partition`` flag, ``RENDER_FORMAT``) and it holds at most
+    ``partition`` flag, ``bf16_hits`` where it applies, ``RENDER_FORMAT``)
+    and it holds at most
     ``samples`` samples, and
     otherwise starts fresh with a warning.  The guarantee: a resumed
     render is bit-identical to an uninterrupted one, because every lane's
@@ -619,16 +663,21 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     def pixel_order(a):
         return (a[inv] if coherent else a).cpu().numpy()
 
+    bf16 = bool(settings.bf16_hits) and mode == "sweep" \
+        and bf16_engages(scene_t.sweep)
     schedule = None
-    if settings.partition and mode == "sweep" and scene_t.groups:
+    if settings.partition and mode == "sweep" and scene_t.groups \
+            and not bf16:
         schedule = PartitionSchedule(scene_t.groups)
 
-    # As the JAX package's meta: the partition flag as effective (the port
-    # always compacts); the port never rounds hits to bf16.
+    # As the JAX package's meta: the partition and bf16_hits flags as
+    # effective (bf16_hits changes nothing in BVH and cluster mode nor on a
+    # plan without a bf16 tile; a bf16 render never partitions).
     meta = dict(scene=scene.name, width=W, height=H, depth=settings.depth,
                 seed=settings.seed, format=RENDER_FORMAT, intersector=mode,
                 leaf_size=settings.leaf_size if mode == "bvh" else None,
-                partition=bool(settings.partition), bf16_hits=False)
+                partition=bool(settings.partition) and not bf16,
+                bf16_hits=bf16)
     s = 0
     if settings.checkpoint_path:
         state = ckpt.load_state(settings.checkpoint_path)
@@ -655,7 +704,8 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     for s in accumulate_samples(acc, scene_t, scene.background, basis, W, H,
                                 pix, s, settings.samples, chunk,
                                 settings.seed, settings.depth,
-                                coherent=coherent, schedule=schedule):
+                                coherent=coherent, schedule=schedule,
+                                bf16_hits=bf16):
         chunks_done += 1
         if (settings.checkpoint_path or settings.preview_path) and (
                 s >= settings.samples or chunks_done % snapshot_every == 0):

@@ -35,6 +35,7 @@ from torch.profiler import record_function
 from .camera import make_basis
 from .models.scene import Scene
 from .ops.edges import make_silhouette_correction
+from .ops.typed_sweep import bf16_engages
 from .render import (
     PartitionSchedule,
     check_upload,
@@ -81,12 +82,17 @@ def pixel_lanes(W: int, H: int, spp: int, device):
 
 def make_radiance_fn(scene: Scene, W: int, H: int, depth: int,
                      intersector=None, leaf_size: int = 4,
-                     remat: bool = False, partition: bool = False):
+                     remat: bool = False, partition: bool = False,
+                     bf16_hits: bool = False):
     """radiance(params, scene_t, basis, pixel_ids, sample_ids, seed) ->
     (per-lane radiance [N, 3] with gradients to ``params``, the bound
     scene): the forward render of ``make_loss_fn``, for any lanes of the
     W x H frame (the sharded loss renders its shard's).  The modes and
-    their checks: see ``make_loss_fn``."""
+    their checks: see ``make_loss_fn``.  ``bf16_hits``: the bf16
+    candidate tests in sweep mode (the JAX package's
+    ``make_ray_colorer(..., bf16_hits=)``): the selection is a fixed
+    decision, and the selected primitive's gradients are float32's; a
+    bf16 forward never partitions (``render.render_image``)."""
     mode = resolve_intersector(scene, intersector)
     schedule = None  # made at the first call, when partition engages
     engage = partition and mode == "sweep"
@@ -94,7 +100,9 @@ def make_radiance_fn(scene: Scene, W: int, H: int, depth: int,
     def radiance(params, scene_t, basis, pixel_ids, sample_ids, seed):
         nonlocal schedule, engage
         check_upload(scene_t, mode, leaf_size)
-        if engage and scene_t.groups:
+        bf16 = bf16_hits and mode == "sweep" \
+            and bf16_engages(scene_t.sweep)
+        if engage and scene_t.groups and not bf16:
             if all(g.dynamic_ok for g in scene_t.groups):
                 schedule = PartitionSchedule(scene_t.groups)
             else:
@@ -105,7 +113,8 @@ def make_radiance_fn(scene: Scene, W: int, H: int, depth: int,
         bound = bind_params(scene_t, params)
         rad = render_radiance(bound, scene.background, basis, W, H,
                               pixel_ids.reshape(-1), sample_ids.reshape(-1),
-                              seed, depth, remat=remat, schedule=schedule)
+                              seed, depth, remat=remat, schedule=schedule,
+                              bf16_hits=bf16)
         return rad, bound
 
     radiance.schedule = lambda: schedule

@@ -1112,3 +1112,76 @@ def test_partitioned_train_step_on_card(cuda, monkeypatch):
     l_2, g_2 = run(part)
     assert torch.equal(l_2, l_p)
     assert all(torch.equal(g_2[k], g_p[k]) for k in g_p)
+
+
+@pytest.mark.parametrize("name", ["three-spheres", "final",
+                                  "sphereflake-small"])
+@pytest.mark.parametrize("bounces", [0, 1])
+def test_bf16_typed_sweep_equals_plain(cuda, name, bounces):
+    """K1b's bf16 form against its twin, bit for bit, unmasked and, on a
+    scene with partition groups, masked (the scene's masks and random
+    ones, held to the masked twin: a bf16 hit may lie outside a group's
+    float32 box, which the mask leaves out)."""
+    from hyper_ray_tracer_tpu_torch.ops import partition
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import bf16_engages
+
+    scene = build_scene(name)
+    st = to_device(scene.arrays, scene.static, cuda)
+    assert bf16_engages(st.sweep)
+    s = _rays(scene, st, 160, 90, cuda, bounces)
+    args = (st.sweep, s.o.contiguous(), s.d.contiguous(),
+            s.time.contiguous(), s.alive.contiguous(),
+            prng.bounce_base(s.base, bounces).contiguous())
+    before = typed_sweep.bf16
+    t_k, b_k = typed_sweep(*args, bf16=True)
+    assert typed_sweep.bf16 == before + 1
+    torch.cuda.synchronize()
+    t_p, b_p = typed_sweep_plain(*args, bf16=True)
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    assert (b_k >= 0).any()
+    if st.groups:
+        gen = torch.Generator(device=cuda).manual_seed(bounces)
+        for mask in (partition.group_mask(st.groups, s.o, s.d,
+                                          st.group_aabbs),
+                     torch.randint(0, 4, (s.o.shape[0],), device=cuda,
+                                   generator=gen, dtype=torch.uint8)):
+            t_m, b_m, t_q, b_q = _masked(typed_sweep, typed_sweep_plain,
+                                         args, mask.contiguous(), bf16=True)
+            assert torch.equal(b_m, b_q) and torch.equal(t_m, t_q)
+
+
+def test_bf16_render_goes_through_the_bf16_form(cuda):
+    """A sphere-only scene with bf16_hits traces through K1b's bf16 form,
+    not K1, and its image stays within tests/test_bf16.py's bound of the
+    card's float32 image."""
+    scene = build_scene("three-spheres")
+    s = dict(width=48, height=27, samples=8, depth=5)
+    img32 = render_image(scene, RenderSettings(**s), cuda)
+    k1, k1b = sphere_sweep.launches, typed_sweep.bf16
+    img16 = render_image(scene, RenderSettings(**s, bf16_hits=True), cuda)
+    assert sphere_sweep.launches == k1 and typed_sweep.bf16 > k1b
+    assert np.abs(img16 - img32).mean() < 0.01
+
+
+def test_camera_rays_on_card_equal_cpu(cuda):
+    """F6: the card's camera rays equal the CPU's bit for bit.  torch's
+    CUDA division by a Python number multiplies by its float32
+    reciprocal, an ulp off the quotient the CPU computes; so parted
+    `sphereflake-small`'s lanes (348, 0), (808, 1), (859, 1) and (1622, 1)
+    (their x + jitter below), and so ``init_state`` divides by a tensor
+    on the card (``ops/math.div_rn``)."""
+    from hyper_ray_tracer_tpu_torch.ops.math import div_rn
+
+    x = torch.tensor([28.065364837646484, 40.71052551269531,
+                      27.839258193969727, 22.632497787475586])
+    want = x / 63.0
+    assert not torch.equal((x.to(cuda) / 63.0).cpu(), want)
+    assert torch.equal(div_rn(x.to(cuda), 63.0).cpu(), want)
+    scene = build_scene("sphereflake-small")
+    W, H, spp = 64, 36, 2
+    basis = make_basis(scene.camera, W, H)
+    pix, sam = (t.reshape(-1) for t in pixel_lanes(W, H, spp, cuda))
+    card = init_state(basis, W, H, pix, sam, 0)
+    cpu = init_state(basis, W, H, pix.cpu(), sam.cpu(), 0)
+    for name, a, b in zip(card._fields, card, cpu):
+        assert torch.equal(a.cpu(), b), name
