@@ -77,11 +77,14 @@ parameters bit-equal after two steps); on a machine with several cards,
 nccl across up to four of them and the scaling points.  K1b's bf16 form
 (phase 27, ``RenderSettings.bf16_hits``): bit-equal to its twin on the
 camera rays of `three-spheres`, `final`'s bench and `sphereflake` in
-sweep mode, masked too, its pair loop's SASS free of fused HFMA2 and
-of FFMAs but the dots' (which add exact products), timed beside K1b
-float32 and K1 on `sphereflake`'s camera rays, the images' drift
-against float32, `sphereflake`'s mean radiance both ways, and F6's
-repair (the card's camera rays bit-equal to the
+sweep mode, masked too, its MUFU square root equal to the correctly
+rounded one on every non-negative bf16 value, its own kernel's ptxas
+report free of spills, its pair loop's SASS free of fused HFMA2 and of
+FFMAs but the dots' (which add exact products), with its unpacks
+counted, timed beside K1b float32 and K1 on `sphereflake`'s camera
+rays with the share of pairs whose bf16 discriminant is >= 0, the
+images' drift against float32, `sphereflake`'s mean radiance both
+ways, and F6's repair (the card's camera rays bit-equal to the
 CPU's).  Each phase prints one line, with its seconds; any failure ends
 the run with a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
@@ -3218,6 +3221,57 @@ BF16_FLAKE_RENDER = (640, 360, 4, 10)
 BF16_PAIR_OPS = {"fp32": 13, "bf16": 5}
 BF16_RAY_OPS = {"fp32": 6, "bf16": 0}
 BF16_OPS_S = 133.8e12
+# The bf16 form's earlier design, which ran in the float32 kernel's
+# launch shape (4 rays a thread, 5 blocks), as measured on an H100 80GB
+# HBM3 at 700 W (PERF.md, the K1b bf16 row): its pair loop's SASS and
+# ptxas report, printed beside this loop's.
+BF16_EARLIER = ("23.38 instructions a pair, 6.88 unpacks (55 of a trip's "
+             "187), 4 FFMAs; 96-100 registers, 100 B spilled")
+# A SASS instruction that moves one bf16 half into a float32's place: a
+# shift by 16, or the high half masked or permuted over a zero register.
+BF16_UNPACK = re.compile(r"^(IMAD(\.SHL)?\.U32 \S+, \S+, 0x10000, RZ|"
+                         r"SHF\.L\.U32 \S+, \S+, 0x10, RZ|"
+                         r"LOP3\.LUT \S+, \S+, 0xffff0000, RZ|"
+                         r"PRMT \S+, (\S+, 0x\w+, RZ|RZ, 0x\w+, \S+))")
+
+
+def bf16_pair_shares(sw, o, d, warps=64, seed=0):
+    """On ``warps`` runs of 32 consecutive rays of ``o``, ``d`` (drawn
+    from ``seed``): the share of (ray, sphere) pairs of the bf16 tiles
+    whose bf16 discriminant is >= 0 (the twin's arithmetic), and the
+    share of (32 rays, 2 consecutive spheres) blocks with at least one:
+    the trips where a warp of the kernel takes a ray's roots branch."""
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        bf16_ray_terms,
+        bf16_tile,
+        dot3_bf16,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    starts = torch.randint(0, o.shape[0] // 32, (warps,), generator=gen)
+    lanes = (starts[:, None] * 32 + torch.arange(32)).reshape(-1)
+    lanes = lanes.to(o.device)
+    o, d = o[lanes][:, None], d[lanes][:, None]
+    d16, a16, _ = bf16_ray_terms(d)
+    bf = torch.bfloat16
+    pairs = ok = blocks = blocks_ok = 0
+    for t in sw.plan:
+        if not bf16_tile(t):
+            continue
+        for s0 in range(t.start, t.start + t.width, 512):
+            rec = sw.geo16[s0:min(s0 + 512, t.start + t.width)]
+            oc = (o - rec[None, :, :3]).to(bf)
+            hb = dot3_bf16(oc, d16)
+            disc = hb * hb - a16 * (dot3_bf16(oc, oc) - rec[None, :, 3]
+                                    .to(bf))
+            hit = disc >= 0
+            pairs += hit.numel()
+            ok += int(hit.sum())
+            w = hit.shape[1] // 2 * 2
+            blk = hit[:, :w].reshape(warps, 32, w // 2, 2).any(3).any(1)
+            blocks += blk.numel()
+            blocks_ok += int(blk.sum())
+    return ok / pairs, blocks_ok / blocks
 
 
 def bf16_bound(sw, kinds, n):
@@ -3239,17 +3293,22 @@ def bf16_bound(sw, kinds, n):
 
 
 def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
-               packet=4, reps=3):
+               shape=(2, 6), reps=3, ptxas=None):
     """Phase 27: K1b's bf16 form against its twin, bit for bit, unmasked
     and (on scenes with partition groups) masked, on the camera rays of
     BF16_RAYS, with the share of lanes whose winner differs from the
     float32 sweep's; K1b bf16, K1b float32 and K1 timed on `sphereflake`'s
-    camera rays beside the bf16 form's bound; the images of BF16_IMAGES
-    with and without bf16_hits (mean |dI|), `sphereflake` in sweep mode
-    both ways (its mean radiance, a finding); with ``probe_sass``
-    (the SASS of csrc/sweep_probe.cu), the bf16 pair loop's instructions
-    by opcode (``packet`` rays a thread).  Returns (text, the
-    kernels-line record)."""
+    camera rays beside the bf16 form's bound, with the share of pairs
+    whose bf16 discriminant is >= 0 there (``bf16_pair_shares``); the
+    images of BF16_IMAGES with and without bf16_hits (mean |dI|),
+    `sphereflake` in sweep mode both ways (its mean radiance, a finding);
+    with ``probe_sass`` (the SASS of csrc/sweep_probe.cu), the bf16 pair
+    loop's instructions by opcode (``shape``: the form's rays a thread and
+    pairs of spheres a trip), and with ``ptxas`` (the reports of
+    typed_sweep and sweep_probe) its registers and spills, asserted 0;
+    first, its MUFU square root against the correctly rounded one on
+    every non-negative bf16 value.  Returns (text, the kernels-line
+    record)."""
     from hyper_ray_tracer_tpu_torch import RenderSettings, build_scene
     from hyper_ray_tracer_tpu_torch.camera import make_basis
     from hyper_ray_tracer_tpu_torch.ops import partition
@@ -3257,6 +3316,8 @@ def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
     from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
     from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
         bf16_engages,
+        bf16_sqrt,
+        bf16_sqrt_plain,
         bf16_tile,
         typed_sweep,
         typed_sweep_plain,
@@ -3264,6 +3325,26 @@ def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
     from hyper_ray_tracer_tpu_torch.render import init_state, render_image
 
     texts, record = [], {}
+    rays, pairs = shape
+    # The roots' MUFU square root on every non-negative bf16 value, +0 to
+    # +inf, against the correctly rounded one (tests/test_torch_cuda.py
+    # test_bf16_sqrt_equals_plain_on_every_bf16).
+    words = np.arange(1 << 15, dtype=np.uint32) << 16
+    x = torch.from_numpy(words.view(np.float32))
+    x = x[~torch.isnan(x)]
+    assert torch.equal(bf16_sqrt(x.to(dev)).cpu(), bf16_sqrt_plain(x))
+    texts.append(f"MUFU square root equal to the correctly rounded one "
+                 f"on all {x.numel()} non-negative bf16 values (asserted)")
+    if ptxas is not None:
+        own = {k: v for rep in ptxas for k, v in rep.items()
+               if k in (f"typed_sweep_kernel<{rays},1>",
+                        f"fold_probe_bf16<{rays}>")}
+        assert len(own) == 2 and all(v[2] == 0 for v in own.values()), own
+        texts.append(f"its own kernel ({rays} rays a thread, {pairs} pairs "
+                     f"of spheres a trip): " + "; ".join(
+                         f"{k} {r} registers, {sp} B spilled"
+                         for k, (r, _, sp, _) in own.items())
+                     + " (0 spilled, asserted)")
     if probe_sass is not None:
         # The code every trip issues (the roots' branch aside: there the
         # square root's own FFMA refinement): no HFMA2 whose three
@@ -3272,21 +3353,24 @@ def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
         # zeros), and no FFMA but the dots' two each, which add products
         # exact in float32.
         ops, code = {}, []
-        per = sass_pair_ops(probe_sass, "fold_probe_bf16", 2 * packet, ops,
-                            code)
+        trip = 2 * rays * pairs
+        per = sass_pair_ops(probe_sass, "fold_probe_bf16", trip, ops, code)
         fused = [c for c in code if c.startswith("HFMA2")
                  and not re.search(r"(-?RZ|\b-?[0-9.]+\b|0x[0-9a-f]+)"
                                    r"(,|$)", c.split(None, 1)[1])]
         assert not fused, fused
         ffma = sum(c.startswith("FFMA") for c in code)
-        assert ffma <= 4 * 2 * packet, (ffma, code)
+        assert ffma <= 4 * trip, (ffma, code)
+        unpacks = sum(bool(BF16_UNPACK.match(c)) for c in code)
         texts.append(
-            f"SASS of the bf16 pair loop (two spheres x {packet} rays a "
-            f"trip): {per['all']:.2f} instructions a ray-sphere pair "
-            f"({per['branch']:.2f} more where a root is taken); by opcode "
+            f"SASS of the bf16 pair loop ({2 * pairs} spheres x {rays} "
+            f"rays a trip): {per['all']:.2f} instructions a ray-sphere "
+            f"pair ({per['branch']:.2f} more where a root is taken), "
+            f"{ffma / trip:.2f} FFMAs (the dots', at most 4, asserted) and "
+            f"{unpacks / trip:.2f} unpacks of bf16 to float32 a pair; no "
+            "fused HFMA2; by opcode "
             + ", ".join(f"{k} {v}" for k, v in sorted(ops.items()))
-            + f"; no fused HFMA2 and {ffma / (2 * packet):.0f} FFMAs a "
-            "pair, the dots' (at most 4, asserted)")
+            + f" (the earlier design: {BF16_EARLIER})")
     for name, W, H, spp in BF16_RAYS:
         scene = build_scene(name)
         st, _ = upload(scene, dev, "sweep")
@@ -3332,6 +3416,7 @@ def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
                                           s.alive, T_MIN), reps)
             bnd = bf16_bound(st.sweep, kinds, n)
             b32 = bound(n * 45, n * sweep_fp_ops(st.sweep, kinds))
+            share, blocks = bf16_pair_shares(st.sweep, s.o, s.d)
             record = dict(ms=k1b16, plain_ms=plain_ms, bound_ms=bnd[0],
                           bound_by=bnd[1],
                           max_abs_err=float((t_k - t_p).abs().max()))
@@ -3340,7 +3425,10 @@ def bf16_phase(dev, kinds, reset_counts, counts, probe_sass=None,
                 f"float32 {k1b32:.4f}, K1 {k1:.4f} (device time, {reps} "
                 f"each); the bf16 form's bound {bnd[0]:.4f} ms ({bnd[1]}; "
                 f"{bnd[0] / k1b16:.3f} of it), float32's {b32[0]:.4f} "
-                f"({b32[1]}); its twin {plain_ms:.1f} ms")
+                f"({b32[1]}); its twin {plain_ms:.1f} ms; bf16 "
+                f"discriminant >= 0 on {share:.4%} of the pairs, in "
+                f"{blocks:.4%} of the (32 rays, 2 spheres) blocks (64 "
+                "runs of 32 rays)")
     for name, W, H, spp, depth in BF16_IMAGES:
         scene = build_scene(name)
         base = dict(width=W, height=H, samples=spp, depth=depth)
@@ -3538,6 +3626,12 @@ def main(argv=None) -> int:
     # The sweeps' ray-packet size R (rays per thread), the header's kRays.
     packet = int(re.search(r"constexpr int kRays = (\d+);", (
         cuda_build.CSRC_DIR / "sweep_sphere.cuh").read_text()).group(1))
+    # K1b's bf16 form's own: rays a thread and pairs of spheres a trip.
+    typed_src = (cuda_build.CSRC_DIR / "typed_sweep.cu").read_text()
+    bf16_shape = tuple(int(re.search(rf"constexpr int {k} = (\d+);",
+                                     typed_src).group(1))
+                       for k in ("kBf16Rays", "kBf16Pairs"))
+    bf16_ptxas = (ptxas["typed_sweep"], ptxas[PROBES])
     cuobjdump = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
 
     def sass_of(name):
@@ -3550,7 +3644,8 @@ def main(argv=None) -> int:
           f" built in {build_s:.2f} s | " + " | ".join(notes))
     if args.only_bf16:
         phase(27, bf16_phase(dev, kinds, reset_counts, counts,
-                             sass_of(PROBES), packet)[0]
+                             sass_of(PROBES), bf16_shape,
+                             ptxas=bf16_ptxas)[0]
               + " | F6: " + f6_pin(dev))
         print(smi)
         print("chip_smoke --only-bf16: phases 2-26 not run; no result")
@@ -4140,7 +4235,8 @@ def main(argv=None) -> int:
     # Phase 27: K1b's bf16 form (RenderSettings.bf16_hits); the F6
     # repair's pin.
     bf16_text, bf16_record = bf16_phase(dev, kinds, reset_counts, counts,
-                                        sass_of(PROBES), packet)
+                                        sass_of(PROBES), bf16_shape,
+                                        ptxas=bf16_ptxas)
     phase(27, bf16_text + " | F6: " + f6_pin(dev))
 
     kernels = [

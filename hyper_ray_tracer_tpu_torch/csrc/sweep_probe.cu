@@ -8,8 +8,8 @@
 // (phase 5) can count each type's SASS instructions per pair from
 // `cuobjdump -sass` of this library: the innermost loop of fold_probe<...>
 // folds one record into R rays per trip, that of fold_probe_bf16 two
-// spheres of a bf16 tile (K1b's bf16 form).  The records come from shared
-// memory, as in K1b.
+// spheres of a bf16 tile into the bf16 form's rays (K1b's bf16 form).  The
+// records come from shared memory, as in K1b.
 
 #include "typed_sweep.cu"
 
@@ -47,8 +47,10 @@ HRT_PROBE(hrt::kRays, kBox, true, false);
 HRT_PROBE(hrt::kRays, kMediumSphere, false, false);
 HRT_PROBE(hrt::kRays, kMediumBox, false, false);
 
+// The bf16 form's fold at its own launch shape (kBf16Rays rays a thread,
+// kBf16MinBlocks resident blocks), as typed_sweep_kernel<kBf16Rays, true>.
 template <int R>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kBf16MinBlocks)
 fold_probe_bf16(const float* __restrict__ o, const float* __restrict__ d,
                 const unsigned char* __restrict__ active, int n, int count,
                 float t_min, float* __restrict__ t_out,
@@ -56,10 +58,10 @@ fold_probe_bf16(const float* __restrict__ o, const float* __restrict__ d,
   extern __shared__ float4 smem[];
   hrt::Packet<R> pk;
   hrt::load_packet<R>(pk, o, d, active, n);
-  fold_segment_bf16<R>(pk, smem, smem + kStage, count, 0, t_min);
+  fold_segment_bf16<R>(pk, smem, count, 0, t_min);
   hrt::store_packet<R>(pk, n, t_out, best_out);
 }
 
-template __global__ void fold_probe_bf16<hrt::kRays>(
+template __global__ void fold_probe_bf16<kBf16Rays>(
     const float*, const float*, const unsigned char*, int, int, float,
     float*, int*);

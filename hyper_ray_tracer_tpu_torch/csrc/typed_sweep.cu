@@ -87,10 +87,8 @@
 // square root and 1/a in float32, correctly rounded, then rounded to bf16
 // (exact as a bf16 operation: 24 >= 2 * 8 + 2 bits).  The candidate,
 // upcast, replaces the running float32 best only when strictly smaller.
-// Two spheres of a stage go through one __nv_bfloat162 instruction for
-// one ray (the pair's f32 differences and dots each packed by one
-// __floats2bfloat162_rn); __hmul2_rn / __hadd2_rn / __hsub2_rn keep every
-// product and sum rounded on its own (no HFMA2 contraction), and a dot's
+// Every step is rounded on its own: a bf16x2 operation is PTX's
+// add/sub/mul.rn.bf16x2 (.rn: never contracted into an HFMA2), a dot's
 // FFMAs add exact products, so it rounds as a float32 add would
 // (ops/typed_sweep.py sphere_t_bf16, dot3_bf16): the form is bit-equal to
 // its plain twin.  The JAX package bounds a tile's
@@ -100,12 +98,44 @@
 // rn(T0) is above rn(T) for the running best T <= T0, and a bfloat16
 // value above rn(T) is above T, so it never passes the strict float32
 // test, nor does the farther root behind it.  Nor does a miss
-// (bf16(3.0e38) in the JAX package, above float32's BIG).  A kBf16 = false
-// instantiation compiles the float32 kernel alone, as before.
+// (bf16(3.0e38) in the JAX package, above float32's BIG).
+// Its design.  The form is bound by instruction issue, as the float32
+// sweep: per ray and pair of spheres it needs 6 float32 differences (oc),
+// 6 roundings of them, 12 multiplies and FFMAs (the dots), 2 packs and 4
+// bf16x2 operations (c and the discriminant of both spheres at once), all
+// on the FMA pipes (tune_bf16.py: an F2FP issues at half FFMA's rate, a
+// bf16x2 operation waits 8 cycles for its operand where FFMA waits 4).
+// - Its own kernel, typed_sweep_kernel<kBf16Rays, true>, with its own
+//   launch shape (kBf16Rays rays a thread, kBf16MinBlocks resident blocks,
+//   kBf16Pairs pairs of spheres a trip under one sign test; measured by
+//   tune_bf16.py), so that ptxas spills nothing; the float32 kernel keeps
+//   its own.  The packet's float32 terms that the loop never reads wait
+//   in shared memory through a bf16 segment (hold, release), and 1 / a,
+//   which only the roots read, too: their registers go to warps.
+// - No bf16x2 word is unpacked in the pair loop.  A float32 is rounded to
+//   bf16 in place by one F2FP (cvt.rn.bf16x2.f32 of x and 0: bf16(x) in
+//   the high half, 0 in the low, which is bf16(x) as a float32), so oc
+//   feeds the dots without a pack and an unpack; the dots of both spheres
+//   are packed by one F2FP each; and the discriminants are tested by
+//   their sign bits, ANDed per ray and over the packet: a set sign in
+//   all of them rules out disc >= 0 (a discriminant is never -0: hb * hb
+//   is not).
+// - The roots are rare: on `sphereflake`'s camera rays 1.4% of the pairs
+//   have a bf16 disc >= 0, in 3.9% of the (32 rays, 2 spheres) blocks a
+//   warp folds at once (chip_smoke.py phase 27).  So they stay a branch
+//   per ray and pair, taken by the warp together, which unpacks, tests
+//   disc >= 0 exactly (a clear sign may be a NaN's) and updates, in index
+//   order.  Their square root is MUFU's (sqrt_of_bf16).
+// - One record a sphere: a bf16 tile stages its spheres' bf16 records
+//   (center, bf16(bf16(r)^2); SweepScene.geo16, built on the device) in
+//   place of the float32 ones, one 16-byte cp.async and one shared read
+//   a sphere.
+// The ring, its double buffer and its two barriers a stage, the plan walk
+// and the partitioned form's parked rays are the float32 kernel's.  A
+// kBf16 = false instantiation compiles the float32 kernel alone, as
+// before.
 // Registers, shared memory and spills per instantiation: the ptxas report
-// (chip_smoke.py phases 1 and 5).
-
-#include <cuda_bf16.h>
+// (chip_smoke.py phases 1, 5 and 27).
 
 #include "sweep_sphere.cuh"
 
@@ -129,6 +159,13 @@ using hrt::to_object;
 
 constexpr int kMinBlocks = 5;  // resident blocks per SM: <= 96 registers
 constexpr int kStage = 256;    // primitive records per ring slot
+// The bf16 form's own launch shape (tune_bf16.py): rays a thread,
+// resident blocks per SM (<= 85 registers), and pairs of spheres a trip
+// of its loop (one sign test for them all).
+constexpr int kBf16Rays = 2;
+constexpr int kBf16MinBlocks = 6;
+constexpr int kBf16Pairs = 6;
+static_assert(kBf16Rays <= hrt::kRays, "the shared per-ray words");
 // A plan row: 8 int32 (ops/typed_sweep.py PLAN_COLUMNS).
 struct Tile {
   int start, width, type, motion, xform, axis, xf_off;
@@ -138,15 +175,6 @@ __device__ __forceinline__ Tile load_tile(const int4* __restrict__ plan,
                                           int k) {
   const int4 a = __ldg(&plan[2 * k]), b = __ldg(&plan[2 * k + 1]);
   return Tile{a.x, a.y, a.z, a.w, b.x, b.y, b.z};
-}
-
-// 4-byte asynchronous copy global -> shared (cp.async.ca: the bf16
-// tiles' squared radii, one float each).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
 }
 
 // Whether plan tile t folds in bf16 (ops/bvh.py:254-256's rule).
@@ -331,12 +359,52 @@ __device__ __forceinline__ void fold_segment(
   }
 }
 
-// x unchanged, as pin does for a float: a per-ray bf16 term stays out of
-// the pair loop.
-__device__ __forceinline__ __nv_bfloat162 pin2(__nv_bfloat162 x) {
-  unsigned u = *reinterpret_cast<unsigned*>(&x);
-  asm volatile("" : "+r"(u));
-  return *reinterpret_cast<__nv_bfloat162*>(&u);
+// One float32 rounded to bfloat16, as float32 (its low half zero): one
+// F2FP, the pack of x and 0.
+__device__ __forceinline__ float round_bf16(float x) {
+  unsigned u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(x), "f"(0.0f));
+  return __uint_as_float(u);
+}
+
+// lo and hi rounded to bfloat16 and packed, lo in the low half: one F2FP.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  unsigned u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(u) : "f"(hi), "f"(lo));
+  return u;
+}
+
+// w unchanged, as hrt::pin does for a float: a per-ray bf16x2 term stays
+// out of the pair loop.
+__device__ __forceinline__ unsigned pin_word(unsigned w) {
+  asm volatile("" : "+r"(w));
+  return w;
+}
+
+// The halves of a bf16x2 word as float32: exact.
+__device__ __forceinline__ float lo_f32(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float hi_f32(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Correctly rounded bf16x2 operations on packed words (.rn: never
+// contracted into an HFMA2).
+__device__ __forceinline__ unsigned add2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned sub2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned mul2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
 }
 
 // dot3 of float32 copies of bf16 values: the products are exact, so each
@@ -346,12 +414,28 @@ __device__ __forceinline__ float dot3_exact(float ax, float ay, float az,
   return __fmaf_rn(az, bz, __fmaf_rn(ay, by, __fmul_rn(ax, bx)));
 }
 
-// A ray's bf16 terms: d rounded to bf16 (as float32, for the dots), and a
-// = d.d and 1 / a, each held twice in a pair.
+// What a bf16 segment keeps in shared memory, at hrt::word(r): the
+// float32 terms of the packet that its loop never reads (d, |d|^2, the
+// lerp factor), parked from its start to its end, and each ray's 1 / a16
+// (twice, a bf16x2 word), which only the roots read.  So neither holds a
+// register through the loop.
+constexpr int kHeld = 5;
+__shared__ float s_held[kHeld][hrt::kRays * kThreads];
+__shared__ unsigned s_inv_a[hrt::kRays * kThreads];
+
+// x read from shared memory again, where the compiler cannot keep a copy
+// in a register instead.
+template <class T>
+__device__ __forceinline__ T reread(const T& x) {
+  return *static_cast<const volatile T*>(&x);
+}
+
+// A ray's bf16 terms: d rounded to bf16 (as float32, for the dots), and
+// a = d.d held twice in a bf16x2 word; 1 / a goes to s_inv_a.
 template <int R>
 struct Bf16Rays {
   float dx[R], dy[R], dz[R];
-  __nv_bfloat162 a[R], inv_a[R];
+  unsigned a[R];
 };
 
 template <int R>
@@ -359,19 +443,59 @@ __device__ __forceinline__ void bf16_rays(const hrt::Packet<R>& pk,
                                           Bf16Rays<R>& br) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    br.dx[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dx[r])));
-    br.dy[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dy[r])));
-    br.dz[r] = hrt::pin(__bfloat162float(__float2bfloat16_rn(pk.dz[r])));
-    const __nv_bfloat16 a = __float2bfloat16_rn(dot3_exact(
-        br.dx[r], br.dy[r], br.dz[r], br.dx[r], br.dy[r], br.dz[r]));
-    br.a[r] = pin2(__bfloat162bfloat162(a));
-    br.inv_a[r] = pin2(__float2bfloat162_rn(
-        __fdiv_rn(1.0f, __bfloat162float(a))));
+    br.dx[r] = hrt::pin(round_bf16(pk.dx[r]));
+    br.dy[r] = hrt::pin(round_bf16(pk.dy[r]));
+    br.dz[r] = hrt::pin(round_bf16(pk.dz[r]));
+    const float a = round_bf16(dot3_exact(br.dx[r], br.dy[r], br.dz[r],
+                                          br.dx[r], br.dy[r], br.dz[r]));
+    const float inv_a = __fdiv_rn(1.0f, a);
+    br.a[r] = pin_word(pack_bf16(a, a));
+    s_inv_a[hrt::word(r)] = pack_bf16(inv_a, inv_a);
   }
 }
 
-// Ray r's candidate of one sphere: the nearer root at or above t_min16,
-// else the farther; it replaces the best only when strictly smaller.
+// Park the packet's float32 terms in s_held, and take them back.
+template <int R>
+__device__ __forceinline__ void hold(const hrt::Packet<R>& pk) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int w = hrt::word(r);
+    s_held[0][w] = pk.dx[r];
+    s_held[1][w] = pk.dy[r];
+    s_held[2][w] = pk.dz[r];
+    s_held[3][w] = pk.a[r];
+    s_held[4][w] = pk.f[r];
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void release(hrt::Packet<R>& pk) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int w = hrt::word(r);
+    pk.dx[r] = reread(s_held[0][w]);
+    pk.dy[r] = reread(s_held[1][w]);
+    pk.dz[r] = reread(s_held[2][w]);
+    pk.a[r] = reread(s_held[3][w]);
+    pk.f[r] = reread(s_held[4][w]);
+  }
+}
+
+// The square root of a non-negative bf16 value x (as float32), as
+// float32: MUFU's approximate root, one instruction where the correctly
+// rounded one takes a dozen and a slow path.  Rounded to bf16 after, it
+// equals bf16(sqrt_rn(x)) on every non-negative bf16 value, +0 to +inf
+// (all 32,641 are checked on the card: ops/typed_sweep.py bf16_sqrt), so
+// the roots round as the contract says.
+__device__ __forceinline__ float sqrt_of_bf16(float x) {
+  float r;
+  asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// Ray r's candidate of one sphere (its discriminant and roots, bf16
+// values as float32): the nearer root at or above t_min16, else the
+// farther; it replaces the best only when strictly smaller.
 template <int R>
 __device__ __forceinline__ void bf16_update(hrt::Packet<R>& pk, int r,
                                             float disc, float t_near,
@@ -385,89 +509,121 @@ __device__ __forceinline__ void bf16_update(hrt::Packet<R>& pk, int r,
   }
 }
 
-// Fold spheres idx and idx + 1 (g0, g1; their bf16(r)^2 in rr) into every
-// ray of the packet, one bf16x2 operation for both; two = false: g1 is g0
-// again and only idx is folded.  The second phase runs only when some
-// ray's line meets one of them, as hrt::fold_sphere's.
-template <int R>
-__device__ __forceinline__ void fold_sphere_pair_bf16(
-    hrt::Packet<R>& pk, const Bf16Rays<R>& br, const float4 g0,
-    const float4 g1, const __nv_bfloat162 rr, int idx, bool two,
-    float t_min16) {
-  __nv_bfloat162 half_b[R], disc[R];
-  bool any = false;
+// o - c0 and o - c1 (one coordinate, two spheres), each rounded to bf16
+// (as float32).
+__device__ __forceinline__ void oc_bf16(float o, float c0, float c1,
+                                        float& v0, float& v1) {
+  v0 = round_bf16(__fsub_rn(o, c0));
+  v1 = round_bf16(__fsub_rn(o, c1));
+}
+
+// Fold the kPairs pairs of spheres idx, idx + 1, ... (records s[0..2 *
+// kPairs): center, bf16(r)^2) into every ray of the packet, one bf16x2
+// instruction for the two spheres of a pair; kTwo = false (kPairs = 1):
+// the pair is s[0] twice and only idx is folded.  Every ray's
+// discriminants first, straight-line code; then, only when one of them
+// has a clear sign bit (a superset of disc >= 0: a NaN may have one), the
+// roots of the rays that have one, tested exactly, a ray's spheres in
+// index order.
+template <int R, int kPairs, bool kTwo>
+__device__ __forceinline__ void fold_spheres_bf16(hrt::Packet<R>& pk,
+                                                  const Bf16Rays<R>& br,
+                                                  const float4* s, int idx,
+                                                  float t_min16) {
+  static_assert(kTwo || kPairs == 1, "a single sphere is one pair");
+  unsigned half_b[kPairs][R], disc[kPairs][R];
+  unsigned ray_all[R];  // the AND of each ray's discriminant words
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const float2 ocx = __bfloat1622float2(__floats2bfloat162_rn(
-        __fsub_rn(pk.ox[r], g0.x), __fsub_rn(pk.ox[r], g1.x)));
-    const float2 ocy = __bfloat1622float2(__floats2bfloat162_rn(
-        __fsub_rn(pk.oy[r], g0.y), __fsub_rn(pk.oy[r], g1.y)));
-    const float2 ocz = __bfloat1622float2(__floats2bfloat162_rn(
-        __fsub_rn(pk.oz[r], g0.z), __fsub_rn(pk.oz[r], g1.z)));
-    half_b[r] = __floats2bfloat162_rn(
-        dot3_exact(ocx.x, ocy.x, ocz.x, br.dx[r], br.dy[r], br.dz[r]),
-        dot3_exact(ocx.y, ocy.y, ocz.y, br.dx[r], br.dy[r], br.dz[r]));
-    const __nv_bfloat162 c = __hsub2_rn(
-        __floats2bfloat162_rn(
-            dot3_exact(ocx.x, ocy.x, ocz.x, ocx.x, ocy.x, ocz.x),
-            dot3_exact(ocx.y, ocy.y, ocz.y, ocx.y, ocy.y, ocz.y)),
-        rr);
-    disc[r] = __hsub2_rn(__hmul2_rn(half_b[r], half_b[r]),
-                         __hmul2_rn(br.a[r], c));
-    const float2 df = __bfloat1622float2(disc[r]);
-    any = any || df.x >= 0.0f || df.y >= 0.0f;
+  for (int r = 0; r < R; ++r) ray_all[r] = 0xffffffffu;
+#pragma unroll
+  for (int q = 0; q < kPairs; ++q) {
+    const float4 s0 = s[2 * q], s1 = kTwo ? s[2 * q + 1] : s0;
+    const unsigned rr = __byte_perm(__float_as_uint(s0.w),
+                                    __float_as_uint(s1.w), 0x7632);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float x0, y0, z0, x1, y1, z1;
+      oc_bf16(pk.ox[r], s0.x, s1.x, x0, x1);
+      oc_bf16(pk.oy[r], s0.y, s1.y, y0, y1);
+      oc_bf16(pk.oz[r], s0.z, s1.z, z0, z1);
+      half_b[q][r] = pack_bf16(
+          dot3_exact(x0, y0, z0, br.dx[r], br.dy[r], br.dz[r]),
+          dot3_exact(x1, y1, z1, br.dx[r], br.dy[r], br.dz[r]));
+      const unsigned c = sub2(
+          pack_bf16(dot3_exact(x0, y0, z0, x0, y0, z0),
+                    dot3_exact(x1, y1, z1, x1, y1, z1)),
+          rr);
+      disc[q][r] = sub2(mul2(half_b[q][r], half_b[q][r]),
+                        mul2(br.a[r], c));
+      ray_all[r] &= disc[q][r];
+    }
   }
-  if (!any) return;
+  unsigned all = 0xffffffffu;
+#pragma unroll
+  for (int r = 0; r < R; ++r) all &= ray_all[r];
+  if ((all & 0x80008000u) == 0x80008000u) return;  // every sign set
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float2 df = __bfloat1622float2(disc[r]);
-    if (df.x >= 0.0f || df.y >= 0.0f) {
-      const __nv_bfloat162 sq = __floats2bfloat162_rn(
-          __fsqrt_rn(fmaxf(df.x, 0.0f)), __fsqrt_rn(fmaxf(df.y, 0.0f)));
-      const __nv_bfloat162 nhb = __hneg2(half_b[r]);
-      const float2 tn =
-          __bfloat1622float2(__hmul2_rn(__hsub2_rn(nhb, sq), br.inv_a[r]));
-      const float2 tf =
-          __bfloat1622float2(__hmul2_rn(__hadd2_rn(nhb, sq), br.inv_a[r]));
-      bf16_update(pk, r, df.x, tn.x, tf.x, idx, t_min16);
-      if (two) bf16_update(pk, r, df.y, tn.y, tf.y, idx + 1, t_min16);
+    if ((ray_all[r] & 0x80008000u) == 0x80008000u) continue;
+#pragma unroll
+    for (int q = 0; q < kPairs; ++q) {
+      const unsigned dw = disc[q][r];
+      if ((dw & 0x80008000u) != 0x80008000u) {
+        const float d0 = lo_f32(dw), d1 = hi_f32(dw);
+        const unsigned sq = pack_bf16(sqrt_of_bf16(fmaxf(d0, 0.0f)),
+                                      sqrt_of_bf16(fmaxf(d1, 0.0f)));
+        const unsigned nhb = half_b[q][r] ^ 0x80008000u;  // -half_b
+        const unsigned inv_a = reread(s_inv_a[hrt::word(r)]);
+        const unsigned tn = mul2(sub2(nhb, sq), inv_a);
+        const unsigned tf = mul2(add2(nhb, sq), inv_a);
+        bf16_update(pk, r, d0, lo_f32(tn), lo_f32(tf), idx + 2 * q,
+                    t_min16);
+        if (kTwo)
+          bf16_update(pk, r, d1, hi_f32(tn), hi_f32(tf), idx + 2 * q + 1,
+                      t_min16);
+      }
     }
   }
 }
 
-// Fold `count` staged records of a bf16 tile (first index idx0; the x of
-// each aux record: its bf16(r)^2) into the packet, two spheres a trip.
+// Fold `count` staged bf16 records of a bf16 tile (first index idx0) into
+// the packet: 2 * kBf16Pairs spheres a trip, then the pairs left, then
+// the odd one.
 template <int R>
 __device__ __forceinline__ void fold_segment_bf16(hrt::Packet<R>& pk,
                                                   const float4* sg,
-                                                  const float4* sa,
                                                   int count, int idx0,
                                                   float t_min) {
-  const float t_min16 = __bfloat162float(__float2bfloat16_rn(t_min));
+  constexpr int kTrip = 2 * kBf16Pairs;
+  const float t_min16 = round_bf16(t_min);
   Bf16Rays<R> br;
   bf16_rays<R>(pk, br);
+  hold<R>(pk);
+  const int trips = count / kTrip;
 #pragma unroll 1
-  for (int j = 0; j < count; j += 2) {
-    const bool two = j + 1 < count;
-    const int k = two ? j + 1 : j;
-    fold_sphere_pair_bf16<R>(pk, br, sg[j], sg[k],
-                             __floats2bfloat162_rn(sa[j].x, sa[k].x),
-                             idx0 + j, two, t_min16);
-  }
+  for (int j = 0; j < trips; ++j)
+    fold_spheres_bf16<R, kBf16Pairs, true>(pk, br, sg + kTrip * j,
+                                           idx0 + kTrip * j, t_min16);
+  int j = trips * kTrip;
+#pragma unroll 1
+  for (; j + 1 < count; j += 2)
+    fold_spheres_bf16<R, 1, true>(pk, br, sg + j, idx0 + j, t_min16);
+  if (j < count)
+    fold_spheres_bf16<R, 1, false>(pk, br, sg + j, idx0 + j, t_min16);
+  release<R>(pk);
 }
 
 // Issue the cp.async copies of the stage [lo, hi) into ring slot buf,
 // walking the plan from tile `tile` (past the tiles that end at or before
 // lo, which a left-out group's stages skip; left at the first tile that
 // goes on past hi).  Only the records a tile's type reads are copied; a
-// bf16 tile (kBf16) copies each sphere's rr16 into the x of its aux
-// record, which a static sphere does not read.
+// bf16 tile (kBf16) copies its bf16 records (geo16) in place of geo.
 template <bool kBf16>
 __device__ __forceinline__ void stage_copy(
     const Ring& ring, int lo, int hi, int buf, int& tile,
     const int4* __restrict__ plan, int n_tiles,
     const float4* __restrict__ geo, const float4* __restrict__ aux,
-    const float4* __restrict__ xf, const float* __restrict__ rr16) {
+    const float4* __restrict__ xf, const float4* __restrict__ geo16) {
   float4* sg = ring.geo + buf * kStage;
   float4* sa = ring.aux + buf * kStage;
   float4* sx = ring.xf + buf * 3 * kStage;
@@ -480,12 +636,10 @@ __device__ __forceinline__ void stage_copy(
     if (t.start >= hi) break;
     const int a = max(lo, t.start), b = min(hi, t.start + t.width);
     const bool need_aux = t.type != kSphere || t.motion;
-    const bool need_rr = kBf16 && bf16_tile(t);
+    const float4* src = kBf16 && bf16_tile(t) ? geo16 : geo;
     for (int j = threadIdx.x; j < b - a; j += kThreads) {
-      hrt::cp_async16(sg + (a - lo) + j, geo + a + j);
+      hrt::cp_async16(sg + (a - lo) + j, src + a + j);
       if (need_aux) hrt::cp_async16(sa + (a - lo) + j, aux + a + j);
-      if (need_rr)
-        cp_async4(reinterpret_cast<float*>(sa + (a - lo) + j), rr16 + a + j);
     }
     if (t.xform) {
       const float4* src = xf + 3 * (t.xf_off + a - t.start);
@@ -531,7 +685,7 @@ __device__ __forceinline__ void fold_stage(
       case kSphere:
         if constexpr (kBf16) {
           if (bf16_tile(t)) {
-            fold_segment_bf16<R>(pk, sg, sa, n_seg, a, t_min);
+            fold_segment_bf16<R>(pk, sg, n_seg, a, t_min);
             break;
           }
         }
@@ -569,7 +723,8 @@ __device__ __forceinline__ void fold_stage(
 }
 
 template <int R, bool kBf16>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+__global__ void __launch_bounds__(kThreads,
+                                  kBf16 ? kBf16MinBlocks : kMinBlocks)
 typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const float* __restrict__ time,
                    const unsigned char* __restrict__ active,
@@ -580,7 +735,7 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    const int4* __restrict__ plan, int n_tiles, int p,
                    const float2* __restrict__ shutter, float t_min,
                    const hrt::GroupArgs groups,
-                   const float* __restrict__ rr16,
+                   const float4* __restrict__ geo16,
                    float* __restrict__ t_out, int* __restrict__ best_out) {
   extern __shared__ float4 smem[];
   // xf points past the geo and aux slots; with no transformed tile it is
@@ -598,7 +753,7 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
   Cursor cur = Cursor::first();
   if (cur.valid())
     stage_copy<kBf16>(ring, cur.lo, cur.hi(), 0, copy_tile, plan, n_tiles,
-                      geo, aux, xf, rr16);
+                      geo, aux, xf, geo16);
   hrt::cp_async_commit();
   // Every thread, live or not, runs every stage: each has two barriers.
   for (int q = 0; cur.valid(); ++q) {
@@ -607,7 +762,7 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
       const Cursor nxt = cur.next();
       if (nxt.valid())
         stage_copy<kBf16>(ring, nxt.lo, nxt.hi(), buf ^ 1, copy_tile, plan,
-                          n_tiles, geo, aux, xf, rr16);
+                          n_tiles, geo, aux, xf, geo16);
     }
     hrt::cp_async_commit();  // possibly empty: keeps one group per stage
     hrt::cp_async_wait<1>();  // this stage has landed (this thread's copies)
@@ -624,28 +779,45 @@ typed_sweep_kernel(const float* __restrict__ o, const float* __restrict__ d,
   hrt::store_packet<R>(pk, n, t_out, best_out);
 }
 
-template <int R>
+// One form's launch: R rays a thread.
+template <int R, bool kBf16>
 int launch(const float* o, const float* d, const float* time,
            const unsigned char* active, const long long* bits, int n,
            const float4* geo, const float4* aux, const float4* xf,
            const int4* plan, int n_tiles, int p, const float2* shutter,
            bool has_xf, float t_min, const hrt::GroupArgs& groups,
-           const float* rr16, float* t_out, int* best_out,
+           const float4* geo16, float* t_out, int* best_out,
            cudaStream_t stream) {
   const size_t smem = sizeof(float4) * kStage * (has_xf ? 10 : 4);
   const int blocks = (n + kThreads * R - 1) / (kThreads * R);
-  if (rr16 != nullptr)
-    typed_sweep_kernel<R, true><<<blocks, kThreads, smem, stream>>>(
-        o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p,
-        shutter, t_min, groups, rr16, t_out, best_out);
-  else
-    typed_sweep_kernel<R, false><<<blocks, kThreads, smem, stream>>>(
-        o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p,
-        shutter, t_min, groups, nullptr, t_out, best_out);
+  typed_sweep_kernel<R, kBf16><<<blocks, kThreads, smem, stream>>>(
+      o, d, time, active, bits, n, geo, aux, xf, plan, n_tiles, p, shutter,
+      t_min, groups, geo16, t_out, best_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+namespace {
+
+__global__ void bf16_sqrt_kernel(const float* __restrict__ x,
+                                 float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = round_bf16(sqrt_of_bf16(fmaxf(x[i], 0.0f)));
+}
+
+}  // namespace
+
+// The bf16 form's square root on its own, for its check: out[i] =
+// bf16(sqrt(max(x[i], 0))) as the roots compute it, for n float32 x[i]
+// on the device.  Launches on `stream`; returns cudaGetLastError().
+extern "C" int hrt_bf16_sqrt(const float* x, float* out, int n,
+                             void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  bf16_sqrt_kernel<<<(n + 255) / 256, 256, 0,
+                     static_cast<cudaStream_t>(stream)>>>(x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // C entry point, bound with ctypes.  Pointers are device pointers of
 // contiguous tensors: rays o, d [n,3], time [n] float32, active [n] (bool
@@ -656,11 +828,11 @@ int launch(const float* o, const float* d, const float* time,
 // masks [n] uint8 (nullptr for the plain sweep) and n_groups <= 2 groups
 // [g0_start, g0_end), [g1_start, g1_end) (sweep_sphere.cuh; the plan's
 // tiles are cut at their bounds); outputs t_out [n] float32 and best_out
-// [n] int32.  has_xf: some tile is transformed.  rr16 [p] float32, each
-// sphere's bf16(bf16(r)^2) (bf16 values), selects the bf16 form; nullptr
-// the float32 sweep.  A mask without groups,
-// or groups without a mask, is refused.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); it never synchronises.
+// [n] int32.  has_xf: some tile is transformed.  geo16 [p] float4, each
+// sphere's bf16 record (center, bf16(bf16(r)^2)), selects the bf16 form;
+// nullptr the float32 sweep.  A mask without groups, or groups without a
+// mask, is refused.  Launches on `stream` and returns cudaGetLastError()
+// (0 on success); it never synchronises.
 extern "C" int hrt_typed_sweep(const float* o, const float* d,
                                const float* time, const unsigned char* active,
                                const long long* bits, int n,
@@ -670,16 +842,21 @@ extern "C" int hrt_typed_sweep(const float* o, const float* d,
                                int has_xf, float t_min,
                                const unsigned char* mask, int n_groups,
                                int g0_start, int g0_end, int g1_start,
-                               int g1_end, const float* rr16,
+                               int g1_end, const float4* geo16,
                                float* t_out, int* best_out, void* stream) {
   if (n <= 0 || n_tiles <= 0 || p <= 0 || n_groups < 0 ||
       n_groups > hrt::kMaxGroups || (mask == nullptr) != (n_groups == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const hrt::GroupArgs groups{mask, n_groups, {g0_start, g1_start},
                               {g0_end, g1_end}};
-  return launch<hrt::kRays>(o, d, time, active, bits, n, geo, aux, xf,
-                            reinterpret_cast<const int4*>(plan), n_tiles, p,
-                            shutter, has_xf != 0, t_min, groups, rr16,
-                            t_out, best_out,
-                            static_cast<cudaStream_t>(stream));
+  const int4* rows = reinterpret_cast<const int4*>(plan);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (geo16 != nullptr)
+    return launch<kBf16Rays, true>(o, d, time, active, bits, n, geo, aux, xf,
+                                   rows, n_tiles, p, shutter, has_xf != 0,
+                                   t_min, groups, geo16, t_out, best_out, s);
+  return launch<hrt::kRays, false>(o, d, time, active, bits, n, geo, aux, xf,
+                                   rows, n_tiles, p, shutter, has_xf != 0,
+                                   t_min, groups, nullptr, t_out, best_out,
+                                   s);
 }

@@ -211,10 +211,17 @@ def sphere_t_bf16(center, rr16, o, d16, a16, inv_a16, t_min16, t_max16):
 
 def bf16_radius_sq(radius):
     """bf16(bf16(r) * bf16(r)) per primitive as float32 (the bf16 form's
-    squared radius, the kernel's rr16 record; the same on every
-    device)."""
+    squared radius; the same on every device)."""
     r16 = radius.to(torch.bfloat16)
     return (r16 * r16).float().contiguous()
+
+
+def bf16_records(p0, radius):
+    """The bf16 form's record per primitive, [P, 4] float32: its center
+    ``p0`` and ``bf16_radius_sq(radius)``, the one 16-byte record the
+    kernel stages for a sphere of a bf16 tile.  Built on the tensors'
+    device."""
+    return torch.cat([p0, bf16_radius_sq(radius)[:, None]], 1).contiguous()
 
 
 class PlanTile(NamedTuple):
@@ -240,8 +247,9 @@ class SweepScene(NamedTuple):
     # The partition groups (ops/partition.PartGroup) whose bounds cut the
     # plan; the tiles of group i carry group = i.
     groups: tuple = ()
-    # [P] float32, bf16(bf16(r)^2) per primitive: the bf16 form's radii.
-    rr16: Optional[torch.Tensor] = None
+    # [P, 4] float32, (p0, bf16(bf16(r)^2)) per primitive: the bf16 form's
+    # records (bf16_records).
+    geo16: Optional[torch.Tensor] = None
 
 
 def prim_records(geom_np, n_prims: int, lerp):
@@ -353,7 +361,8 @@ def sweep_scene(geom_np, geom, n_prims: int, plan=None,
     return SweepScene(plan=tuple(plan), plan_rows=rows, prims=prims,
                       geo=geo, aux=aux, xf=xf, shutter=shutter,
                       groups=tuple(groups),
-                      rr16=bf16_radius_sq(prims.radius.detach()))
+                      geo16=bf16_records(prims.p0.detach(),
+                                         prims.radius.detach()))
 
 
 def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
@@ -376,7 +385,7 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
     if bf16:
         d16, a16, inv_a16 = bf16_ray_terms(d[:, None])
         t_min16 = float(torch.tensor(t_min).to(torch.bfloat16))
-        rr16 = sw.rr16.to(torch.bfloat16)
+        rr16 = sw.geo16[:, 3].to(torch.bfloat16)
     for tile in sw.plan:
         bound = t_best[:, None]  # the tile's stale t_max
         low = bf16 and bf16_tile(tile)
@@ -405,6 +414,34 @@ def typed_sweep_plain(sw: SweepScene, o, d, time, active, bits,
             t_best = torch.where(upd, tt, t_best)
             best = torch.where(upd, (s + j).to(torch.int32), best)
     return torch.where(active, t_best, BIG), best
+
+
+def bf16_sqrt_plain(x):
+    """bf16(sqrt_rn(max(x, 0))) as float32, the bf16 form's square root of
+    a discriminant ``x`` (float32 [N]), as ``sphere_t_bf16`` takes it."""
+    return sqrt_rn(torch.clamp(x, min=0.0)).to(torch.bfloat16).float()
+
+
+def bf16_sqrt(x):
+    """The bf16 form's square root as its kernel computes it: MUFU's
+    approximate root of a float32 [N] ``x`` on the card, rounded to bf16
+    (``csrc/typed_sweep.cu`` sqrt_of_bf16), where a CUDA tensor launches
+    ``hrt_bf16_sqrt``; ``bf16_sqrt_plain`` on the CPU.  The kernel relies
+    on the two agreeing on every non-negative bf16 value, +0 to +inf,
+    which the card tests and ``chip_smoke.py`` check on all 32,641."""
+    if x.device.type == "cpu":
+        return bf16_sqrt_plain(x)
+    n = x.shape[0]
+    cuda_build.check_arg("bf16_sqrt", "x", x, (n,), torch.float32, x.device)
+    out = torch.empty_like(x)
+    if n:
+        fn = cuda_build.load("typed_sweep").hrt_bf16_sqrt
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        cuda_build.launch("bf16_sqrt", fn, x.device, x.data_ptr(),
+                          out.data_ptr(), n)
+    return out
 
 
 def _bind(lib):
@@ -448,7 +485,7 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
             ("shutter", sw.shutter, (sw.shutter.shape[0], 2), f32),
             *((("mask", mask, (n,), torch.uint8),) if mask is not None
               else ()),
-            *((("rr16", sw.rr16, (p,), f32),) if bf16 else ())):
+            *((("geo16", sw.geo16, (p, 4), f32),) if bf16 else ())):
         cuda_build.check_arg("typed_sweep", name, x, shape, dtype, device)
     if p == 0 or not sw.plan:
         raise ValueError("typed_sweep: no primitives")
@@ -469,7 +506,7 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
         sw.plan_rows.data_ptr(), len(sw.plan), p, sw.shutter.data_ptr(),
         int(has_xf), float(t_min),
         None if mask is None else mask.data_ptr(), len(groups),
-        *group_bounds(groups), sw.rr16.data_ptr() if bf16 else None,
+        *group_bounds(groups), sw.geo16.data_ptr() if bf16 else None,
         t_best.data_ptr(), best.data_ptr())
     typed_sweep.launches += 1
     if mask is not None:

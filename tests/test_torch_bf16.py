@@ -61,7 +61,10 @@ from hyper_ray_tracer_tpu_torch.ops import partition as P  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops import typed_sweep as ts  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.intersect import BIG  # noqa: E402
 from hyper_ray_tracer_tpu_torch.ops.math import sqrt_rn  # noqa: E402
-from hyper_ray_tracer_tpu_torch.scene_tensors import to_device  # noqa: E402
+from hyper_ray_tracer_tpu_torch.scene_tensors import (  # noqa: E402
+    bind_params,
+    to_device,
+)
 from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     extract_params,
     make_radiance_fn,
@@ -129,7 +132,7 @@ def test_miss_value_is_above_big():
     assert (best == -1).all() and (t == float(BIG)).all()
     d16, a16, inv = ts.bf16_ray_terms(d[:, None])
     sw = st.sweep
-    t16 = ts.sphere_t_bf16(sw.prims.p0[None], sw.rr16[None].bfloat16(),
+    t16 = ts.sphere_t_bf16(sw.prims.p0[None], sw.geo16[None, :, 3].bfloat16(),
                            o[:, None], d16, a16, inv, T_MIN16,
                            torch.tensor(3.0e38).bfloat16())
     assert (t16.float() == ts.BF16_BIG).all()
@@ -331,6 +334,35 @@ def test_bf16_flag_ignored_by_bvh_and_cluster():
     b = render_image(scene, RenderSettings(**s, intersector="cluster",
                                            bf16_hits=True), "cpu")
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["three-spheres", "final"])
+def test_bf16_records_follow_the_parameters(name):
+    """The bf16 form's records, one per primitive, are (p0,
+    bf16(bf16(r)^2)) record for record: as uploaded, and again after an
+    in-place adam step and ``bind_params``, so the kernel never reads a
+    stale center or radius."""
+    scene = build_scene(name)
+    st = to_device(scene.arrays, scene.static, "cpu")
+    n = scene.static.n_prims
+
+    def check(sw, geom):
+        assert sw.geo16.shape == (n, 4) and sw.geo16.is_contiguous()
+        assert torch.equal(sw.geo16[:, :3], geom.p0[:n].detach())
+        assert torch.equal(sw.geo16[:, 3],
+                           ts.bf16_radius_sq(geom.radius[:n].detach()))
+
+    check(st.sweep, st.arrays.geom)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in extract_params(st.arrays).items()}
+    opt = torch.optim.Adam(list(params.values()), lr=1e-2)
+    for p in params.values():
+        p.grad = torch.ones_like(p)
+    opt.step()
+    bound = bind_params(st, params)
+    check(bound.sweep, bound.arrays.geom)
+    assert not torch.equal(bound.sweep.geo16, st.sweep.geo16)
+    assert bound.sweep.plan == st.sweep.plan
 
 
 def test_bf16_gradients_flow_and_are_finite():

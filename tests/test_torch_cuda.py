@@ -1150,6 +1150,160 @@ def test_bf16_typed_sweep_equals_plain(cuda, name, bounces):
             assert torch.equal(b_m, b_q) and torch.equal(t_m, t_q)
 
 
+def _bf16_edge_scene(case):
+    """A scene whose plan puts a bf16 tile (static spheres) at one of the
+    bf16 loop's edges: an odd width (the single-sphere tail), a width of
+    1 (the 513th sphere of a run: plan tiles of 512 and 1), widths above
+    the kernel's 256-record stage (tiles cut by a stage), a bf16 tile
+    between motion tiles of one shutter slot, beside a box and a medium
+    (float32 tiles of the same launch); or
+    ``tangent``: spheres that rays along +z graze (a bf16 discriminant
+    of 0) or cross with roots at t = 9 and 11."""
+    rng = np.random.default_rng(17)
+    b = SceneBuilder()
+    mat = b.lambertian(b.solid((0.5, 0.5, 0.5)))
+
+    def spheres(k):
+        for c in rng.uniform(-20, 20, (k, 3)):
+            b.sphere(c, float(rng.uniform(0.2, 1.5)), mat)
+
+    def box():
+        c = rng.uniform(-20, 20, 3)
+        b.cuboid(c, c + rng.uniform(0.5, 3.0, 3), mat)
+
+    if case == "odd-width":
+        spheres(37)
+    elif case == "width-1":
+        spheres(513)
+        box()
+    elif case == "stage-cut":
+        box()
+        spheres(701)
+    elif case == "mixed-motion":  # motion tiles on both sides of bf16's
+        b.moving_sphere((0, 0, 5), (0, 2, 5), 0.0, 1.0, 2.0, mat)
+        spheres(1100)
+        b.moving_sphere((4, 0, 5), (4, 2, 5), 0.0, 1.0, 2.0, mat)
+        box()
+        tex = b.solid((0.9, 0.9, 0.9))
+        b.medium_sphere((0.0, 0.0, 0.0), 3.0, 0.3, tex)
+    else:  # tangent
+        for c, r in (((0, 0, 0), 1.0), ((3, 0, 0), 1.0), ((0, 5, 0), 2.0)):
+            b.sphere(c, r, mat)
+    return b.finalize(CameraConfig((0, 0, 60), (0, 0, 0), 40.0, 0.0),
+                      (0.0, 0.0, 0.0), case)
+
+
+def _tangent_rays(n, seed):
+    """Rays from z = -10 along +z at heights that graze or cross
+    _bf16_edge_scene("tangent")'s spheres."""
+    rng = np.random.default_rng(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = np.round(rng.uniform(-1, 4, n) * 8) / 8
+    o[:, 1] = rng.choice([0.0, 1.0, 0.999, 1.001, 3.0, 7.0], n)
+    o[:, 2] = -10.0
+    d = np.zeros((n, 3), np.float32)
+    d[:, 2] = 1.0
+    return o, d
+
+
+@pytest.mark.parametrize("case,t_min", [
+    ("odd-width", T_MIN), ("width-1", T_MIN), ("stage-cut", T_MIN),
+    ("mixed-motion", T_MIN), ("final-masks", T_MIN), ("tangent", T_MIN),
+    ("tangent", 9.0), ("tangent", 10.0), ("tangent", 11.0)])
+def test_bf16_typed_sweep_edges(cuda, case, t_min):
+    """K1b's bf16 form bit-equal to its twin at the edges of its loop: a
+    bf16 tile of odd width, of width 1, cut by a stage boundary, between
+    float32 motion tiles and beside box and medium ones, `final`'s plan
+    (bf16 and float32 tiles) under both partition groups' masks with
+    dead lanes, rays tangent to a sphere (bf16 discriminant 0), and
+    t_min equal to a root (the tangent's 10, a crossing's near 9 and far
+    11)."""
+    from hyper_ray_tracer_tpu_torch.ops import partition
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        bf16_ray_terms,
+        bf16_tile,
+        dot3_bf16,
+    )
+
+    scene = build_scene("final") if case == "final-masks" \
+        else _bf16_edge_scene(case)
+    st = to_device(scene.arrays, scene.static, cuda)
+    low = [t for t in st.sweep.plan if bf16_tile(t)]
+    n = 4001
+    if case == "tangent":
+        o, d = (torch.from_numpy(x).to(cuda) for x in _tangent_rays(n, 5))
+        active = torch.ones(n, dtype=torch.bool, device=cuda)
+        time = torch.zeros(n, device=cuda)
+        bits = torch.zeros(n, dtype=torch.int64, device=cuda)
+    else:
+        s = _rays(scene, st, 160, 90, cuda, 1 if case == "final-masks"
+                  else 0)
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        idx = torch.randperm(s.o.shape[0], device=cuda, generator=gen)[:n]
+        s = type(s)(*(x[idx] for x in s))
+        active = s.alive & (torch.rand(n, device=cuda, generator=gen) < 0.8)
+        o, d, time = s.o.contiguous(), s.d.contiguous(), s.time
+        bits = prng.bounce_base(s.base, 1)
+    args = (st.sweep, o, d, time.contiguous(), active.contiguous(),
+            bits.contiguous(), t_min)
+    t_k, b_k = typed_sweep(*args, bf16=True)
+    torch.cuda.synchronize()
+    t_p, b_p = typed_sweep_plain(*args, bf16=True)
+    assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
+    widths = [t.width for t in low]
+    if case == "odd-width":
+        assert widths == [37]
+    elif case == "width-1":
+        assert widths == [512, 1]
+    elif case == "stage-cut":
+        assert widths == [512, 189]
+    elif case == "mixed-motion":
+        assert [(t.width, t.motion) for t in st.sweep.plan[:3]] == [
+            (512, True), (512, False), (78, True)] and widths == [512]
+    elif case == "final-masks":
+        assert low and len(low) < len(st.sweep.plan)
+    else:  # a tangent lane's bf16 discriminant is 0, and it hits there
+        c16 = st.sweep.geo16[0]
+        d16, a16, _ = bf16_ray_terms(d)
+        oc = (o - c16[:3]).to(torch.bfloat16)
+        hb = dot3_bf16(oc, d16)
+        disc = hb * hb - a16 * (dot3_bf16(oc, oc)
+                                - c16[3].to(torch.bfloat16))
+        assert ((disc == 0) & (b_k == 0)).any() or t_min > 10.0
+        assert ((t_k == t_min) & (b_k >= 0)).any() or t_min < 1.0
+    if case == "final-masks":
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        for mask in (partition.group_mask(st.groups, o, d, st.group_aabbs),
+                     torch.randint(0, 4, (n,), device=cuda, generator=gen,
+                                   dtype=torch.uint8)):
+            t_m, b_m, t_q, b_q = _masked(typed_sweep, typed_sweep_plain,
+                                         args, mask.contiguous(), bf16=True)
+            assert torch.equal(b_m, b_q) and torch.equal(t_m, t_q)
+            assert (b_m[~active] == -1).all()
+    assert (b_k >= 0).any()
+
+
+def test_bf16_sqrt_equals_plain_on_every_bf16(cuda):
+    """The bf16 form's roots take MUFU's approximate square root
+    (``csrc/typed_sweep.cu`` sqrt_of_bf16): rounded to bf16 it equals the
+    correctly rounded root's on every non-negative bf16 value, +0 to
+    +inf, and a negative value's root is 0, as the twin's clamp makes
+    it."""
+    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import (
+        bf16_sqrt,
+        bf16_sqrt_plain,
+    )
+
+    words = np.arange(1 << 16, dtype=np.uint32) << 16
+    x = torch.from_numpy(words.view(np.float32))
+    keep = ~torch.isnan(x) & (x != 0)
+    keep[0] = True  # +0
+    x = x[keep]
+    got = bf16_sqrt(x.to(cuda)).cpu()
+    assert torch.equal(got, bf16_sqrt_plain(x))
+    assert int((x >= 0).sum()) == 32641 and (got[x < 0] == 0).all()
+
+
 def test_bf16_render_goes_through_the_bf16_form(cuda):
     """A sphere-only scene with bf16_hits traces through K1b's bf16 form,
     not K1, and its image stays within tests/test_bf16.py's bound of the
