@@ -669,7 +669,7 @@ def parent_k3(dev, parent):
         cuda_build.launch("segment_sum (parent)", fn, dev, order.data_ptr(),
                           rows.data_ptr(), src.data_ptr(), n, f, n_rows,
                           heads.data_ptr(), bounds.data_ptr(),
-                          out.data_ptr())
+                          out.data_ptr(), tag="K3.parent", lanes=n)
         return out
 
     return segment_sum_parent
@@ -2514,6 +2514,7 @@ def partition_phase(dev, kinds, reset_counts, counts, final_png,
     from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
     from hyper_ray_tracer_tpu_torch.train import main as train_main
     from hyper_ray_tracer_tpu_torch.utils.image import read_png
+    from hyper_ray_tracer_tpu_torch.utils.profiling import counter
 
     t_phase = time.monotonic()
 
@@ -2576,7 +2577,7 @@ def partition_phase(dev, kinds, reset_counts, counts, final_png,
                 dev)
             flake_r[flag] = (time.monotonic() - t0, img,
                              counts()["sphere_sweep"],
-                             sphere_sweep.partitioned)
+                             counter("K1.partitioned"))
         assert np.array_equal(flake_r[True][1], flake_r[False][1])
         assert flake_r[True][3] > 0 and flake_r[False][3] == 0, flake_r
         flake_sched = made[-1]
@@ -2602,8 +2603,8 @@ def partition_phase(dev, kinds, reset_counts, counts, final_png,
                     assert rc == 0, (name, flag, rc)
                     cli[name, flag] = dict(
                         wall=wall, png=read_png(out), launches=counts(),
-                        partitioned=typed_sweep.partitioned
-                        + sphere_sweep.partitioned,
+                        partitioned=counter("K1b.partitioned")
+                        + counter("K1.partitioned"),
                         sched=made[-1] if len(made) > n_made else None)
     finally:
         render_mod.PartitionSchedule = real_schedule
@@ -2706,24 +2707,26 @@ HAND = {"K1": ("sphere_sweep_kernel", "trace"),
 def render_profile(dev, name, settings):
     """Where the device time of ``render_image`` goes: one warm-up, one
     unprofiled render timed, one under torch.profiler, its kernels' time
-    given to the layers by the record_function ranges of
-    render.trace_paths and to the hand kernels by name.  The time of
-    K4 or K5 is also split by bounce (its launches in order,
-    ``settings.depth`` a chunk), beside the lanes each compaction
-    kept."""
+    given to the layers by the spans of render.trace_paths and to the
+    hand kernels by name.  The time of K4 or K5 is also split by bounce
+    (its launches in order, ``settings.depth`` a chunk), beside the lanes
+    the trace kernels ran on (the port's ``<K>.lanes`` counters)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from hyper_ray_tracer_tpu_torch import build_scene, render_image
+    from hyper_ray_tracer_tpu_torch.utils import profiling
 
     scene = build_scene(name)
     render_image(scene, settings, dev)  # warm-up
     t0 = time.monotonic()
     render_image(scene, settings, dev)  # ends with a copy to the host
     wall = (time.monotonic() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    before = profiling.snapshot()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 ) as prof:
         render_image(scene, settings, dev)
+    work = profiling.since(before)["counters"]
     events = prof.events()
     kern = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)
@@ -2736,18 +2739,9 @@ def render_profile(dev, name, settings):
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern)) / 1e3
     by_layer = dict.fromkeys(LAYERS, 0.0)
-    lanes = []
     for e in events:
-        if e.device_type != DeviceType.CPU:
-            continue
-        if e.name in by_layer:
+        if e.device_type == DeviceType.CPU and e.name in by_layer:
             by_layer[e.name] += e.device_time_total / 1e3
-        if e.name == "aten::nonzero" and e.input_shapes:
-            up = e.cpu_parent
-            while up is not None and up.name != "compaction":
-                up = up.cpu_parent
-            if up is not None:
-                lanes.append(e.input_shapes[0][0])
     by_kernel = {k: sum(e.time_range.elapsed_us() for e in kern
                         if sub in e.name) / 1e3
                  for k, (sub, _) in HAND.items()}
@@ -2781,7 +2775,12 @@ def render_profile(dev, name, settings):
         elif runs:
             text += (f"; {hk} {len(runs)} launches, not {depth} a chunk: "
                      "not split by bounce")
-    return text + f"; lanes per bounce (first chunk) {lanes[:depth]}"
+    lanes = {hk: work.get(f"{hk}.lanes", 0) for hk in ("K1", "K1b", "K4",
+                                                          "K5")}
+    return text + (f"; trace lanes a camera ray "
+                   f"{sum(lanes.values()) / work['camera_rays']:.3f} ("
+                   + ", ".join(f"{k} {v}" for k, v in lanes.items() if v)
+                   + f" lanes, {work['camera_rays']} camera rays)")
 
 
 # Phase 26: multi-GPU through torch.distributed (the port's parallel/).
@@ -3496,36 +3495,29 @@ def f6_pin(dev):
 
 
 def kernel_wrappers():
-    """Each hand kernel's wrapper by name: each adds one to its
-    ``launches`` where it launches its kernel."""
-    from hyper_ray_tracer_tpu_torch.ops.bvh import bvh_traverse
-    from hyper_ray_tracer_tpu_torch.ops.cluster_sweep import cluster_sweep
-    from hyper_ray_tracer_tpu_torch.ops.gather import segment_sum
-    from hyper_ray_tracer_tpu_torch.ops.sphere_sweep import sphere_sweep
-    from hyper_ray_tracer_tpu_torch.ops.turbulence import (
-        noise_texture,
-        noise_texture_grad,
-    )
-    from hyper_ray_tracer_tpu_torch.ops.typed_sweep import typed_sweep
-
-    return {"sphere_sweep": sphere_sweep, "typed_sweep": typed_sweep,
-            "turbulence": noise_texture,
-            "turbulence_bwd": noise_texture_grad,
-            "segment_sum": segment_sum, "bvh_traverse": bvh_traverse,
-            "cluster_sweep": cluster_sweep}
+    """Each hand kernel's wrapper by name, with the tag its launches are
+    counted under in the port's registry (``utils/profiling.py``:
+    ``<tag>.launches``)."""
+    return {"sphere_sweep": "K1", "typed_sweep": "K1b", "turbulence": "K2",
+            "turbulence_bwd": "K2b", "segment_sum": "K3",
+            "bvh_traverse": "K4", "cluster_sweep": "K5"}
 
 
 def reset_launches(wrappers):
-    for w in wrappers.values():
-        w.launches = 0
-    for name in ("sphere_sweep", "typed_sweep"):  # their partitioned form's
-        wrappers[name].partitioned = 0
-    wrappers["typed_sweep"].bf16 = 0  # and K1b's bf16 form's
+    """Clear the port's counters (and span totals)."""
+    from hyper_ray_tracer_tpu_torch.utils import profiling
+
+    profiling.reset()
 
 
 def read_launches(wrappers):
-    return {**{name: w.launches for name, w in wrappers.items()},
-            "typed_sweep_bf16": wrappers["typed_sweep"].bf16}
+    """Each wrapper's launches since ``reset_launches``, and those of
+    K1b's bf16 form."""
+    from hyper_ray_tracer_tpu_torch.utils.profiling import counter
+
+    return {**{name: counter(f"{tag}.launches")
+               for name, tag in wrappers.items()},
+            "typed_sweep_bf16": counter("K1b.bf16")}
 
 
 def main(argv=None) -> int:
@@ -3586,6 +3578,7 @@ def main(argv=None) -> int:
     from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
     from hyper_ray_tracer_tpu_torch.utils import cuda_build
     from hyper_ray_tracer_tpu_torch.utils.image import read_png
+    from hyper_ray_tracer_tpu_torch.utils.profiling import counter
 
     dev = torch.device("cuda")
     kinds = {PT_SPHERE: "sphere", PT_MEDIUM_SPHERE: "sphere", PT_RECT: "rect",
@@ -3954,7 +3947,7 @@ def main(argv=None) -> int:
 
     # Phase 7: the goldens of the scenes K1b and K2 open, on the card.
     glines = []
-    saves = noise_texture.saves
+    saves = counter("K2.saves")
     for name, spp, depth in (("final", 1, 5), ("cornell", 4, 8),
                              ("cornell-smoke", 4, 8), ("simple-light", 4, 8),
                              ("earth", 4, 8), ("two-perlin-spheres", 4, 8)):
@@ -3977,7 +3970,7 @@ def main(argv=None) -> int:
         glines.append(f"{name} {spp}spp d{depth}: median {med:.3e} mean "
                       f"{mean:.3e} outliers {outl:.4f}, launches "
                       f"{ {k: v for k, v in launched.items() if v} }")
-    assert noise_texture.saves == saves, "a render without grad saved"
+    assert counter("K2.saves") == saves, "a render without grad saved"
     phase(7, f"goldens on {kind} (bounds 1e-3 / 4e-3 / 0.02): "
           + "; ".join(glines) + "; K2 saved nothing for a backward "
           "(asserted)")

@@ -16,6 +16,7 @@ import torch
 from .models.scene import CameraConfig
 from .ops import math as m
 from .ops import rng as prng
+from .utils.profiling import host_sync
 
 
 class CameraBasis(NamedTuple):
@@ -75,7 +76,8 @@ def get_rays(basis: CameraBasis, base, s, t):
     Returns (origin [B,3], direction [B,3], time [B]).
     """
     def vec(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=s.device)
+        return host_sync(torch.as_tensor(x, dtype=torch.float32,
+                                         device=s.device))
 
     u1 = prng.uniform(base, prng.P_LENS_U)
     u2 = prng.uniform(base, prng.P_LENS_V)

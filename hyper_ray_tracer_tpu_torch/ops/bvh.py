@@ -42,6 +42,9 @@ Rays: ``o``, ``d`` [N,3] and ``time`` [N] float32, ``active`` [N] bool,
 [N] float32 and ``best`` [N] int32, indices into the reordered geometry,
 (BIG, -1) for a miss or an inactive ray.  The kernel and
 ``bvh_traverse_plain`` agree bit for bit.
+
+Tracing (``utils/profiling.py``): each launch of K4 runs in the span
+``K4`` and counts in ``K4.launches`` and its rays in ``K4.lanes``.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ import torch
 
 from ..models.scene import PT_NONE, PT_SPHERE, SceneStatic
 from ..utils import cuda_build
+from ..utils.profiling import host_sync
 from .intersect import BIG, PrimFields, aabb_entry, aabb_hit, prim_hit_t_lanes
 from .typed_sweep import prim_records
 
@@ -147,7 +151,8 @@ def bvh_scene(bvh, geom_np, geom, static: SceneStatic) -> BVHScene:
     device = geom.p0.device
 
     def dev(x, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+        return host_sync(torch.from_numpy(np.ascontiguousarray(x, dtype))
+                         .to(device))
 
     tree = BVHTree(dev(bvh.bounds_min), dev(bvh.bounds_max),
                    *(dev(x, np.int64) for x in (bvh.leaf_first,
@@ -172,7 +177,8 @@ def bvh_leaf_records(scene: BVHScene, geom_np, geom) -> BVHScene:
     device = geom.p0.device
 
     def dev(x, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+        return host_sync(torch.from_numpy(np.ascontiguousarray(x, dtype))
+                         .to(device))
 
     n = np.asarray(geom_np.ptype).shape[0]
     pt = np.asarray(geom_np.ptype)
@@ -378,7 +384,7 @@ def bvh_traverse(bvh: BVHScene, o, d, time, active, bits,
                  t_min: float = 1.0e-3):
     """Closest hit per ray through the BVH.  A CPU tensor takes the plain
     version; a CUDA tensor launches K4 (building it on first use) or
-    raises.  Counts its kernel launches in ``bvh_traverse.launches``."""
+    raises.  A launch is traced as ``K4`` (``cuda_build.launch``)."""
     device = o.device
     if device.type == "cpu":
         return bvh_traverse_plain(bvh.tree, bvh.prims, o, d, time, active,
@@ -411,9 +417,5 @@ def bvh_traverse(bvh: BVHScene, o, d, time, active, bits,
         bvh.nodes.data_ptr(), bvh.geo.data_ptr(), bvh.aux.data_ptr(),
         bvh.tag.data_ptr(), bvh.xf.data_ptr(), bvh.shutter.data_ptr(),
         int(bvh.static.has_ray_xform), float(t_min), t_best.data_ptr(),
-        best.data_ptr())
-    bvh_traverse.launches += 1
+        best.data_ptr(), tag="K4", lanes=n)
     return t_best, best
-
-
-bvh_traverse.launches = 0

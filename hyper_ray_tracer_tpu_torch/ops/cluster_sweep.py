@@ -45,6 +45,9 @@ agree bit for bit.
 ``make_coherence_key`` is the JAX package's default ``octant-cell`` key,
 in integer tensors: a render in cluster mode orders each compaction's
 survivors by it.
+
+Tracing (``utils/profiling.py``): each launch of K5 runs in the span
+``K5`` and counts in ``K5.launches`` and its rays in ``K5.lanes``.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from ..models.scene import (
     PT_SPHERE,
 )
 from ..utils import cuda_build
+from ..utils.profiling import host_sync
 from .intersect import BIG, PrimFields, prim_hit_t
 from .typed_sweep import prim_records
 
@@ -152,7 +156,8 @@ def cluster_scene(layout: ClusterLayout, geom_np, geom) -> ClusterScene:
                          "indexing")
 
     def dev(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+        return host_sync(torch.from_numpy(np.ascontiguousarray(x))
+                         .to(device))
 
     scene = ClusterScene(
         layout=layout, tail=tail, runs=runs, tail_rows=dev(tail_rows),
@@ -193,7 +198,8 @@ def cluster_records(scene: ClusterScene, geom_np, geom) -> ClusterScene:
         xf = np.zeros((1, 12), np.float32)
 
     def dev(x, dtype=None):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(device)
+        return host_sync(torch.from_numpy(np.ascontiguousarray(x, dtype))
+                         .to(device))
 
     prims = PrimFields(
         p0=geom.p0, p1=geom.p1, radius=geom.radius, time0=geom.time0,
@@ -360,9 +366,9 @@ def make_coherence_key(layout: ClusterLayout, cell_bits: int = CELL_BITS,
     bmin = allmin[keep].min(0)
     bmax = allmax[keep].max(0)
     n_cells = 1 << cell_bits
-    scale = torch.from_numpy(np.float32(
-        (n_cells - 1e-3) / np.maximum(bmax - bmin, 1e-20))).to(device)
-    bmin = torch.from_numpy(np.float32(bmin)).to(device)
+    scale = host_sync(torch.from_numpy(np.float32(
+        (n_cells - 1e-3) / np.maximum(bmax - bmin, 1e-20))).to(device))
+    bmin = host_sync(torch.from_numpy(np.float32(bmin)).to(device))
 
     def key(o, d):
         q = torch.clamp((o - bmin) * scale, 0.0,
@@ -399,7 +405,7 @@ def cluster_sweep(cs: ClusterScene, o, d, time, active, bits,
                   t_min: float = 1.0e-3):
     """Closest hit per ray over the cluster layout.  A CPU tensor takes the
     plain version; a CUDA tensor launches K5 (building it on first use)
-    or raises.  Counts its kernel launches in ``cluster_sweep.launches``."""
+    or raises.  A launch is traced as ``K5`` (``cuda_build.launch``)."""
     device = o.device
     if device.type == "cpu":
         return cluster_sweep_plain(cs, o, d, time, active, bits, t_min)
@@ -437,9 +443,5 @@ def cluster_sweep(cs: ClusterScene, o, d, time, active, bits,
         len(cs.runs), cs.boxes.data_ptr(), cs.geo.data_ptr(),
         cs.aux.data_ptr(), cs.tag.data_ptr(), cs.xf.data_ptr(),
         cs.shutter.data_ptr(), float(t_min), t_best.data_ptr(),
-        best.data_ptr())
-    cluster_sweep.launches += 1
+        best.data_ptr(), tag="K5", lanes=n)
     return t_best, best
-
-
-cluster_sweep.launches = 0

@@ -74,6 +74,7 @@ from ..models.scene import (
 from . import rng as prng
 from .gather import gather_rows
 from .math import div_rn, sqrt_capped_grad
+from ..utils.profiling import host_sync
 
 _TWO_PI = np.float32(2.0 * np.pi)
 _PROBE_SALT = 0x51E77E00  # the probes' seed word, XORed with the seed
@@ -233,7 +234,7 @@ def _box_corners(geom, ids, which=None):
     p0 = geom.p0[ids][:, None, :]
     p1 = geom.p1[ids][:, None, :]
     sel = _BOX_SEL if which is None else _BOX_SEL[which]
-    sel = torch.as_tensor(sel, device=p0.device)[None]  # [1,8,3]
+    sel = host_sync(torch.as_tensor(sel, device=p0.device))[None]  # [1,8,3]
     obj = p0 * (1.0 - sel) + p1 * sel
     return (torch.einsum("rij,rcj->rci", geom.rot[ids], obj)
             + geom.trans[ids][:, None, :])
@@ -243,9 +244,10 @@ def _box_edge_normals(geom, ids):
     """[B, 12, 2, 3] world outward normals of the two faces beside each
     box edge: sign * the rotation's column of the face axis."""
     dev = geom.rot.device
-    n = geom.rot[ids][:, :, torch.as_tensor(_BOX_FACE_AX, device=dev)]
-    return torch.movedim(n, 1, -1) * torch.as_tensor(
-        _BOX_FACE_SGN, device=dev)[None, :, :, None]
+    n = geom.rot[ids][:, :, host_sync(torch.as_tensor(_BOX_FACE_AX,
+                                                      device=dev))]
+    return torch.movedim(n, 1, -1) * host_sync(torch.as_tensor(
+        _BOX_FACE_SGN, device=dev))[None, :, :, None]
 
 
 def _box_silhouette_mask(geom, ids, corners, origin):
@@ -254,8 +256,8 @@ def _box_silhouette_mask(geom, ids, corners, origin):
     correction tests each sample from its own lens point instead; this
     midpoint form is for diagnostics and tests."""
     n = _box_edge_normals(geom, ids)
-    ea = torch.as_tensor(_BOX_EA, device=corners.device)
-    eb = torch.as_tensor(_BOX_EB, device=corners.device)
+    ea = host_sync(torch.as_tensor(_BOX_EA, device=corners.device))
+    eb = host_sync(torch.as_tensor(_BOX_EB, device=corners.device))
     mid = 0.5 * (corners[:, ea] + corners[:, eb])
     v = mid - origin
     d1 = (n[:, :, 0, :] * v).sum(-1)
@@ -290,7 +292,8 @@ def _reflect_dirs(v, nrm):
 # --- per-sample point functions (one sample; mapped with vmap) ---
 
 def _vec3(ref, x, y, z):
-    return torch.tensor((x, y, z), dtype=torch.float32, device=ref.device)
+    return host_sync(torch.tensor((x, y, z), dtype=torch.float32,
+                                  device=ref.device))
 
 
 def _normize(v):
@@ -580,7 +583,8 @@ def _glass_point_xy(off, m, R, ior, p, basis, W, H, n_newton: int = 8):
 def _tangency_newton(tangency, n_newton, eps, ref):
     """Unrolled Newton on ``tangency(theta)[0]`` from 1e-3, each step
     clamped to the visible cap (``ref``: a tensor on the device)."""
-    theta = torch.tensor(1e-3, dtype=torch.float32, device=ref.device)
+    theta = host_sync(torch.tensor(1e-3, dtype=torch.float32,
+                                   device=ref.device))
     hi = float(np.float32(np.pi / 2 - 1e-3))
 
     def g_of(t):
@@ -941,9 +945,9 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
     def consts(device):
         if device not in on_device:
             on_device[device] = {
-                k: ([torch.from_numpy(x).to(device) for x in v]
+                k: ([host_sync(torch.from_numpy(x).to(device)) for x in v]
                     if isinstance(v, list)
-                    else torch.from_numpy(v).to(device))
+                    else host_sync(torch.from_numpy(v).to(device)))
                 for k, v in host.items()}
         return on_device[device]
 
@@ -1023,8 +1027,8 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
             # Nothing edge-worthy (e.g. only media): identically zero.
             return torch.zeros((W * H, 3), dtype=torch.float32, device=dev)
         k = consts(dev)
-        bs = CameraBasis(*(torch.as_tensor(np.asarray(x, np.float32),
-                                           device=dev) for x in basis))
+        bs = CameraBasis(*(host_sync(torch.as_tensor(
+            np.asarray(x, np.float32), device=dev)) for x in basis))
         ior_tab = scene_t.arrays.materials.ior
         t0, t1 = bs.time0, bs.time1
         parts, times, offsets, names = [], [], [], []
@@ -1089,7 +1093,8 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
                     c.detach(), _rows(r.detach(), S, E),
                     _cols(k["phis"], S), off_s[:S])
                 if stats is not None:
-                    own = (pre[:S] & blk & k["own_rim"][:, None]).cpu()
+                    own = host_sync(
+                        (pre[:S] & blk & k["own_rim"][:, None]).cpu())
                     stats["edge_blocked_own_rim"] = [
                         (int(sphere_ids[i]), j)
                         for i, j in torch.nonzero(own).tolist()]
@@ -1327,7 +1332,7 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
         # The radiance step across the edge: one probe batch for every
         # family.  A sample of weight 0 adds w = 0 whatever its probes
         # see, so only the others are traced, each keyed by its index.
-        lanes = (wgt != 0).nonzero().squeeze(1)
+        lanes = host_sync((wgt != 0).nonzero()).squeeze(1)
         step = torch.zeros((wgt.shape[0], 3), device=dev)
         with torch.no_grad():
             if lanes.numel():
@@ -1345,7 +1350,7 @@ def make_silhouette_correction(scene, W, H, depth, geom=None,
         w = step * wgt[:, None]
         if stats is not None:
             counts = np.cumsum([0] + [p[3].shape[0] for p in parts])
-            traced = (wgt != 0).cpu().numpy()
+            traced = host_sync((wgt != 0).cpu()).numpy()
             for i, name in enumerate(names):
                 sl = slice(counts[i], counts[i + 1])
                 stats[name] = {"samples": int(counts[i + 1] - counts[i]),

@@ -43,6 +43,9 @@ the same IEEE additions):
 * ``segment_sum_plain``: the same sums in plain torch, ``torch.sort``
   and then one vectorised step per ``h``, over the nodes whose middle
   falls inside a row; memory in proportion to the lanes.
+
+Tracing (``utils/profiling.py``): each call of K3 runs in the span
+``K3`` and counts in ``K3.launches`` and its lanes in ``K3.lanes``.
 """
 
 from __future__ import annotations
@@ -100,8 +103,8 @@ def segment_sum(src, idx, n_rows: int):
     [N] (integers in [0, n_rows); on the card one outside traps the
     kernel).  A CPU tensor takes the plain version; a CUDA tensor
     launches K3 (building it on first use: a fill and three kernels, no
-    ``torch.sort``) or raises.  Counts its launches of K3, one a call, in
-    ``segment_sum.launches``."""
+    ``torch.sort``) or raises.  A call is traced as one launch of ``K3``
+    (``cuda_build.launch``)."""
     device = src.device
     if device.type == "cpu":
         return segment_sum_plain(src, idx, n_rows)
@@ -140,12 +143,8 @@ def segment_sum(src, idx, n_rows: int):
     cuda_build.launch("segment_sum", fn, device, idx.data_ptr(),
                       int(idx.dtype == torch.int64), src.data_ptr(), n, f,
                       n_rows, zeroed.data_ptr(), work.data_ptr(),
-                      out.data_ptr())
-    segment_sum.launches += 1
+                      out.data_ptr(), tag="K3", lanes=n)
     return out
-
-
-segment_sum.launches = 0
 
 
 class _GatherRows(torch.autograd.Function):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..models.scene import PT_BOX, PT_MEDIUM_SPHERE, PT_SPHERE
+from ..utils.profiling import host_sync
 
 # A group is an (edge-trimmed) type run of at least this many primitives.
 PART_MIN_PRIMS = 128
@@ -131,8 +132,10 @@ def partition_groups(host_geom, n_prims: int) -> Tuple[PartGroup, ...]:
 def baked_aabbs(groups, device):
     """Each group's (bmin, bmax) as float32 [3] tensors on ``device``."""
     return tuple(
-        (torch.tensor(g.bmin, dtype=torch.float32, device=device),
-         torch.tensor(g.bmax, dtype=torch.float32, device=device))
+        (host_sync(torch.tensor(g.bmin, dtype=torch.float32,
+                                device=device)),
+         host_sync(torch.tensor(g.bmax, dtype=torch.float32,
+                                device=device)))
         for g in groups)
 
 

@@ -33,6 +33,10 @@ operations in the same order, with no FMA contraction and true divisions.
 Without that, near-tangent discriminants and self-hits at the t_min
 boundary round to different decisions, and ~1e-4 of the rays of the
 `random` scene change winner by far more than a near-tie.
+
+Tracing (``utils/profiling.py``): each launch of K1 runs in the span
+``K1`` and counts in ``K1.launches`` and its rays in ``K1.lanes``; one
+of the partitioned form also in ``K1.partitioned``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from ..utils import cuda_build
+from ..utils.profiling import count, host_sync
 from .intersect import BIG, PrimFields, sphere_t
 from .partition import check_mask, group_bit, group_bounds
 
@@ -115,10 +120,11 @@ def device_sphere_records(p0, p1, time0, time1, radius):
         refs, seen, rec = hit
         if seen == versions and all(r() is x for r, x in zip(refs, fields)):
             return rec
-    host = sphere_records(*(x.detach().cpu().numpy() for x in fields))
-    rec = host._replace(geo=torch.from_numpy(host.geo).to(p0.device),
-                        aux=torch.from_numpy(host.aux).to(p0.device),
-                        shutter=torch.from_numpy(host.shutter).to(p0.device))
+    host = sphere_records(*(host_sync(x.detach().cpu()).numpy()
+                            for x in fields))
+    rec = host._replace(**{k: host_sync(torch.from_numpy(getattr(host, k))
+                                        .to(p0.device))
+                           for k in ("geo", "aux", "shutter")})
     _device_records[p0] = (tuple(weakref.ref(x) for x in fields), versions,
                            rec)
     return rec
@@ -185,9 +191,9 @@ def sphere_sweep(p0, p1, time0, time1, radius, o, d, time, active,
     """Closest sphere hit per ray.  A CPU tensor takes the plain version;
     a CUDA tensor launches the kernel (building it on first use) or
     raises.  ``mask`` / ``groups``: the partitioned form (see
-    ``sphere_sweep_plain``); one without the other raises.  Counts its
-    kernel launches in ``sphere_sweep.launches``, those of the
-    partitioned form also in ``sphere_sweep.partitioned``."""
+    ``sphere_sweep_plain``); one without the other raises.  A launch is
+    traced as ``K1`` (``cuda_build.launch``), one of the partitioned form
+    also counted in ``K1.partitioned``."""
     device = o.device
     n, p = o.shape[0], p0.shape[0]
     check_mask("sphere_sweep", mask, groups, n)
@@ -225,12 +231,7 @@ def sphere_sweep(p0, p1, time0, time1, radius, o, d, time, active,
         rec.aux.data_ptr(), p, rec.shutter.data_ptr(), int(rec.has_motion),
         float(t_min), None if mask is None else mask.data_ptr(),
         len(groups), *group_bounds(groups), t_best.data_ptr(),
-        best.data_ptr())
-    sphere_sweep.launches += 1
+        best.data_ptr(), tag="K1", lanes=n)
     if mask is not None:
-        sphere_sweep.partitioned += 1
+        count("K1.partitioned")
     return t_best, best
-
-
-sphere_sweep.launches = 0
-sphere_sweep.partitioned = 0  # of which in the partitioned form

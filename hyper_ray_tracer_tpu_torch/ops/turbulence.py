@@ -42,6 +42,11 @@ version, bit for bit): the noise flags as a bitmask (int32 words, bit
 signed turbulence sum S (``ops/perlin.turbulence_sum_xyz``; other lanes
 unwritten on the card, 0 in the plain version).  K2 writes them only
 when the branch's output requires grad.
+
+Tracing (``utils/profiling.py``): each launch runs in the span ``K2``
+or ``K2b`` and counts in ``K2.launches`` / ``K2b.launches`` and its
+lanes in ``K2.lanes`` / ``K2b.lanes``; a K2 launch that saves also in
+``K2.saves``.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 
 from ..models.scene import TT_NOISE, TT_SOLID
 from ..utils import cuda_build
+from ..utils.profiling import count
 from .perlin import POINT_COUNT, turbulence_sum_xyz, turbulence_xyz
 
 
@@ -190,17 +196,17 @@ def _launch_marble(ttype, scale, point, value, tables, save):
     cuda_build.launch("noise_texture", fn, device, *views, *ptrs, TT_NOISE,
                       n, out.data_ptr(),
                       *((x.data_ptr() for x in saved) if save
-                        else (None, None)))
-    noise_texture.launches += 1
-    noise_texture.saves += bool(save)
+                        else (None, None)), tag="K2", lanes=n)
+    if save:
+        count("K2.saves")
     return out, saved
 
 
 def noise_texture_saved(ttype, scale, point, value, tables):
     """(out, (mask, turb)): the noise branch's value and what K2b reads
     of the forward.  A CPU tensor takes the plain version; a CUDA tensor
-    launches K2 with its save (counted in ``noise_texture.launches`` and
-    ``noise_texture.saves``) or raises."""
+    launches K2 with its save (traced as ``K2``, counted in ``K2.saves``)
+    or raises."""
     device = point.device
     if device.type == "cpu":
         return noise_texture_saved_plain(ttype, scale, point, value, tables)
@@ -216,8 +222,8 @@ def noise_texture_grad(scale, point, grad_out, tables, saved):
     (grad_point [N, 3], grad_scale [N], grad_value [N, 3]).  A CPU tensor
     takes the plain version (on the saved mask; it recomputes the sums);
     a CUDA tensor launches the kernel K2b (building it on first use) on
-    the saved mask and sums, or raises.  Counts its kernel launches in
-    ``noise_texture_grad.launches``."""
+    the saved mask and sums, or raises.  A launch is traced as ``K2b``
+    (``cuda_build.launch``)."""
     device = point.device
     if device.type == "cpu":
         n = point.shape[0]
@@ -251,8 +257,7 @@ def noise_texture_grad(scale, point, grad_out, tables, saved):
     cuda_build.launch("noise_texture_grad", fn, device, mask.data_ptr(),
                       turb.data_ptr(), *views, grad_out.data_ptr(), *ptrs,
                       n, grad_point.data_ptr(), grad_scale.data_ptr(),
-                      grad_value.data_ptr())
-    noise_texture_grad.launches += 1
+                      grad_value.data_ptr(), tag="K2b", lanes=n)
     return grad_point, grad_scale, grad_value
 
 
@@ -281,8 +286,8 @@ def noise_texture(ttype, scale, point, value, tables):
     version (autograd through it); a CUDA tensor launches K2 (building it
     on first use) or raises.  When the output requires grad, K2 also
     saves what K2b, its backward, reads; otherwise it writes the value
-    alone.  Counts its kernel launches in ``noise_texture.launches``, and
-    those that saved in ``noise_texture.saves``."""
+    alone.  A launch is traced as ``K2`` (``cuda_build.launch``), one that
+    saved also counted in ``K2.saves``."""
     device = point.device
     if device.type == "cpu":
         return noise_texture_plain(ttype, scale, point, value, tables)
@@ -293,8 +298,3 @@ def noise_texture(ttype, scale, point, value, tables):
         return _NoiseTexture.apply(ttype, scale, point, value, tables)
     return _launch_marble(ttype, scale, point, value, tables,
                           save=False)[0]
-
-
-noise_texture.launches = 0
-noise_texture.saves = 0
-noise_texture_grad.launches = 0

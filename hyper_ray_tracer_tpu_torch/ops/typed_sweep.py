@@ -56,6 +56,11 @@ other tile folds in float32 as before.  Winners near a tie or at a
 silhouette may differ from the float32 sweep's; the renderer recomputes
 the winner's t in float32.  ``bf16_engages`` says whether a scene has a
 bf16 tile at all.
+
+Tracing (``utils/profiling.py``): each launch of K1b runs in the span
+``K1b`` and counts in ``K1b.launches`` and its rays in ``K1b.lanes``;
+one of the partitioned form also in ``K1b.partitioned``, of the bf16
+form in ``K1b.bf16``.
 """
 
 from __future__ import annotations
@@ -67,6 +72,7 @@ import numpy as np
 import torch
 
 from ..utils import cuda_build
+from ..utils.profiling import count, host_sync
 from ..models.scene import (
     PT_BOX,
     PT_MEDIUM_BOX,
@@ -348,7 +354,7 @@ def sweep_scene(geom_np, geom, n_prims: int, plan=None,
         plan = sweep_plan(geom_np, n_prims, groups)
     device = geom.p0.device
     rows, geo, aux, xf, shutter = (
-        torch.from_numpy(x).to(device)
+        host_sync(torch.from_numpy(x).to(device))
         for x in typed_records(geom_np, plan, n_prims))
     prims = PrimFields(
         p0=geom.p0[:n_prims], p1=geom.p1[:n_prims],
@@ -440,7 +446,7 @@ def bf16_sqrt(x):
                                                ctypes.c_void_p]
         fn.restype = ctypes.c_int
         cuda_build.launch("bf16_sqrt", fn, x.device, x.data_ptr(),
-                          out.data_ptr(), n)
+                          out.data_ptr(), n, tag="bf16_sqrt", lanes=n)
     return out
 
 
@@ -460,10 +466,10 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
     the plain version; a CUDA tensor launches the kernel (building it on
     first use) or raises.  ``mask``: the partitioned form (see
     ``typed_sweep_plain``), which needs a scene whose plan has groups.
-    ``bf16``: the bf16 form (the module's notes).  Counts its kernel
-    launches in ``typed_sweep.launches``, those of the partitioned form
-    also in ``typed_sweep.partitioned`` and of the bf16 form in
-    ``typed_sweep.bf16``."""
+    ``bf16``: the bf16 form (the module's notes).  A launch is traced as
+    ``K1b`` (``cuda_build.launch``), one of the partitioned form also
+    counted in ``K1b.partitioned`` and one of the bf16 form in
+    ``K1b.bf16``."""
     device = o.device
     n = o.shape[0]
     check_mask("typed_sweep", mask, sw.groups, n)
@@ -507,15 +513,9 @@ def typed_sweep(sw: SweepScene, o, d, time, active, bits,
         int(has_xf), float(t_min),
         None if mask is None else mask.data_ptr(), len(groups),
         *group_bounds(groups), sw.geo16.data_ptr() if bf16 else None,
-        t_best.data_ptr(), best.data_ptr())
-    typed_sweep.launches += 1
+        t_best.data_ptr(), best.data_ptr(), tag="K1b", lanes=n)
     if mask is not None:
-        typed_sweep.partitioned += 1
+        count("K1b.partitioned")
     if bf16:
-        typed_sweep.bf16 += 1
+        count("K1b.bf16")
     return t_best, best
-
-
-typed_sweep.launches = 0
-typed_sweep.partitioned = 0  # of which in the partitioned form
-typed_sweep.bf16 = 0  # of which in the bf16 form

@@ -6,7 +6,8 @@ right sum in the group's rank order, never ``all_reduce``: NCCL's ring
 and gloo's tree order the adds by their own schedules, so an
 ``all_reduce`` would part the low bits of an image or a gradient between
 backends and world sizes.  A fold in rank order gives every rank the same
-bits, run after run, on either backend.
+bits, run after run, on either backend.  The gather runs in the span
+``all_gather`` and the fold in the span ``fold`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
 
+
+@span("fold")
 def fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """``parts[0] + parts[1] + ...``, left to right."""
     out = parts[0]
@@ -25,6 +29,7 @@ def fold(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+@span("all_gather")
 def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
     """Every rank's ``t`` (same shape and dtype on each) in ``group``'s
     rank order; ``group=None`` is a group of this rank alone (a mesh

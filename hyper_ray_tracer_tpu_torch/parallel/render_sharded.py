@@ -59,6 +59,7 @@ from ..render import (
 from ..train import make_radiance_fn, train_step_of
 from .collectives import all_gather, fold_sum, gather_fold
 from .mesh import RenderMesh
+from ..utils.profiling import host_sync
 
 
 def _shard_sizes(mesh: RenderMesh, n_pix: int, n_samples: int):
@@ -94,7 +95,7 @@ def place_pixels(n_pix: int, pixels, sums) -> torch.Tensor:
     out = torch.zeros((n_pix, 3), dtype=sums[0].dtype,
                       device=sums[0].device)
     for pix, s in zip(pixels, sums):
-        out.index_copy_(0, pix.to(out.device), s)
+        out.index_copy_(0, host_sync(pix.to(out.device)), s)
     return out
 
 
@@ -141,7 +142,7 @@ def make_sharded_renderer(scene: Scene, W: int, H: int, depth: int,
         pixel_ids, sample_ids = shard_lanes(mesh, rank, W, H, sample0,
                                             n_samples, lane_order)
         device = scene_t.fpack.device
-        pix = pixel_ids[0].to(device)
+        pix = host_sync(pixel_ids[0].to(device))
         s0, s_loc = int(sample_ids[0, 0]), sample_ids.shape[0]
         chunk = spp_per_chunk(RenderSettings(W, H, n_samples, depth))
         acc = torch.zeros((pix.numel(), 3), dtype=torch.float32,
@@ -177,7 +178,7 @@ def gather_image(radiance_sum, samples: int, W: int, H: int) -> np.ndarray:
     rows), on every rank: ``run`` has already gathered the whole
     [W*H, 3] sum (the JAX package's ``process_allgather``), so this is a
     copy to the host and ``finish_image``."""
-    acc = radiance_sum.detach().cpu().numpy().astype(np.float64)
+    acc = host_sync(radiance_sum.detach().cpu()).numpy().astype(np.float64)
     return finish_image(acc, samples, W, H)
 
 

@@ -48,22 +48,27 @@ primitives only into the lanes whose segment may meet its box.  The test
 is conservative and the kernels exact, so the image is bit-identical to
 the plain sweep's (the JAX package's only statistically).
 
-The layers of a chunk run inside ``torch.profiler.record_function`` ranges
-named ``raygen``, ``trace``, ``shade`` and ``compaction``, so that a
-profile of a render attributes its device time to them.  With no profiler
-active a range costs the host about as much as two eager tensor
-operations, four per bounce against the bounce's hundreds.
+Tracing (``utils/profiling.py``): an image runs in the span
+``render_image``, inside it ``prepare`` (the scene's host arrays),
+``upload``, the chunks' layers ``raygen``, ``trace``, ``shade`` and
+``compaction`` (the partition's ``partition_mask`` and ``partition_sort``
+inside it), ``snapshot`` and ``finish`` (the readback); a profile of a
+render attributes its device time to them.  ``images`` and
+``camera_rays`` count the work, ``syncs`` each place the host waits for
+the card.  With no profiler active a span costs the host well under a
+microsecond, against the few microseconds of each of a bounce's
+hundreds of eager operations.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import logging
 from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from .camera import CameraBasis, get_rays, make_basis
@@ -88,7 +93,7 @@ from .scene_tensors import SceneTensors, to_device
 from .utils import checkpoint as ckpt
 from .utils.image import write_png
 from .utils.logging import get as get_logger
-from .utils.profiling import RayStats, Timer
+from .utils.profiling import count, host_sync, since, snapshot, span
 
 T_MIN = 1.0e-3  # application.rs:482 (float32-rounded where it is compared)
 
@@ -209,6 +214,7 @@ def resolve_intersector(scene: Scene, intersector) -> str:
     return "bvh" if scene.static.n_prims >= AUTO_MIN_PRIMS else "sweep"
 
 
+@span("prepare")
 def prepare_scene(scene: Scene, intersector=None, leaf_size: int = 4):
     """Resolve the intersector mode and produce the arrays it traces:
     (arrays, structure, mode).  In BVH mode ``arrays`` holds the geometry
@@ -309,10 +315,10 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
     if background is None:  # gradient sky
         unit_y = d[:, 1] / torch.sqrt((d * d).sum(-1))
         sky_t = (0.5 * (unit_y + 1.0))[:, None]
-        bg = (1.0 - sky_t) * d.new_tensor(_SKY_WHITE) \
-            + sky_t * d.new_tensor(_SKY_BLUE)
+        bg = (1.0 - sky_t) * host_sync(d.new_tensor(_SKY_WHITE)) \
+            + sky_t * host_sync(d.new_tensor(_SKY_BLUE))
     else:
-        bg = d.new_tensor(background)
+        bg = host_sync(d.new_tensor(background))
     miss = alive & ~hit
     radiance = radiance + torch.where(miss[:, None], throughput * bg, 0.0)
 
@@ -353,7 +359,7 @@ def bounce_step(scene: SceneTensors, background, state: WavefrontState,
     with gradients (``shade_hits``).  ``mask``: the lanes' group masks
     of a partitioned bounce (``trace``).  ``bf16_hits``: the bf16
     candidate tests (``trace``, ``shade_hits``)."""
-    with record_function("trace"):
+    with span("trace"):
         bb = prng.bounce_base(state.base, bounce_idx)
         if differentiable:
             with torch.no_grad():
@@ -362,7 +368,7 @@ def bounce_step(scene: SceneTensors, background, state: WavefrontState,
                     bf16_hits)
         else:
             t_hit, prim = trace(scene, state, bb, mask, bf16_hits)
-    with record_function("shade"):
+    with span("shade"):
         return shade_hits(scene, background, state, bb, t_hit, prim,
                           differentiable, bf16_hits)
 
@@ -401,20 +407,23 @@ class PartitionSchedule:
                 return None, None
         elif not self.decisions[bounce]:
             return None, None
-        with torch.no_grad():
-            mask = partition.group_mask(self.groups, o.detach(), d.detach(),
-                                        scene.group_aabbs)
-            cat = partition.category(mask, len(self.groups))
-        if probe:
-            counts = torch.bincount(cat, minlength=1 << len(self.groups))
-            counts = counts.cpu().numpy()
-            self.counts.append(counts.tolist())
-            self.decisions.append(partition.worth(
-                counts, self.groups, scene.static.n_prims))
-            if not self.decisions[-1]:
-                return None, None
-        order = torch.sort(cat, stable=True).indices
-        return order, mask[order].contiguous()
+        with span("partition_mask"):
+            with torch.no_grad():
+                mask = partition.group_mask(self.groups, o.detach(),
+                                            d.detach(), scene.group_aabbs)
+                cat = partition.category(mask, len(self.groups))
+            if probe:
+                counts = host_sync(torch.bincount(
+                    cat, minlength=1 << len(self.groups)))
+                counts = host_sync(counts.cpu()).numpy()
+                self.counts.append(counts.tolist())
+                self.decisions.append(partition.worth(
+                    counts, self.groups, scene.static.n_prims))
+                if not self.decisions[-1]:
+                    return None, None
+        with span("partition_sort"):
+            order = torch.sort(cat, stable=True).indices
+            return order, mask[order].contiguous()
 
 
 def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
@@ -428,7 +437,7 @@ def trace_paths(scene: SceneTensors, background, basis: CameraBasis,
     compacted out after every bounce.  ``differentiable``, ``remat``,
     ``coherent``, ``schedule`` and ``bf16_hits``: see ``render_radiance``
     and ``bounce_paths``."""
-    with record_function("raygen"):
+    with span("raygen"):
         state = init_state(basis, width, height, pixel_ids, sample_ids,
                            seed)
     return bounce_paths(scene, background, state, depth, differentiable,
@@ -470,7 +479,7 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
         schedule.decisions, schedule.counts = [], []
     mask = None
     if schedule is not None:
-        with record_function("compaction"):
+        with span("compaction"):
             order, mask = schedule.lanes(scene, state.o, state.d, 0, probe)
             if order is not None:
                 state = WavefrontState(*(x.index_select(0, order)
@@ -484,11 +493,11 @@ def bounce_paths(scene: SceneTensors, background, state: WavefrontState,
         else:
             state = bounce_step(scene, background, state, bounce,
                                 differentiable, mask, bf16_hits)
-        with record_function("compaction"):
+        with span("compaction"):
             # A lane's radiance no longer changes once it is dead, so the
             # value written here is final for every lane that stops now.
             out.index_copy_(0, slot, state.radiance)
-            keep = state.alive.nonzero().squeeze(1)  # launch order kept
+            keep = host_sync(state.alive.nonzero()).squeeze(1)  # in order
             if keep.numel() == 0:
                 break
             order = mask = None
@@ -595,6 +604,7 @@ def accumulate_samples(acc, scene: SceneTensors, background,
                                        ).repeat_interleave(n),
                           seed, depth, coherent=coherent, schedule=schedule,
                           bf16_hits=bf16_hits)
+        count("camera_rays", ns * n)
         for sample in rad.reshape(ns, n, 3):
             acc.add_(sample)
         s += ns
@@ -640,8 +650,37 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     k spp resumes toward any target >= k.  Neither are the chunk
     boundaries (another ``spp_chunk``, or a preview's cap): they change
     the image not at all (tests/test_torch_cli.py).
+
+    The call runs in the span ``render_image`` and counts one in
+    ``images``; at debug level it logs its camera rays, its wall and the
+    host ms of its spans outside the chunks (``image_summary``).
     """
     log = get_logger()
+    before = snapshot() if log.isEnabledFor(logging.DEBUG) else None
+    with span("render_image"):
+        count("images")
+        img = _render_image(scene, settings, device, progress_cb, log)
+    if before is not None:
+        log.debug("%s", image_summary(since(before), settings.depth))
+    return img
+
+
+def image_summary(work: dict, depth: int) -> str:
+    """The debug line of one image from what it counted and spent
+    (``profiling.since`` over a ``render_image`` call)."""
+    spans, counters = work["spans"], work["counters"]
+    rays = counters.get("camera_rays", 0)
+    seconds = spans["render_image"].ns / 1e9
+    host = ", ".join(f"{k} {spans[k].ns / 1e6:.2f}" for k in
+                     ("prepare", "upload", "snapshot", "finish")
+                     if k in spans)
+    return (f"{rays} camera rays (depth<={depth}) in {seconds:.2f}s = "
+            f"{rays / seconds / 1e6:.2f} Mrays/s; host ms {host}; "
+            f"{counters.get('syncs', 0)} syncs")
+
+
+def _render_image(scene: Scene, settings: RenderSettings, device,
+                  progress_cb, log) -> np.ndarray:
     device = torch.device(device)
     W, H = settings.width, settings.height
     arrays, structure, mode = prepare_scene(scene, settings.intersector,
@@ -653,15 +692,15 @@ def render_image(scene: Scene, settings: RenderSettings, device,
     coherent = mode == "cluster"
     if coherent:  # lane j traces pixel perm[j]; inv takes it back
         perm = block_order(W, H).astype(np.int64)
-        pix = torch.from_numpy(perm).to(device)
-        inv = torch.from_numpy(np.argsort(perm)).to(device)
+        pix = host_sync(torch.from_numpy(perm).to(device))
+        inv = host_sync(torch.from_numpy(np.argsort(perm)).to(device))
     else:
         pix = torch.arange(n_pix, dtype=torch.int64, device=device)
     # acc[i] is the sum of pixel pix[i]; in pixel order for a snapshot.
     acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=device)
 
     def pixel_order(a):
-        return (a[inv] if coherent else a).cpu().numpy()
+        return host_sync((a[inv] if coherent else a).cpu()).numpy()
 
     bf16 = bool(settings.bf16_hits) and mode == "sweep" \
         and bf16_engages(scene_t.sweep)
@@ -686,7 +725,8 @@ def render_image(scene: Scene, settings: RenderSettings, device,
             if (ckpt.meta_matches(c_meta, meta)
                     and c_acc.shape == tuple(acc.shape)
                     and c_done <= settings.samples):
-                acc = torch.from_numpy(c_acc.astype(np.float32)).to(device)
+                acc = host_sync(torch.from_numpy(
+                    c_acc.astype(np.float32)).to(device))
                 if coherent:
                     acc = acc[pix]
                 s = c_done
@@ -698,8 +738,6 @@ def render_image(scene: Scene, settings: RenderSettings, device,
 
     snapshot_every = settings.snapshot_every or (
         1 if settings.preview_path else 8)
-    timer = Timer()
-    rays_done = (settings.samples - s) * n_pix
     chunks_done = 0
     for s in accumulate_samples(acc, scene_t, scene.background, basis, W, H,
                                 pix, s, settings.samples, chunk,
@@ -709,21 +747,20 @@ def render_image(scene: Scene, settings: RenderSettings, device,
         chunks_done += 1
         if (settings.checkpoint_path or settings.preview_path) and (
                 s >= settings.samples or chunks_done % snapshot_every == 0):
-            acc_np = pixel_order(acc)
-            if settings.checkpoint_path:
-                ckpt.save_state(settings.checkpoint_path, acc_np, s, meta)
-            if settings.preview_path:
-                write_png(settings.preview_path,
-                          gamma_image(acc_np, s, W, H))
+            with span("snapshot"):
+                acc_np = pixel_order(acc)
+                if settings.checkpoint_path:
+                    ckpt.save_state(settings.checkpoint_path, acc_np, s,
+                                    meta)
+                if settings.preview_path:
+                    write_png(settings.preview_path,
+                              gamma_image(acc_np, s, W, H))
         if progress_cb is not None:
             progress_cb(s, settings.samples)
-    dt = timer.elapsed(acc)
-    acc_np = pixel_order(acc)
-    if schedule is not None and schedule.decisions is not None:
-        log.info("partitioned bounces %s (probe category counts %s)",
-                 [b for b, on in enumerate(schedule.decisions) if on],
-                 schedule.counts)
-    if rays_done and dt > 0:
-        log.debug("%s", RayStats(camera_rays=rays_done, depth=settings.depth,
-                                 seconds=dt).summary())
-    return gamma_image(acc_np, settings.samples, W, H)
+    with span("finish"):
+        acc_np = pixel_order(acc)
+        if schedule is not None and schedule.decisions is not None:
+            log.info("partitioned bounces %s (probe category counts %s)",
+                     [b for b, on in enumerate(schedule.decisions) if on],
+                     schedule.counts)
+        return gamma_image(acc_np, settings.samples, W, H)

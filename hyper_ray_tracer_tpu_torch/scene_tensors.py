@@ -28,6 +28,10 @@ and the sweeps' packed records (in BVH mode K4's leaf records, in
 cluster mode K5's slot records) from their detached current values.  A
 BVH's tree (its node boxes) and a cluster layout's boxes stay as built,
 as in the JAX package.
+
+Tracing (``utils/profiling.py``): ``to_device`` runs in the span
+``upload`` and ``bind_params`` in the span ``bind_params``; each copy
+between the host and the card counts in ``syncs``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from .ops.partition import baked_aabbs, device_group_aabbs, partition_groups
 from .ops.perlin import key_ints
 from .ops.textures import TextureTables
 from .ops.typed_sweep import SweepScene, sweep_scene
+from .utils.profiling import host_sync, span
 
 # SceneArrays leaves that a train step optimises (the JAX package's
 # train.py:32-43); keys are "group.field", "images.None" for the images.
@@ -114,7 +119,7 @@ def _tensor(x, device):
     x = np.asarray(x)
     if x.dtype == np.uint32:  # RNG words live in int64 (ops/rng.py)
         x = x.astype(np.int64)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return host_sync(torch.from_numpy(np.ascontiguousarray(x)).to(device))
 
 
 def _convert(tree, device):
@@ -132,6 +137,7 @@ def sphere_only(static: SceneStatic, ptype) -> bool:
         and not static.has_ray_xform
 
 
+@span("upload")
 def to_device(arrays, static: SceneStatic, device, bvh=None,
               clusters=None) -> SceneTensors:
     """SceneArrays of NumPy arrays -> SceneTensors on ``device``.  ``bvh``:
@@ -190,6 +196,7 @@ def merge_params(arrays, params):
     return arrays
 
 
+@span("bind_params")
 def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     """``scene_t`` with the parameter tensors ``params`` (keys of
     ``PARAM_PATHS``) in place of its own, for one forward pass.
@@ -218,7 +225,7 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     moved = {k: params[f"geom.{k}"].detach() for k in ("p0", "p1",
                                                         "radius")}
     host = scene_t.host_geom._replace(
-        **{k: v.cpu().numpy() for k, v in moved.items()})
+        **{k: host_sync(v.cpu()).numpy() for k, v in moved.items()})
     tables = scene_t.tables._replace(images=params["images.None"])
     if scene_t.bvh is not None:
         spheres = SphereFields(g.p0[:n], g.p1[:n], g.time0[:n],
@@ -240,7 +247,7 @@ def bind_params(scene_t: SceneTensors, params: dict) -> SceneTensors:
     for t in scene_t.sweep.plan:
         lerp[t.start:t.start + t.width] = t.motion
     p1 = g.p1[:n] if lerp.all() else g.p0[:n] if not lerp.any() else \
-        torch.where(torch.from_numpy(lerp).to(g.p1.device)[:, None],
+        torch.where(host_sync(torch.from_numpy(lerp).to(g.p1.device))[:, None],
                     g.p1[:n], g.p0[:n])
     spheres = SphereFields(g.p0[:n], p1, g.time0[:n], g.time1[:n],
                            g.radius[:n])

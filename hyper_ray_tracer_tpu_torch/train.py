@@ -30,7 +30,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .camera import make_basis
 from .models.scene import Scene
@@ -51,6 +50,7 @@ from .scene_tensors import (  # noqa: F401  (PARAM_PATHS is re-exported)
     to_device,
 )
 from .utils.logging import get as get_logger
+from .utils.profiling import count, span
 
 # optax.adam's defaults; its eps_root is 0, which torch's Adam has no
 # term for.
@@ -164,7 +164,7 @@ def make_loss_fn(scene: Scene, W: int, H: int, depth: int,
             if correction is None:
                 correction = make_silhouette_correction(
                     scene, W, H, depth, scene_t.host_geom)
-            with record_function("silhouette"):
+            with span("silhouette"):
                 mean_rad = mean_rad + correction(bound, basis, seed)
         return ((mean_rad - target) ** 2).mean()
 
@@ -180,9 +180,10 @@ def make_train_step(scene: Scene, W: int, H: int, depth: int,
     leaf tensors with an adam optimizer; ``step(state, scene_t, basis,
     pixel_ids, sample_ids, seed, target)`` runs the forward render, the
     backward pass and one adam update in place, and returns (state, the
-    loss before the update).  The step's parts run in the
-    ``record_function`` ranges ``forward`` (the correction inside it in
-    ``silhouette``), ``backward`` and ``optimizer``.  ``partition``: see
+    loss before the update).  The step runs in the span ``train_step``
+    (``utils/profiling.py``), its parts in the spans ``forward`` (the
+    correction inside it in ``silhouette``), ``backward`` and
+    ``optimizer``, and counts one in ``steps``.  ``partition``: see
     ``make_loss_fn``; ``step.schedule()`` is its ``PartitionSchedule``
     once the first step made one, else None."""
     return train_step_of(make_loss_fn(scene, W, H, depth, intersector,
@@ -205,15 +206,17 @@ def train_step_of(loss_fn, learning_rate: float = 1e-2,
                                betas=ADAM_BETAS, eps=ADAM_EPS)
         return TrainState(params=params, optimizer=opt)
 
+    @span("train_step")
     def step(state: TrainState, scene_t, basis, pixel_ids, sample_ids, seed,
              target):
+        count("steps")
         state.optimizer.zero_grad(set_to_none=True)
-        with record_function("forward"):
+        with span("forward"):
             loss = loss_fn(state.params, scene_t, basis, pixel_ids,
                            sample_ids, seed, target)
-        with record_function("backward"):
+        with span("backward"):
             loss.backward()
-        with record_function("optimizer"):
+        with span("optimizer"):
             # A parameter the render never reads has a zero gradient, as
             # in JAX: adam counts the step for it too.
             for p in state.params.values():

@@ -15,6 +15,9 @@ is kept next to the library as ``<library>.log``.
 ``check_arg`` and ``launch`` are what every kernel wrapper does around
 its C entry point: validate each tensor it passes, and call the entry
 point on the current stream, raising when the launch was refused.
+``launch`` also traces it under the kernel's tag (``K1`` ... ``K5``):
+a span of that name around the host side of the launch, and the
+counters ``<tag>.launches`` and ``<tag>.lanes`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from .profiling import count, span
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -126,12 +131,16 @@ def check_arg(kernel: str, name: str, x, shape, dtype, device):
         raise ValueError(f"{kernel}: {name} is not contiguous")
 
 
-def launch(kernel: str, fn, device, *args):
+def launch(kernel: str, fn, device, *args, tag: str, lanes: int):
     """Call entry point ``fn(*args, stream)`` on ``device``'s current
     stream; it returns ``cudaGetLastError()``, and a non-zero code (a
-    launch the card refused) raises."""
-    with torch.cuda.device(device):
+    launch the card refused) raises.  The call runs in the span ``tag``
+    and counts one in ``<tag>.launches`` and ``lanes``, the rays or
+    lanes the kernel runs on, in ``<tag>.lanes``."""
+    with span(tag), torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
                            f"{err}")
+    count(f"{tag}.launches")
+    count(f"{tag}.lanes", lanes)

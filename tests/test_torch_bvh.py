@@ -77,6 +77,7 @@ from hyper_ray_tracer_tpu_torch.scene_tensors import (  # noqa: E402
     extract_params,
     to_device,
 )
+from hyper_ray_tracer_tpu_torch.utils.profiling import counter  # noqa: E402
 from test_bvh import _random_rays, _soup_scene  # noqa: E402
 
 
@@ -625,9 +626,9 @@ def test_wrapper_takes_plain_on_cpu_and_refuses_other_devices():
     st, _, _ = _bvh_tensors(scene, 4)
     state, bb = next(_waves(scene, st))
     args = (state.o, state.d, state.time, state.alive, bb)
-    before = bvh_traverse.launches
+    before = counter("K4.launches")
     t, best = bvh_traverse(st.bvh, *args, T_MIN)
-    assert bvh_traverse.launches == before
+    assert counter("K4.launches") == before
     t_p, best_p = bvh_traverse_plain(st.bvh.tree, st.bvh.prims, *args,
                                      T_MIN, st.bvh.static)
     assert torch.equal(t, t_p) and torch.equal(best, best_p)

@@ -89,6 +89,7 @@ from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     params_from_jax,
     pixel_lanes,
 )
+from hyper_ray_tracer_tpu_torch.utils.profiling import counter  # noqa: E402
 
 RECORD = Path(__file__).parent / "golden_torch" / "cluster_jax.npz"
 # The renders of tests/test_cluster.py, at its shapes.
@@ -357,9 +358,9 @@ def test_wrapper_takes_plain_on_cpu_and_refuses_other_devices():
     scene = _scene("final")
     st, lay = upload(scene)
     args = next(waves(scene, st))
-    before = cluster_sweep.launches
+    before = counter("K5.launches")
     t, best = cluster_sweep(st.cluster, *args, T_MIN)
-    assert cluster_sweep.launches == before
+    assert counter("K5.launches") == before
     t_p, b_p = cluster_sweep_plain(st.cluster, *args, T_MIN)
     assert torch.equal(t, t_p) and torch.equal(best, b_p)
     assert t.dtype == torch.float32 and best.dtype == torch.int32

@@ -82,6 +82,7 @@ from hyper_ray_tracer_tpu_torch.train import (  # noqa: E402
     pixel_lanes,
 )
 from hyper_ray_tracer_tpu_torch.utils import cuda_build  # noqa: E402
+from hyper_ray_tracer_tpu_torch.utils.profiling import counter  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -146,9 +147,9 @@ def test_single_sphere_and_counter(cuda):
                      device=cuda)
     time = torch.zeros(3, device=cuda)
     active = torch.ones(3, dtype=torch.bool, device=cuda)
-    before = sphere_sweep.launches
+    before = counter("K1.launches")
     t, best = sphere_sweep(p0, p0, one * 0, one, one, o, d, time, active)
-    assert sphere_sweep.launches == before + 1
+    assert counter("K1.launches") == before + 1
     torch.testing.assert_close(t.cpu(), torch.tensor([4.0, 3.0e38, 2.0]))
     assert best.cpu().tolist() == [0, -1, 0]
 
@@ -173,9 +174,9 @@ def test_render_on_card_matches_cpu(cuda):
     sin/cos/acos), so the two images agree closely."""
     scene = build_scene("three-spheres")
     settings = RenderSettings(64, 36, 2, 4)
-    before = sphere_sweep.launches
+    before = counter("K1.launches")
     img_card = render_image(scene, settings, cuda)
-    assert sphere_sweep.launches > before
+    assert counter("K1.launches") > before
     img_cpu = render_image(scene, settings, "cpu")
     err = np.abs(img_card - img_cpu)
     assert (err <= 1e-4).mean() >= 0.99 and err.mean() < 4e-3
@@ -224,9 +225,9 @@ def test_typed_sweep_counter_and_validation(cuda):
     st = to_device(scene.arrays, scene.static, cuda)
     s = _rays(scene, st, 16, 9, cuda)
     bits = prng.bounce_base(s.base, 0)
-    before = typed_sweep.launches
+    before = counter("K1b.launches")
     typed_sweep(st.sweep, s.o, s.d, s.time, s.alive, bits)
-    assert typed_sweep.launches == before + 1
+    assert counter("K1b.launches") == before + 1
     with pytest.raises(TypeError):
         typed_sweep(st.sweep, s.o, s.d, s.time, s.alive, bits.int())
     with pytest.raises(ValueError, match="is on cpu"):
@@ -285,9 +286,9 @@ def test_marble_ragged_counts_and_far_points(cuda, n):
     keys = (17, 200, 3, 99, 255, 0, 0xDEADBEEF)
     tables = TextureTables(None, None, keys, perlin.PerlinTables(
         keys, **_hash_tables(keys, cuda)))
-    before = noise_texture.launches
+    before = counter("K2.launches")
     got, ref = _both_noise(ttype, scale, point, value, tables)
-    assert noise_texture.launches == before + 1
+    assert counter("K2.launches") == before + 1
     assert torch.equal(got, ref)
 
 
@@ -422,12 +423,12 @@ def test_typed_sweep_tiles_across_stages(cuda, media):
 
 def test_final_render_goes_through_both_kernels(cuda):
     scene = build_scene("final")
-    counts = (sphere_sweep.launches, typed_sweep.launches,
-              noise_texture.launches)
+    counts = (counter("K1.launches"), counter("K1b.launches"),
+              counter("K2.launches"))
     img = render_image(scene, RenderSettings(64, 36, 1, 3), cuda)
-    assert sphere_sweep.launches == counts[0]
-    assert typed_sweep.launches > counts[1]
-    assert noise_texture.launches > counts[2]
+    assert counter("K1.launches") == counts[0]
+    assert counter("K1b.launches") > counts[1]
+    assert counter("K2.launches") > counts[2]
     assert img.shape == (36, 64, 3) and np.isfinite(img).all()
 
 
@@ -460,10 +461,10 @@ def test_marble_grad_equals_plain(cuda, mask_kind):
     gen = torch.Generator(device=cuda).manual_seed(11)
     grad_out = torch.rand(point.shape, device=cuda, generator=gen) - 0.5
     _, saved = noise_texture_saved(ttype, scale, point, value, tables)
-    before = noise_texture_grad.launches
+    before = counter("K2b.launches")
     got = noise_texture_grad(scale, point, grad_out, tables, saved)
     torch.cuda.synchronize()
-    assert noise_texture_grad.launches == before + 1
+    assert counter("K2b.launches") == before + 1
     ref = noise_texture_grad_plain(ttype, scale, point, grad_out, tables)
     _grad_rules(got, ref, noise)
     with pytest.raises(ValueError, match="mask"):
@@ -484,11 +485,11 @@ def test_marble_save_equals_plain(cuda, n):
     keys = (17, 200, 3, 99, 255, 0, 0xDEADBEEF)
     tables = TextureTables(None, None, keys, perlin.PerlinTables(
         keys, **_hash_tables(keys, cuda)))
-    before = (noise_texture.launches, noise_texture.saves)
+    before = (counter("K2.launches"), counter("K2.saves"))
     out, (mask, turb) = noise_texture_saved(ttype, scale, point, value,
                                             tables)
     torch.cuda.synchronize()
-    assert (noise_texture.launches, noise_texture.saves) == \
+    assert (counter("K2.launches"), counter("K2.saves")) == \
         (before[0] + 1, before[1] + 1)
     ref, (mask_p, turb_p) = noise_texture_saved_plain(ttype, scale, point,
                                                       value, tables)
@@ -502,15 +503,15 @@ def test_render_without_grad_saves_nothing(cuda):
     """A render (no grad) launches K2 without its save; a train step's
     forward launches it with the save, and its backward K2b."""
     scene = build_scene("final")
-    before = (noise_texture.launches, noise_texture.saves)
+    before = (counter("K2.launches"), counter("K2.saves"))
     render_image(scene, RenderSettings(64, 36, 1, 3), cuda)
-    assert noise_texture.launches > before[0]
-    assert noise_texture.saves == before[1]
+    assert counter("K2.launches") > before[0]
+    assert counter("K2.saves") == before[1]
     st = to_device(scene.arrays, scene.static, cuda)
-    counts = (noise_texture.saves, noise_texture_grad.launches)
+    counts = (counter("K2.saves"), counter("K2b.launches"))
     _loss_and_grads(scene, st, cuda, 32, 18, 1, 2)
-    assert noise_texture.saves > counts[0]
-    assert noise_texture_grad.launches > counts[1]
+    assert counter("K2.saves") > counts[0]
+    assert counter("K2b.launches") > counts[1]
 
 
 def test_marble_backward_runs_k2b(cuda):
@@ -522,11 +523,11 @@ def test_marble_backward_runs_k2b(cuda):
     ttype = gi[:, 5]
     leaves = [x.detach().clone().requires_grad_()
               for x in (scale, point, value)]
-    counts = (noise_texture.launches, noise_texture_grad.launches)
+    counts = (counter("K2.launches"), counter("K2b.launches"))
     out = noise_texture(ttype, *leaves, tables)
     weight = torch.linspace(-1, 1, out.numel(), device=cuda).view_as(out)
     got = torch.autograd.grad((out * weight).sum(), leaves)
-    assert (noise_texture.launches, noise_texture_grad.launches) == \
+    assert (counter("K2.launches"), counter("K2b.launches")) == \
         (counts[0] + 1, counts[1] + 1)
     rp, rs, rv = noise_texture_grad_plain(ttype, scale, point, weight,
                                           tables)
@@ -553,10 +554,10 @@ def test_train_step_gradients_are_reproducible(cuda, name):
     and gradients: the gathers' backward (K3) sums in one fixed order."""
     scene = build_scene(name)
     st = to_device(scene.arrays, scene.static, cuda)
-    before = segment_sum.launches
+    before = counter("K3.launches")
     loss_a, g_a = _loss_and_grads(scene, st, cuda, 64, 36, 2, 4)
     loss_b, g_b = _loss_and_grads(scene, st, cuda, 64, 36, 2, 4)
-    assert segment_sum.launches > before
+    assert counter("K3.launches") > before
     assert torch.equal(loss_a, loss_b)
     assert g_a.keys() == g_b.keys() and "geom.p0" in g_a
     for k in g_a:
@@ -602,10 +603,10 @@ def test_segment_sum_equals_plain(cuda, n, n_rows, f, kind):
     counts that are not a multiple of its 8,192-lane tile; rows wider
     than one of the reduction's column slices (40 > 31)."""
     src, idx = _segment_case(n, n_rows, f, kind, cuda)
-    before = segment_sum.launches
+    before = counter("K3.launches")
     got = segment_sum(src, idx, n_rows)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + (n > 0)
+    assert counter("K3.launches") == before + (n > 0)
     ref = segment_sum_plain(src, idx, n_rows)
     assert torch.equal(got, ref)
     assert torch.equal(segment_sum(src, idx, n_rows), got)
@@ -631,7 +632,7 @@ def test_segment_sum_tree_across_kernel_edges(cuda, offset):
 
 
 def test_segment_sum_counts_one_launch_and_sorts_itself(cuda, monkeypatch):
-    """One call adds exactly one to ``segment_sum.launches``, and the card
+    """One call adds exactly one to ``K3.launches``, and the card
     path orders the lanes itself: ``torch.sort`` (and ``Tensor.sort``)
     raise for the duration of the call."""
     src, idx = _segment_case(100_003, 486, 20, "skew", cuda)
@@ -642,10 +643,10 @@ def test_segment_sum_counts_one_launch_and_sorts_itself(cuda, monkeypatch):
 
     monkeypatch.setattr(torch, "sort", no_sort)
     monkeypatch.setattr(torch.Tensor, "sort", no_sort)
-    before = segment_sum.launches
+    before = counter("K3.launches")
     got = segment_sum(src, idx, 486)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 1
+    assert counter("K3.launches") == before + 1
     monkeypatch.undo()
     assert torch.equal(got, ref)
 
@@ -653,9 +654,9 @@ def test_segment_sum_counts_one_launch_and_sorts_itself(cuda, monkeypatch):
 def test_gather_rows_backward_runs_k3(cuda):
     table = torch.randn((486, 20), device=cuda, requires_grad=True)
     src, idx = _segment_case(50_000, 486, 20, "skew", cuda)
-    before = segment_sum.launches
+    before = counter("K3.launches")
     (g,) = torch.autograd.grad(gather_rows(table, idx), table, src)
-    assert segment_sum.launches == before + 1
+    assert counter("K3.launches") == before + 1
     assert torch.equal(g, segment_sum_plain(src, idx, 486))
     with pytest.raises(ValueError, match="shape"):
         segment_sum(src, idx[:-1], 486)
@@ -787,9 +788,9 @@ def test_bvh_traverse_counter_and_validation(cuda):
     scene, st = _bvh_scene("cornell", 4, cuda)
     s = _rays(scene, st, 16, 9, cuda)
     bits = prng.bounce_base(s.base, 0)
-    before = bvh_traverse.launches
+    before = counter("K4.launches")
     bvh_traverse(st.bvh, s.o, s.d, s.time, s.alive, bits)
-    assert bvh_traverse.launches == before + 1
+    assert counter("K4.launches") == before + 1
     with pytest.raises(TypeError):
         bvh_traverse(st.bvh, s.o.double(), s.d, s.time, s.alive, bits)
     with pytest.raises(ValueError, match="is on cpu"):
@@ -800,9 +801,9 @@ def test_bvh_traverse_counter_and_validation(cuda):
 def test_bvh_render_on_card_equals_sweep(cuda, name):
     scene = build_scene(name)
     s = dict(width=64, height=36, samples=2, depth=4)
-    before = bvh_traverse.launches
+    before = counter("K4.launches")
     bvh = render_image(scene, RenderSettings(**s, intersector="bvh"), cuda)
-    assert bvh_traverse.launches > before
+    assert counter("K4.launches") > before
     sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
                          cuda)
     np.testing.assert_array_equal(bvh, sweep)
@@ -926,9 +927,9 @@ def test_cluster_sweep_counter_and_validation(cuda):
     scene, st = _cluster_scene("cornell", cuda)
     s = _rays(scene, st, 16, 9, cuda)
     bits = prng.bounce_base(s.base, 0)
-    before = cluster_sweep.launches
+    before = counter("K5.launches")
     cluster_sweep(st.cluster, s.o, s.d, s.time, s.alive, bits)
-    assert cluster_sweep.launches == before + 1
+    assert counter("K5.launches") == before + 1
     with pytest.raises(TypeError):
         cluster_sweep(st.cluster, s.o.double(), s.d, s.time, s.alive, bits)
     with pytest.raises(ValueError, match="is on cpu"):
@@ -945,11 +946,11 @@ def test_cluster_sweep_window_is_the_plain_versions(cuda, monkeypatch):
     scene, st = _cluster_scene("cornell", cuda)
     s = _rays(scene, st, 16, 9, cuda)
     monkeypatch.setattr(k5, "WINDOW", k5.WINDOW // 2)
-    before = cluster_sweep.launches
+    before = counter("K5.launches")
     with pytest.raises(RuntimeError, match="window"):
         cluster_sweep(st.cluster, s.o, s.d, s.time, s.alive,
                       prng.bounce_base(s.base, 0))
-    assert cluster_sweep.launches == before
+    assert counter("K5.launches") == before
 
 
 @pytest.mark.parametrize("name", ["random", "final", "cornell",
@@ -957,10 +958,10 @@ def test_cluster_sweep_window_is_the_plain_versions(cuda, monkeypatch):
 def test_cluster_render_on_card_equals_sweep(cuda, name):
     scene, _ = _cluster_scene(name, "cpu")
     s = dict(width=64, height=36, samples=2, depth=4)
-    before = cluster_sweep.launches
+    before = counter("K5.launches")
     clus = render_image(scene, RenderSettings(**s, intersector="cluster"),
                         cuda)
-    assert cluster_sweep.launches > before
+    assert counter("K5.launches") > before
     sweep = render_image(scene, RenderSettings(**s, intersector="sweep"),
                          cuda)
     np.testing.assert_array_equal(clus, sweep)
@@ -1070,9 +1071,9 @@ def test_partitioned_render_on_card_equals_plain(cuda, name, monkeypatch):
     monkeypatch.setattr(partition, "PART_SAVED_MIN", 0.0)
     scene = build_scene(name)
     s = dict(width=64, height=36, samples=2, depth=6, spp_chunk=1)
-    before = (typed_sweep.partitioned, sphere_sweep.partitioned)
+    before = (counter("K1b.partitioned"), counter("K1.partitioned"))
     img = render_image(scene, RenderSettings(**s), cuda)
-    assert (typed_sweep.partitioned, sphere_sweep.partitioned) != before
+    assert (counter("K1b.partitioned"), counter("K1.partitioned")) != before
     plain = render_image(scene, RenderSettings(**s, partition=False), cuda)
     np.testing.assert_array_equal(img, plain)
 
@@ -1132,9 +1133,9 @@ def test_bf16_typed_sweep_equals_plain(cuda, name, bounces):
     args = (st.sweep, s.o.contiguous(), s.d.contiguous(),
             s.time.contiguous(), s.alive.contiguous(),
             prng.bounce_base(s.base, bounces).contiguous())
-    before = typed_sweep.bf16
+    before = counter("K1b.bf16")
     t_k, b_k = typed_sweep(*args, bf16=True)
-    assert typed_sweep.bf16 == before + 1
+    assert counter("K1b.bf16") == before + 1
     torch.cuda.synchronize()
     t_p, b_p = typed_sweep_plain(*args, bf16=True)
     assert torch.equal(b_k, b_p) and torch.equal(t_k, t_p)
@@ -1311,9 +1312,9 @@ def test_bf16_render_goes_through_the_bf16_form(cuda):
     scene = build_scene("three-spheres")
     s = dict(width=48, height=27, samples=8, depth=5)
     img32 = render_image(scene, RenderSettings(**s), cuda)
-    k1, k1b = sphere_sweep.launches, typed_sweep.bf16
+    k1, k1b = counter("K1.launches"), counter("K1b.bf16")
     img16 = render_image(scene, RenderSettings(**s, bf16_hits=True), cuda)
-    assert sphere_sweep.launches == k1 and typed_sweep.bf16 > k1b
+    assert counter("K1.launches") == k1 and counter("K1b.bf16") > k1b
     assert np.abs(img16 - img32).mean() < 0.01
 
 

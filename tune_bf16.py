@@ -349,7 +349,8 @@ def shapes(nvcc, flags, parent=None):
             sw.geo.data_ptr(), sw.aux.data_ptr(), sw.xf.data_ptr(),
             sw.plan_rows.data_ptr(), len(sw.plan), sw.geo.shape[0],
             sw.shutter.data_ptr(), 0, T_MIN, None, 0, 0, 0, 0, 0,
-            records.data_ptr(), t_best.data_ptr(), best.data_ptr())
+            records.data_ptr(), t_best.data_ptr(), best.data_ptr(),
+            tag="K1b", lanes=n)
         return t_best, best
 
     def time_ms(fn, reps=5):
