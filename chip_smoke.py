@@ -8,13 +8,14 @@ rounding), renders the committed goldens through them, and drives the
 main paths through the entry points a user calls: the CLI's default
 workload (`random`, 1280x720, 100 spp, depth 10; sphere sweep K1), the
 bench workload (`final`, 400x225, 16 spp, depth 10; typed sweep K1b and
-the noise texture's marble turbulence K2), and the adam train step at
-bench_grad.py's workload (400x225, 8 spp, depth 8: `random` through K1
-and K3, `final` through K1b, K2, K2b and K3; `random` at depth 50 with
-remat through the train CLI), whose gradients it holds against the
-port's CPU gradients and against themselves: two steps from one restored
-state give bit-equal gradients on `random`, `final` and `earth`, and it
-times what K3 costs a train step against ``index_add_``.  BVH mode
+the fused shading K6, the noise texture's marble inside it), and the
+adam train step at bench_grad.py's workload (400x225, 8 spp, depth 8:
+`random` through K1 and K3, `final` through K1b, K2, K2b and K3;
+`random` at depth 50 with remat through the train CLI), whose gradients
+it holds against the port's CPU gradients and against themselves: two
+steps from one restored state give bit-equal gradients on `random`,
+`final` and `earth`, and it times what K3 costs a train step against
+``index_add_``.  BVH mode
 (phases 18-19): the traversal kernel K4 against its plain version on
 every scene kind, leaf size and bounce, and on rays built to meet the
 slab test's 0 * inf, timed beside the sweeps on the same rays and on
@@ -85,8 +86,11 @@ counted, timed beside K1b float32 and K1 on `sphereflake`'s camera
 rays with the share of pairs whose bf16 discriminant is >= 0, the
 images' drift against float32, `sphereflake`'s mean radiance both
 ways, and F6's repair (the card's camera rays bit-equal to the
-CPU's).  Each phase prints one line, with its seconds; any failure ends
-the run with a non-zero exit.
+CPU's).  The fused shading K6 (phase 28, ``ops/shade.py``): bit-equal
+to the eager ``render.shade_hits`` on bounces 0-2 of a CLI chunk of
+`final` and of `sphereflake`, timed beside it and its byte bound.  Each
+phase prints one line, with its seconds; any failure ends the run with
+a non-zero exit.
 The last three lines are the card's name and power limit (nvidia-smi),
 one JSON object with a record per kernel, and
 ``{"ok": true, "device": {...}}``.
@@ -97,7 +101,7 @@ archive`` of the parent) makes phase 15 build that checkout's K3 design
 with this one on the same inputs; the kernels line's ``parent_ms`` is
 then that time, else null.  ``--only-parallel`` builds the kernels and
 runs phase 26 alone, without the result lines; ``--only-bf16`` phase
-27 alone.
+27 alone, ``--only-shade`` phase 28 alone.
 
 Exits non-zero without a result when no CUDA device is available, and
 when the port's package is not beside this script.
@@ -122,7 +126,7 @@ ROOT = Path(__file__).resolve().parent
 BIG = float(np.float32(3.0e38))
 T_MIN = 1.0e-3
 KERNELS = ("sphere_sweep", "typed_sweep", "turbulence", "segment_sum",
-           "bvh_traverse", "cluster_sweep")
+           "bvh_traverse", "cluster_sweep", "shade")
 PROBES = "sweep_probe"  # K1b's segment folds one per kernel, never launched
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM at 3.35 TB/s, FP32 outside
@@ -2272,7 +2276,7 @@ def cluster_phase(dev, kinds, reset_counts, counts, flake_bvh_png,
         bench_launched = counts()
         assert rc == 0, f"CLI exit code {rc}"
         assert bench_launched["cluster_sweep"] > 0 and \
-            bench_launched["turbulence"] > 0, bench_launched
+            bench_launched["shade"] > 0, bench_launched
         assert bench_launched["typed_sweep"] == 0, bench_launched
         bench_png = read_png(out)
     bench_parts = (bench_png != final_sweep_png).any(-1)
@@ -2701,7 +2705,8 @@ HAND = {"K1": ("sphere_sweep_kernel", "trace"),
         "K1b": ("typed_sweep_kernel", "trace"),
         "K2": ("noise_texture_kernel", "shade"),
         "K4": ("bvh_traverse_kernel", "trace"),
-        "K5": ("cluster_sweep_kernel", "trace")}
+        "K5": ("cluster_sweep_kernel", "trace"),
+        "K6": ("shade_kernel", "shade")}
 
 
 def render_profile(dev, name, settings):
@@ -3097,7 +3102,7 @@ def parallel_phase(dev, reset_counts, counts, smi, sizes=PARALLEL_SIZES):
         for g in got[1:]:
             assert g[c]["digests"] == got[0][c]["digests"], cases[c]
     for c, want, kernels in ((0, ref, ("sphere_sweep",)),
-                             (1, bench_ref, ("typed_sweep", "turbulence")),
+                             (1, bench_ref, ("typed_sweep", "shade")),
                              (2, flake_ref, ("cluster_sweep",))):
         workload = cases[c][1]
         img = gamma_image(got[0][c]["sums"][0], workload[3], workload[1],
@@ -3121,8 +3126,8 @@ def parallel_phase(dev, reset_counts, counts, smi, sizes=PARALLEL_SIZES):
              f"K1 launches by rank {by_rank(0, 'sphere_sweep')}, "
              f"partitioned bounces by rank "
              f"{[g[0]['partitioned'] for g in got]}; {label(bench)} {wall(1):.3f} s (single {bench_s:.3f} s), "
-             f"K1b / K2 launches by rank "
-             f"{by_rank(1, 'typed_sweep', 'turbulence')}, partitioned "
+             f"K1b / K6 launches by rank "
+             f"{by_rank(1, 'typed_sweep', 'shade')}, partitioned "
              f"bounces by rank {[g[1]['partitioned'] for g in got]}; "
              f"{label(flake)} in cluster mode {wall(2):.3f} s (single "
              f"{flake_s:.3f} s), K5 launches by rank "
@@ -3494,13 +3499,101 @@ def f6_pin(dev):
             f"vs CPU (asserted); the lanes still parting: phase 20's line")
 
 
+# Phase 28: K6 at the main path's shape, a chunk of the CLI default
+# (1280x720, 9 spp: 8,294,400 lanes), on the two benchmark scenes.
+K6_SHAPE = (1280, 720, 9)
+# Bytes a lane K6 must move (csrc/shade.cu's contract): it reads o, d
+# (24), the bounce word (8), t and prim (8), alive (1), throughput and
+# radiance (24), and time (4) in a scene with motion; it writes o, d,
+# throughput, radiance (48) and alive (1).  The winners' rows and the
+# texels stay in L1 and L2 and are not counted.
+K6_LANE_BYTES = 65 + 49
+K6_MOTION_BYTES = 4
+
+
+def k6_phase(dev, ptxas_note):
+    """K6 (``ops/shade.shade_lanes``) against its plain version, the
+    eager ``render.shade_hits`` (``fused_shading`` held false), on the
+    same inputs: bounces 0-2 of a ``K6_SHAPE`` chunk of `final` and of
+    `sphereflake` (its BVH order), each bounce's o, d, throughput,
+    radiance and alive bit-equal (asserted), the next bounce from the
+    eager survivors.  Times: K6's kernel on the device (``device_ms``),
+    both paths a call in turns, and K6's byte bound.  Returns (text,
+    record of `final`'s bounce 0 for the kernels line)."""
+    from hyper_ray_tracer_tpu_torch import build_scene
+    from hyper_ray_tracer_tpu_torch import render as R
+    from hyper_ray_tracer_tpu_torch.camera import make_basis
+    from hyper_ray_tracer_tpu_torch.ops import rng as prng
+    from hyper_ray_tracer_tpu_torch.ops.shade import shade_lanes
+    from hyper_ray_tracer_tpu_torch.scene_tensors import to_device
+
+    W, H, spp = K6_SHAPE
+    pix = torch.arange(W * H, dtype=torch.int64, device=dev).repeat(spp)
+    smp = torch.arange(spp, dtype=torch.int64,
+                       device=dev).repeat_interleave(W * H)
+    fused = R.fused_shading
+    sky = (R._SKY_WHITE, R._SKY_BLUE)
+    texts, record = [], None
+    for name in ("final", "sphereflake"):
+        scene = build_scene(name)
+        arrays, structure, mode = R.prepare_scene(scene, None)
+        st = to_device(arrays, scene.static, dev, structure)
+        state = R.init_state(make_basis(scene.camera, W, H), W, H, pix, smp,
+                             3)
+        lane_bytes = K6_LANE_BYTES + (K6_MOTION_BYTES
+                                      if scene.static.has_motion else 0)
+        rows = []
+        for b in range(3):
+            bb = prng.bounce_base(state.base, b)
+            t_hit, prim = R.trace(st, state, bb)
+            args = (st, state.o, state.d, state.time, bb, t_hit, prim,
+                    state.alive, state.throughput, state.radiance,
+                    scene.background, sky)
+
+            def eager(*_):
+                R.fused_shading = lambda *a: False
+                try:
+                    return R.shade_hits(st, scene.background, state, bb,
+                                        t_hit, prim)
+                finally:
+                    R.fused_shading = fused
+
+            o, d, alive, thr, rad = shade_lanes(*args)
+            ref = eager()
+            assert torch.equal(alive, ref.alive), (name, b, "alive")
+            for f, x in (("o", o), ("d", d), ("throughput", thr),
+                         ("radiance", rad)):
+                assert torch.equal(x.view(torch.int32),
+                                   getattr(ref, f).view(torch.int32)), \
+                    (name, b, f)
+            ms = device_ms(shade_lanes, args, 20, only=("shade_kernel",))
+            call_ms, plain_ms = in_turns(eager, shade_lanes, args, 3, 20)
+            n = state.o.shape[0]
+            bnd = bound(n * lane_bytes, 0)
+            rows.append((b, n, ms, call_ms, plain_ms, bnd))
+            if name == "final" and b == 0:
+                record = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                          "bound_by": bnd[1]}
+            keep = ref.alive.nonzero().squeeze(1)
+            state = R.WavefrontState(*(x.index_select(0, keep) for x in ref))
+        texts.append(f"{name} ({mode}, {lane_bytes} B a lane): " + "; ".join(
+            f"bounce {b} {n} lanes: K6 {ms:.4f} ms on the device ({call:.4f}"
+            f" ms a call), eager {plain:.4f} ms a call ({plain / call:.1f}x),"
+            f" bound {bnd[0]:.4f} ms ({bnd[1]}), {bnd[0] / ms:.3f} of it"
+            for b, n, ms, call, plain, bnd in rows))
+    return (f"K6 vs the eager shade_hits on the card, bounces 0-2 of a "
+            f"{W}x{H}x{spp} chunk, bit-equal in o, d, throughput, radiance "
+            f"and alive (asserted): " + " | ".join(texts)
+            + f"; ptxas: {ptxas_note}"), record
+
+
 def kernel_wrappers():
     """Each hand kernel's wrapper by name, with the tag its launches are
     counted under in the port's registry (``utils/profiling.py``:
     ``<tag>.launches``)."""
     return {"sphere_sweep": "K1", "typed_sweep": "K1b", "turbulence": "K2",
             "turbulence_bwd": "K2b", "segment_sum": "K3",
-            "bvh_traverse": "K4", "cluster_sweep": "K5"}
+            "bvh_traverse": "K4", "cluster_sweep": "K5", "shade": "K6"}
 
 
 def reset_launches(wrappers):
@@ -3533,6 +3626,9 @@ def main(argv=None) -> int:
                          "with several cards")
     ap.add_argument("--only-bf16", action="store_true",
                     help="build the kernels and run phase 27 alone (no "
+                         "result line)")
+    ap.add_argument("--only-shade", action="store_true",
+                    help="build the kernels and run phase 28 alone (no "
                          "result line)")
     args = ap.parse_args(argv)
     parent = args.parent
@@ -3612,8 +3708,8 @@ def main(argv=None) -> int:
         cuda_build.load(name)
         notes.append(f"{name}: {resources(ptxas[name])}")
     # K4 walks a stack in local memory by design, and spills nothing; nor
-    # do K3 and K5.
-    for name in ("bvh_traverse", "segment_sum", "cluster_sweep"):
+    # do K3, K5 and K6.
+    for name in ("bvh_traverse", "segment_sum", "cluster_sweep", "shade"):
         assert all(r[2] == 0 for r in ptxas[name].values()), \
             f"{name} spills: {ptxas[name]}"
     # The sweeps' ray-packet size R (rays per thread), the header's kRays.
@@ -3642,6 +3738,11 @@ def main(argv=None) -> int:
               + " | F6: " + f6_pin(dev))
         print(smi)
         print("chip_smoke --only-bf16: phases 2-26 not run; no result")
+        return 0
+    if args.only_shade:
+        phase(28, k6_phase(dev, resources(ptxas["shade"]))[0])
+        print(smi)
+        print("chip_smoke --only-shade: phases 2-27 not run; no result")
         return 0
     if args.only_parallel:
         phase(26, parallel_phase(dev, reset_counts, counts, smi))
@@ -3945,7 +4046,7 @@ def main(argv=None) -> int:
           f"{k2_sass['branch']:.0f} more on branches; ptxas: "
           f"{resources(ptxas['turbulence'])}")
 
-    # Phase 7: the goldens of the scenes K1b and K2 open, on the card.
+    # Phase 7: the goldens of the scenes K1b and K6 open, on the card.
     glines = []
     saves = counter("K2.saves")
     for name, spp, depth in (("final", 1, 5), ("cornell", 4, 8),
@@ -3961,9 +4062,9 @@ def main(argv=None) -> int:
         launched = counts()
         uses = {"sphere_sweep": st.sphere_only,
                 "typed_sweep": not st.sphere_only,
-                "turbulence": scene.static.has_noise_tex,
-                "turbulence_bwd": False, "segment_sum": False,
-                "bvh_traverse": False}
+                "turbulence": False, "turbulence_bwd": False,
+                "segment_sum": False, "bvh_traverse": False,
+                "shade": True}
         for kname, used in uses.items():
             assert (launched[kname] > 0) == used, (name, kname, launched)
         med, mean, outl = golden_errors(img, golden)
@@ -4000,7 +4101,7 @@ def main(argv=None) -> int:
         final_launches = counts()
         assert rc == 0, f"CLI exit code {rc}"
         assert final_launches["typed_sweep"] > 0, "the bench path missed K1b"
-        assert final_launches["turbulence"] > 0, "the bench path missed K2"
+        assert final_launches["shade"] > 0, "the bench path missed K6"
         png = read_png(out)
         final_sweep_png = png
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4232,6 +4333,10 @@ def main(argv=None) -> int:
                                         ptxas=bf16_ptxas)
     phase(27, bf16_text + " | F6: " + f6_pin(dev))
 
+    # Phase 28: K6 against the eager shading at the main path's shape.
+    k6_text, k6_record = k6_phase(dev, resources(ptxas["shade"]))
+    phase(28, k6_text)
+
     kernels = [
         {"name": "sphere_sweep", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/sphere_sweep.cu",
@@ -4250,7 +4355,7 @@ def main(argv=None) -> int:
         {"name": "turbulence", "route": "cuda",
          "source": "hyper_ray_tracer_tpu_torch/csrc/turbulence.cu",
          "replaces": "tools/prof_tex.py:69",
-         "launches": final_launches["turbulence"],
+         "launches": final_train["launched"]["turbulence"],
          "max_abs_err": max(v["err"] for v in k2.values()),
          "ms": k2["real mask"]["ms"], "plain_ms": k2["real mask"]["plain_ms"],
          "bound_ms": k2["real mask"]["bound"][0],
@@ -4300,6 +4405,12 @@ def main(argv=None) -> int:
          "ms": bf16_record["ms"], "plain_ms": bf16_record["plain_ms"],
          "bound_ms": bf16_record["bound_ms"],
          "bound_by": bf16_record["bound_by"], "library_ms": None},
+        {"name": "shade", "route": "cuda",
+         "source": "hyper_ray_tracer_tpu_torch/csrc/shade.cu",
+         "replaces": "hyper_ray_tracer_tpu_torch/render.py shade_hits "
+                     "(its eager operations; no TPU kernel)",
+         "launches": final_launches["shade"], "max_abs_err": 0.0,
+         **k6_record, "library_ms": None},
     ]
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

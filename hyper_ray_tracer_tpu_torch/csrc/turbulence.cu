@@ -24,7 +24,8 @@
 // calls.  The permutations and gradients come from the scene's own
 // tables (SceneArrays.perlin), which equal the plain version's per-lane
 // hashes entry for entry (tests/test_torch_perlin.py), so the two agree
-// bit for bit.
+// bit for bit.  The forward's octaves and tables live in marble.cuh,
+// which the fused shading kernel (shade.cu, K6) includes too.
 //
 // What bounds it on this card.  The contract needs ~680 FP32 operations
 // per noise lane once the permutations and gradients are table lookups
@@ -102,6 +103,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "marble.cuh"
+
 namespace {
 
 // kSteps, kCopies and kMinBlocks are the fastest variant without spills
@@ -114,18 +117,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kSteps = 4;  // flags each thread reads per tile
 constexpr int kTile = kThreads * kSteps;
 constexpr int kWords = kSteps * kWarps;  // a tile's ballot words
-constexpr int kDepth = 7;   // textures/noise_texture.rs:28
+constexpr int kDepth = hrt::kMarbleOctaves;
 constexpr int kCopies = 4;  // gradient table copies
 static_assert(kWords % 32 == 0, "warp 0 scans kWords / 32 words a lane");
 
-constexpr uint32_t kRow = kCopies * sizeof(float4);  // a gradient's copies
-static_assert(255 * kRow < 65536, "a permutation pair packs two 16-bit "
-              "offsets");
-
-struct Smem {
-  float4 grad[256][kCopies];
-  // perm[i] * kRow | perm[(i + 1) & 255] * kRow << 16
-  uint32_t perm[3][256];
+// The tables (marble.cuh), then the walk's tile.
+struct Smem : hrt::PerlinSmem<kCopies> {
   int list[kTile];        // the tile's noise lanes, in launch order
   uint32_t ballot[kWords];
   int offset[kWords + 1];
@@ -176,100 +173,6 @@ struct MaskFlags {
   }
 };
 
-struct Tables {
-  const float* vectors;
-  const int* perm_x;
-  const int* perm_y;
-  const int* perm_z;
-};
-
-__device__ __forceinline__ float smooth(float u) {
-  return __fmul_rn(__fmul_rn(u, u), __fsub_rn(3.0f, __fmul_rn(2.0f, u)));
-}
-
-// One octave's lattice cell: the smoothed fractions (and the raw ones,
-// which the derivative needs) and the corners' gradient-row offsets.
-struct Cell {
-  float u[3], s[3];
-  uint32_t o[3][2];  // byte offsets, this lane's copy folded into x
-};
-
-__device__ __forceinline__ Cell cell(const Smem& sh, int q, float x, float y,
-                                     float z) {
-  Cell c;
-  const float p[3] = {x, y, z};
-  uint32_t pr[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float f = floorf(p[a]);
-    c.u[a] = __fsub_rn(p[a], f);
-    c.s[a] = smooth(c.u[a]);
-    pr[a] = sh.perm[a][static_cast<int>(f) & 255];
-  }
-  const uint32_t copy = static_cast<uint32_t>(q) * sizeof(float4);
-  c.o[0][0] = (pr[0] & 0xFFFFu) | copy;
-  c.o[0][1] = (pr[0] >> 16) | copy;
-#pragma unroll
-  for (int a = 1; a < 3; ++a) {
-    c.o[a][0] = pr[a] & 0xFFFFu;
-    c.o[a][1] = pr[a] >> 16;
-  }
-  return c;
-}
-
-__device__ __forceinline__ float4 corner_grad(const Smem& sh, const Cell& c,
-                                              int dx, int dy, int dz) {
-  const char* grad = reinterpret_cast<const char*>(sh.grad);
-  return *reinterpret_cast<const float4*>(
-      grad + (c.o[0][dx] ^ c.o[1][dy] ^ c.o[2][dz]));
-}
-
-// One octave of gradient noise (ops/perlin.py:_noise_xyz) from the
-// tables, rounded as the plain version; `q` picks this lane's copy of the
-// gradients.
-__device__ __forceinline__ float noise(const Smem& sh, int q, float x,
-                                       float y, float z) {
-  const Cell c = cell(sh, q, x, y, z);
-  const float sx = c.s[0], sy = c.s[1], sz = c.s[2];
-  // Corner offset 0: lerp weight 1 - s, weight vector s; offset 1: lerp
-  // weight s, weight vector s - 1.
-  const float ax = __fsub_rn(1.0f, sx), ay = __fsub_rn(1.0f, sy),
-              az = __fsub_rn(1.0f, sz);
-  const float bx = __fsub_rn(sx, 1.0f), by = __fsub_rn(sy, 1.0f),
-              bz = __fsub_rn(sz, 1.0f);
-  float acc = 0.0f;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    const float4 g = corner_grad(sh, c, dx, dy, dz);
-    const float wx = dx ? sx : ax, wy = dy ? sy : ay, wz = dz ? sz : az;
-    const float wv_dot = __fadd_rn(
-        __fadd_rn(__fmul_rn(g.x, dx ? bx : sx), __fmul_rn(g.y, dy ? by : sy)),
-        __fmul_rn(g.z, dz ? bz : sz));
-    const float term = __fmul_rn(__fmul_rn(__fmul_rn(wx, wy), wz), wv_dot);
-    acc = k == 0 ? term : __fadd_rn(acc, term);
-  }
-  return acc;
-}
-
-// The signed turbulence sum at the pre-scaled point, rounded as the
-// plain version (ops/perlin.py turbulence_sum_xyz).
-__device__ float octaves(const Smem& sh, int q, float px, float py,
-                         float pz) {
-  float acc = 0.0f;
-  float sc = 1.0f, w = 1.0f;  // 2^k and 0.5^k, exact
-#pragma unroll 1
-  for (int k = 0; k < kDepth; ++k) {
-    const float term = __fmul_rn(
-        w, noise(sh, q, __fmul_rn(px, sc), __fmul_rn(py, sc),
-                 __fmul_rn(pz, sc)));
-    acc = k == 0 ? term : __fadd_rn(acc, term);
-    sc = __fmul_rn(sc, 2.0f);
-    w = __fmul_rn(w, 0.5f);
-  }
-  return acc;
-}
-
 // The gradient of one octave of noise with respect to (x, y, z), added
 // into d[0..2]: plain float operations, which nvcc may contract.  With
 // the corner weights W_c = w_x w_y w_z (w = 1 - s at offset 0, s at 1)
@@ -278,7 +181,7 @@ __device__ float octaves(const Smem& sh, int q, float px, float py,
 // + at offset 1 on axis a, - at 0; then d s / d u = 6 u (1 - u).
 __device__ __forceinline__ void noise_slope(const Smem& sh, int q, float x,
                                             float y, float z, float* d) {
-  const Cell c = cell(sh, q, x, y, z);
+  const hrt::Cell c = hrt::cell(sh, q, x, y, z);
   const float s[3] = {c.s[0], c.s[1], c.s[2]};
   float w[3][2], v[3][2];  // lerp weight and weight-vector component
 #pragma unroll
@@ -302,7 +205,7 @@ __device__ __forceinline__ void noise_slope(const Smem& sh, int q, float x,
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1;
-    const float4 g = corner_grad(sh, c, dx, dy, dz);
+    const float4 g = hrt::corner_grad(sh, c, dx, dy, dz);
     const float dot = g.x * v[0][dx] + g.y * v[1][dy] + g.z * v[2][dz];
     const float lw = wxy[dx][dy] * w[2][dz];
     ds[0] += (dx ? wyz[dy][dz] : -wyz[dy][dz]) * dot + lw * g.x;
@@ -329,27 +232,6 @@ __device__ void turbulence_slope(const Smem& sh, int q, float px, float py,
         noise_slope(sh, q, px * sc, py * sc, pz * sc, d);
       }
     }
-  }
-}
-
-// The marble's argument z + 10 |turbulence| (ops/turbulence.py).
-__device__ __forceinline__ float marble_arg(float pz, float acc) {
-  return __fadd_rn(pz, __fmul_rn(10.0f, fabsf(acc)));
-}
-
-__device__ void stage_tables(Smem& sh, const Tables& t) {
-  const int tid = threadIdx.x;
-  for (int e = tid; e < 256 * kCopies; e += kThreads) {
-    const int h = e / kCopies;
-    sh.grad[h][e % kCopies] = make_float4(
-        t.vectors[3 * h], t.vectors[3 * h + 1], t.vectors[3 * h + 2], 0.0f);
-  }
-  for (int e = tid; e < 3 * 256; e += kThreads) {
-    const int* p = e < 256 ? t.perm_x : e < 512 ? t.perm_y : t.perm_z;
-    const int i = e & 255;
-    sh.perm[e >> 8][i] = static_cast<uint32_t>(p[i] & 255) * kRow |
-                         static_cast<uint32_t>(p[(i + 1) & 255] & 255) * kRow
-                             << 16;
   }
 }
 
@@ -477,11 +359,10 @@ struct Marble {
     const float sc = scale[i * scale_stride];
     const float* p = point + i * point_stride;
     const float pz = __fmul_rn(sc, p[2]);
-    const float acc = octaves(sh, q, __fmul_rn(sc, p[0]),
-                              __fmul_rn(sc, p[1]), pz);
+    const float acc = hrt::octaves(sh, q, __fmul_rn(sc, p[0]),
+                                   __fmul_rn(sc, p[1]), pz);
     if constexpr (kSave) turb[i] = acc;
-    const float m = __fmul_rn(0.5f, __fadd_rn(1.0f, sinf(marble_arg(pz,
-                                                                    acc))));
+    const float m = hrt::marble_value(pz, acc);
     float* o = out + 3LL * i;
     o[0] = m;
     o[1] = m;
@@ -551,7 +432,7 @@ struct MarbleGrad {
     const float spz = __fmul_rn(sc, pz);
     float dA[3];
     turbulence_slope(sh, q, __fmul_rn(sc, px), __fmul_rn(sc, py), spz, dA);
-    const float c = 0.5f * cosf(marble_arg(spz, acc)) * gsum;
+    const float c = 0.5f * cosf(hrt::marble_arg(spz, acc)) * gsum;
     const float k = acc > 0.0f ? 10.0f : acc < 0.0f ? -10.0f : 0.0f;
     const float gx = c * (k * dA[0]), gy = c * (k * dA[1]),
                 gz = c * (1.0f + k * dA[2]);
@@ -564,16 +445,18 @@ struct MarbleGrad {
 
 template <bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-noise_texture_kernel(TypeFlags flags, int n, Marble<kSave> op, Tables t) {
+noise_texture_kernel(TypeFlags flags, int n, Marble<kSave> op,
+                     hrt::PerlinTables t) {
   __shared__ Smem sh;
-  stage_tables(sh, t);
+  hrt::stage_tables(sh, t, threadIdx.x, kThreads);
   walk(sh, flags, n, op);
 }
 
 __global__ void __launch_bounds__(kThreads, kGradMinBlocks)
-noise_texture_grad_kernel(MaskFlags flags, int n, MarbleGrad op, Tables t) {
+noise_texture_grad_kernel(MaskFlags flags, int n, MarbleGrad op,
+                          hrt::PerlinTables t) {
   __shared__ Smem sh;
-  stage_tables(sh, t);
+  hrt::stage_tables(sh, t, threadIdx.x, kThreads);
   walk(sh, flags, n, op);
 }
 
@@ -626,7 +509,7 @@ extern "C" int hrt_noise_texture(
   if (n <= 0 || (mask == nullptr) != (turb == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const TypeFlags flags{ttype, ttype_stride, noise_tag};
-  const Tables t{vectors, perm_x, perm_y, perm_z};
+  const hrt::PerlinTables t{vectors, perm_x, perm_y, perm_z};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask == nullptr) {
     static int resident[64];
@@ -667,6 +550,6 @@ extern "C" int hrt_noise_texture_grad(
       MaskFlags{mask}, n,
       MarbleGrad{scale, scale_stride, point, point_stride, turb, grad_out,
                  grad_point, grad_scale, grad_value},
-      Tables{vectors, perm_x, perm_y, perm_z});
+      hrt::PerlinTables{vectors, perm_x, perm_y, perm_z});
   return static_cast<int>(cudaGetLastError());
 }

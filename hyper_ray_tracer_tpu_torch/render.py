@@ -56,8 +56,15 @@ inside it), ``snapshot`` and ``finish`` (the readback); a profile of a
 render attributes its device time to them.  ``images`` and
 ``camera_rays`` count the work, ``syncs`` each place the host waits for
 the card.  With no profiler active a span costs the host well under a
-microsecond, against the few microseconds of each of a bounce's
-hundreds of eager operations.
+microsecond, against the few microseconds of each of a bounce's eager
+operations.
+
+Shading (``shade_hits``) has two paths that share no logic: a
+forward-only wavefront on the card runs the fused kernel K6
+(``ops/shade.py``), one launch a bounce; the CPU and every call that
+needs autograd's graph (the train step) run the eager operations of
+``ops/intersect.py``, ``ops/textures.py`` and ``ops/materials.py``,
+which are K6's twin on the card, bit for bit.
 """
 
 from __future__ import annotations
@@ -87,6 +94,7 @@ from .ops.intersect import (
 from .ops import partition
 from .ops.materials import shade
 from .ops.math import div_rn
+from .ops.shade import shade_lanes
 from .ops.sphere_sweep import sphere_sweep
 from .ops.typed_sweep import bf16_engages, typed_sweep
 from .scene_tensors import SceneTensors, to_device
@@ -295,6 +303,33 @@ def trace(scene: SceneTensors, state: WavefrontState, bb, mask=None,
                        state.alive, bb, T_MIN, mask=mask)
 
 
+def fused_shading(state: WavefrontState, scene: SceneTensors, t_hit,
+                  differentiable: bool) -> bool:
+    """Whether ``shade_hits`` takes K6 (``ops/shade.py``): a wavefront on
+    the card whose shading needs no graph, i.e. not ``differentiable``
+    and, with grad enabled, no input requiring grad.  Everything else
+    takes the eager path, which autograd differentiates and the CPU
+    runs."""
+    if state.o.device.type != "cuda" or differentiable:
+        return False
+    return not (torch.is_grad_enabled() and any(
+        x.requires_grad for x in (*state, t_hit, scene.fpack,
+                                  scene.tables.images)))
+
+
+def recomputed_t(scene: SceneTensors, pf, state: WavefrontState, bb, t_hit,
+                 differentiable: bool):
+    """The winner's t recomputed from its gathered fields ``pf`` (with
+    gradients only if ``differentiable``).  For the winner the closed
+    form gives the trace's t (in float32 after a bf16 selection); a
+    grazing hit can recompute to a miss (the discriminant rounds to the
+    other side of 0): it keeps the trace's t, gradient-free."""
+    with contextlib.nullcontext() if differentiable else torch.no_grad():
+        t_re = prim_hit_t_lanes(pf, state.o, state.d, state.time, T_MIN,
+                                BIG, bb, scene.static)
+    return torch.where(t_re < 0.5 * BIG, t_re, t_hit)
+
+
 def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
                t_hit, prim, differentiable: bool = False,
                bf16_hits: bool = False) -> WavefrontState:
@@ -305,7 +340,26 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
     ``render.py:420-441``), so that t carries gradients.  ``bf16_hits``
     (sweep mode): recompute it too, without gradients unless
     ``differentiable``, so that a winner picked in bf16 is shaded at its
-    float32 t (the JAX package's ``render.py:423``)."""
+    float32 t (the JAX package's ``render.py:423``).
+
+    Two paths that share no logic: where ``fused_shading`` holds, one
+    launch of K6 (``ops/shade.py``; a bf16 winner's t first recomputed
+    by ``recomputed_t``, as on the eager path), else the eager operations
+    below.  Both count their lanes in ``shade.lanes``."""
+    count("shade.lanes", state.o.shape[0])
+    if fused_shading(state, scene, t_hit, differentiable):
+        if bf16_hits and scene.mode == "sweep":
+            with torch.no_grad():
+                pf, _ = gather_prim_shade_packed(
+                    scene.fpack, scene.ipack, torch.clamp(prim, min=0).long(),
+                    scene.static)
+            t_hit = recomputed_t(scene, pf, state, bb, t_hit, False)
+        o, d, alive, throughput, radiance = shade_lanes(
+            scene, state.o, state.d, state.time, bb, t_hit, prim,
+            state.alive, state.throughput, state.radiance, background,
+            (_SKY_WHITE, _SKY_BLUE))
+        return state._replace(o=o, d=d, alive=alive, throughput=throughput,
+                              radiance=radiance)
     static = scene.static
     o, d, time = state.o, state.d, state.time
     alive, throughput, radiance = state.alive, state.throughput, \
@@ -326,15 +380,9 @@ def shade_hits(scene: SceneTensors, background, state: WavefrontState, bb,
     pf, sf = gather_prim_shade_packed(scene.fpack, scene.ipack, pidx,
                                       static)
     if differentiable or (bf16_hits and scene.mode == "sweep"):
-        # For the winner the closed form gives the trace's t (in float32
-        # after a bf16 selection), now with gradients.  A grazing hit can
-        # recompute to a miss (the discriminant rounds to the other side
-        # of 0): it keeps the trace's t, gradient-free.  Miss lanes take
-        # a finite 1.0: with BIG the hit point overflows, and 0 * inf in a
-        # VJP is NaN.
-        with contextlib.nullcontext() if differentiable else torch.no_grad():
-            t_re = prim_hit_t_lanes(pf, o, d, time, T_MIN, BIG, bb, static)
-        t_hit = torch.where(t_re < 0.5 * BIG, t_re, t_hit)
+        t_hit = recomputed_t(scene, pf, state, bb, t_hit, differentiable)
+    # Miss lanes take a finite 1.0: with BIG the hit point overflows, and
+    # 0 * inf in a VJP is NaN.
     t_use = torch.where(hit, t_hit, 1.0)
     det = hit_detail(pf, o, d, time, t_use, static)
     sc = shade(sf, det, d, bb, static, scene.tables)

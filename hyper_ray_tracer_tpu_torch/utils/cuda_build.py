@@ -15,7 +15,7 @@ is kept next to the library as ``<library>.log``.
 ``check_arg`` and ``launch`` are what every kernel wrapper does around
 its C entry point: validate each tensor it passes, and call the entry
 point on the current stream, raising when the launch was refused.
-``launch`` also traces it under the kernel's tag (``K1`` ... ``K5``):
+``launch`` also traces it under the kernel's tag (``K1`` ... ``K6``):
 a span of that name around the host side of the launch, and the
 counters ``<tag>.launches`` and ``<tag>.lanes`` (``utils/profiling.py``).
 """

@@ -20,10 +20,12 @@ profile capture.
   the block, CPU and (with a card) CUDA activity, written into LOGDIR as
   a Chrome trace that TensorBoard's profiler plugin reads; the CLI's
   ``--profile LOGDIR``.  The hand kernels appear in it under their kernel
-  names, and their launches in the spans ``K1`` ... ``K5``, but the
-  profiler links neither to the other: each kernel's library launches
-  through the CUDA runtime that ``nvcc`` links into it (statically, its
-  default), whose calls the profiler does not see.
+  names, and their launches in the spans ``K1`` ... ``K6``.  The profiler
+  links a kernel only to the operator whose call launched it: K6
+  launches inside an operator of its own (``ops/shade.py``) and is
+  linked, through it, to the ``shade`` span; a launch from plain ctypes
+  (K1 ... K5) is linked to nothing, whichever CUDA runtime its library
+  uses.
 
 Spans and counters are always on, with no switch.  With no profiler
 active a span costs the query whether one is (``record_function`` itself
@@ -49,8 +51,8 @@ Spans:
 * ``train_step`` (``train.train_step_of``'s step) and inside it
   ``forward`` (there ``bind_params`` and ``silhouette``), ``backward``
   and ``optimizer``;
-* ``K1``, ``K1b``, ``K2``, ``K2b``, ``K3``, ``K4``, ``K5``: the host side
-  of each hand-kernel launch (``cuda_build.launch``);
+* ``K1``, ``K1b``, ``K2``, ``K2b``, ``K3``, ``K4``, ``K5``, ``K6``: the
+  host side of each hand-kernel launch (``cuda_build.launch``);
 * ``all_gather`` and ``fold`` (``parallel/collectives.py``).
 
 Counters:
@@ -59,6 +61,8 @@ Counters:
   the lanes (rays) of each (``cuda_build.launch``); ``K1.partitioned``,
   ``K1b.partitioned``, ``K1b.bf16``, ``K2.saves``: the launches of a
   partitioned, bf16 or saving form (the kernel's wrapper);
+* ``shade.lanes``: the lanes of every ``render.shade_hits`` call, on
+  either of its paths (K6's own in ``K6.lanes``);
 * ``camera_rays`` (``render.accumulate_samples``, a chunk at a time),
   ``images`` (``render.render_image``), ``steps`` (the train step);
 * ``syncs`` (``host_sync``): compaction's ``nonzero``, the partition

@@ -422,13 +422,16 @@ def test_typed_sweep_tiles_across_stages(cuda, media):
 
 
 def test_final_render_goes_through_both_kernels(cuda):
+    """A render of `final` traces through K1b and shades through K6,
+    whose marble is K2's arithmetic in the same launch."""
     scene = build_scene("final")
     counts = (counter("K1.launches"), counter("K1b.launches"),
-              counter("K2.launches"))
+              counter("K6.launches"), counter("K2.launches"))
     img = render_image(scene, RenderSettings(64, 36, 1, 3), cuda)
     assert counter("K1.launches") == counts[0]
     assert counter("K1b.launches") > counts[1]
-    assert counter("K2.launches") > counts[2]
+    assert counter("K6.launches") > counts[2]
+    assert counter("K2.launches") == counts[3]
     assert img.shape == (36, 64, 3) and np.isfinite(img).all()
 
 
@@ -500,13 +503,16 @@ def test_marble_save_equals_plain(cuda, n):
 
 
 def test_render_without_grad_saves_nothing(cuda):
-    """A render (no grad) launches K2 without its save; a train step's
-    forward launches it with the save, and its backward K2b."""
+    """A render (no grad) shades its noise lanes inside K6 and launches
+    no K2, so nothing is saved; a train step's forward launches K2 with
+    the save, and its backward K2b."""
     scene = build_scene("final")
-    before = (counter("K2.launches"), counter("K2.saves"))
+    before = (counter("K2.launches"), counter("K2.saves"),
+              counter("K6.launches"))
     render_image(scene, RenderSettings(64, 36, 1, 3), cuda)
-    assert counter("K2.launches") > before[0]
+    assert counter("K2.launches") == before[0]
     assert counter("K2.saves") == before[1]
+    assert counter("K6.launches") > before[2]
     st = to_device(scene.arrays, scene.static, cuda)
     counts = (counter("K2.saves"), counter("K2b.launches"))
     _loss_and_grads(scene, st, cuda, 32, 18, 1, 2)

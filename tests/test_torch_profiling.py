@@ -184,6 +184,12 @@ READINGS = [
             "camera_rays": 100}, {}), 4.0),
     ("trace_lanes_per_ray.bvh_render",
      _snap({"K4.lanes": 230, "K3.lanes": 99, "camera_rays": 100}, {}), 2.3),
+    ("shade_kernel_share.render",
+     _snap({"K6.lanes": 240, "shade.lanes": 300, "K1b.lanes": 300}, {}),
+     0.8),
+    ("shade_kernel_share.bvh_render",
+     _snap({"K6.lanes": 271, "shade.lanes": 271, "camera_rays": 100}, {}),
+     1.0),
 ]
 
 

@@ -87,9 +87,9 @@ def main() -> int:
 
     def build(src):
         lib = src.parent / "libturbulence.so"
-        proc = subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-o", str(lib),
-                               str(src)], capture_output=True, text=True,
-                              timeout=600)
+        proc = subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-I",
+                               str(SRC.parent), "-o", str(lib), str(src)],
+                              capture_output=True, text=True, timeout=600)
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src.parent.name}:\n{log}")
